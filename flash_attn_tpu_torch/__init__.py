@@ -1,0 +1,12 @@
+"""PyTorch + CUDA (Hopper) port of flash_attn_tpu.
+
+Plain tensor code is PyTorch; every Pallas kernel of the JAX package on the
+ported path is a CUDA kernel under ``csrc/``, built with ``nvcc`` at first
+use. Tensors on the CPU take each kernel's plain-torch twin. Importing this
+package imports no JAX.
+"""
+
+from flash_attn_tpu_torch.ops.attention import flash_attention
+
+__all__ = ["flash_attention"]
+__version__ = "0.1.0"

@@ -1,0 +1,137 @@
+"""Build and load the package's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``flash_attn_tpu_torch/csrc/*.cu``
+for ``sm_90a`` into one shared library with a plain C interface, placed in
+``flash_attn_tpu_torch/_build/`` under a name keyed by a hash of the
+sources and flags, and loads it with ``ctypes``. Nothing includes PyTorch's
+headers, so a build takes seconds. Without ``nvcc`` the build raises: there
+is no fallback.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch, or a
+CUDA error code for arguments it refuses; ``check`` raises on any nonzero
+code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, lse, b, h, h_kv, sq, sk, d, scale, causal, dtype, stream
+    "fattn_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k_pages, v_pages, lengths, page_table, out, b, h_kv, group,
+    # num_pages, page_size, pages_max, d, scale, dtype, stream
+    "fattn_paged_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # new_k, new_v, k_pages, v_pages, page_table, lengths, b, h,
+    # num_pages, page_size, pages_max, d, elem_bytes, stream
+    "fattn_append_token": [_P] * 6 + [_I] * 7 + [_P],
+    # k, v, k_pages, v_pages, page_ids, prompt_len, n_pages, h,
+    # num_pages, page_size, d, elem_bytes, stream
+    "fattn_write_pages": [_P] * 5 + [_I] * 7 + [_P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            candidates.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of flash_attn_tpu_torch cannot be built"
+    )
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfattn_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them already exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: refusing to build kernels")
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        loaded = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        loaded.fattn_error_string.argtypes = [ctypes.c_int]
+        loaded.fattn_error_string.restype = ctypes.c_char_p
+        _lib = loaded
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        msg = lib().fattn_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one
+    device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}, need CUDA")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} "
+                             "is not contiguous")

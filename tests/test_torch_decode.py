@@ -1,0 +1,100 @@
+"""flash_attn_tpu_torch paged decode attention against the JAX package.
+
+The same numpy inputs (queries, pages, random page tables, lengths) go to
+both. On the CPU the port runs the kernel's plain-torch twin and JAX runs
+its Pallas kernel in interpret mode. fp32 parity tolerance: atol = rtol =
+1e-5 (different summation order; the observed gap is ~1e-6). The kernel
+itself is tested on the card in test_torch_kernels.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attn_tpu.kernels.decode import (
+    paged_decode_attention as jax_paged_decode_attention,
+)
+from flash_attn_tpu_torch.kernels.decode import paged_decode_attention
+from flash_attn_tpu_torch.reference import attention_ref
+
+ATOL = RTOL = 1e-5
+
+
+def _inputs(seed, lengths, h, h_kv, d, page_size, num_pages, pages_max):
+    """Random q/pages and a page table giving each sequence distinct
+    physical pages (never the reserved page 0)."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((h_kv, num_pages, page_size, d)).astype(np.float32)
+    vp = rng.standard_normal((h_kv, num_pages, page_size, d)).astype(np.float32)
+    table = np.zeros((b, pages_max), np.int32)
+    perm = rng.permutation(np.arange(1, num_pages))
+    used = 0
+    for i, n in enumerate(lengths):
+        need = -(-max(n, 0) // page_size)
+        table[i, :need] = perm[used:used + need]
+        used += need
+    return q, kp, vp, np.asarray(lengths, np.int32), table
+
+
+# (lengths, h, h_kv, d, page_size, pages_max)
+CASES = [
+    ([1, 16, 17, 40], 2, 2, 64, 16, 3),           # one token / full page / next
+    ([33, 48, 5], 4, 2, 64, 16, 4),               # multi-page, GQA group 2
+    ([100, 7], 8, 2, 128, 32, 4),                 # head_dim 128, GQA group 4
+    ([64, 0, 12], 2, 1, 64, 16, 4),               # MQA, an empty sequence
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_matches_jax_fp32(case):
+    lengths, h, h_kv, d, ps, pmax = case
+    q, kp, vp, lens, table = _inputs(0, lengths, h, h_kv, d, ps, 16, pmax)
+    out_j = jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(lens),
+        jnp.asarray(table),
+    )
+    out_t = paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(lens), torch.from_numpy(table),
+    )
+    assert out_t.shape == (len(lengths), h, d)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                               atol=ATOL, rtol=RTOL)
+
+
+def _dense_ref(q, kp, vp, lens, table):
+    """Gather each sequence's keys and run the dense oracle (the query is
+    the last position, so every key below the length is visible)."""
+    outs = []
+    ps = kp.shape[2]
+    for i, n in enumerate(lens.tolist()):
+        if n == 0:
+            outs.append(torch.zeros_like(q[i]))
+            continue
+        pages = table[i, : -(-n // ps)].long()
+        k = kp[:, pages].flatten(1, 2)[:, :n]  # (h_kv, n, d)
+        v = vp[:, pages].flatten(1, 2)[:, :n]
+        outs.append(attention_ref(q[i][:, None], k, v)[:, 0])
+    return torch.stack(outs)
+
+
+def test_plain_twin_matches_dense_oracle():
+    q, kp, vp, lens, table = (torch.from_numpy(x) for x in _inputs(
+        1, [1, 16, 31, 47], 4, 2, 64, 16, 16, 3))
+    out = paged_decode_attention(q, kp, vp, lens, table)
+    torch.testing.assert_close(out, _dense_ref(q, kp, vp, lens, table),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("k_scales", np.ones(1)), ("window_left", 8), ("alibi_slopes", [1.0]),
+    ("softcap", 30.0),
+])
+def test_unported_arguments_raise(name, value):
+    q, kp, vp, lens, table = (torch.from_numpy(x) for x in _inputs(
+        2, [3], 1, 1, 64, 16, 4, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP port item"):
+        paged_decode_attention(q, kp, vp, lens, table, **{name: value})
