@@ -12,7 +12,13 @@
 // hh / (h / h_kv) in place. Causal masking is top-left aligned (key j is
 // visible from query i iff j <= i), as in the JAX package. Ragged sq and sk
 // are masked here; d is not padded. Rows with no visible key give out = 0
-// and lse = -inf.
+// and lse = -inf. The mask is csrc/mask.cuh, shared with the backward.
+//
+// Dropout (flash_fwd.py:363-377 there): the keep mask is the coordinate hash
+// of csrc/prng.cuh on (seed, b * h + head, row, col), its row half computed
+// once per thread. The normalizer l sums the un-dropped p, dropped p is
+// zeroed before P @ V, 1/(1-p) folds into the final scaling, and the lse is
+// that of the un-dropped scores, so the backward can rebuild p from it.
 //
 // Grid: one block per (64-row query tile, head, batch).
 //   - bf16 / fp16: four warps, 16 query rows each, on the tensor cores with
@@ -25,6 +31,9 @@
 // math do not overlap yet; wgmma, TMA and a pipelined ring of tiles are the
 // later work.
 #include "common.cuh"
+#include "mask.cuh"
+#include "mma.cuh"
+#include "prng.cuh"
 
 namespace fattn {
 namespace {
@@ -40,51 +49,12 @@ struct FwdParams {
   int h, h_kv, sq, sk;
   float scale_log2;
   bool causal;
+  Dropout drop;
 };
 
 // ---------------------------------------------------------------- mma path
 
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&x);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 x = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&x);
-  }
-};
-
-// Fragment layouts of mma.m16n8k16 (lane = 4 * g + t):
-//   A (16x16): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   B (16x8):  b0 (k = 2t..2t+1, n = g)          b1 (k = 2t+8.., n = g)
-//   C (16x8):  c0,c1 (g, 2t..2t+1)               c2,c3 (g+8, 2t..2t+1)
+// Fragment layouts: csrc/mma.cuh.
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
     flash_fwd_mma_kernel(const FwdParams p) {
@@ -128,8 +98,14 @@ __global__ void __launch_bounds__(128)
   }
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums, reduced at the end
+  uint32_t rh[2] = {0u, 0u};  // row halves of the dropout hash
+  if (p.drop.on()) {
+    const uint32_t bh = bb * p.h + hh;
+    rh[0] = hash_row(p.drop.seed, bh, row0);
+    rh[1] = hash_row(p.drop.seed, bh, row0 + 8);
+  }
 
-  const int n_keys = p.causal ? min(p.sk, q0 + kBlockQ) : p.sk;
+  const int n_keys = keys_for_rows(q0, kBlockQ, p.sk, p.causal);
   for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
     __syncthreads();  // the previous tile is no longer read
     constexpr int kVecPerRow = D / 8;  // 16-byte vectors
@@ -153,8 +129,7 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint16_t* kr = k_s + (nb * 8 + g) * kStride + kk * 16 + 2 * t;
-        Mma<T>::run(s[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                    *reinterpret_cast<const uint32_t*>(kr + 8));
+        Mma<T>::run(s[nb], qa[kk], ld_pair(kr), ld_pair(kr + 8));
       }
     }
 
@@ -166,7 +141,7 @@ __global__ void __launch_bounds__(128)
         const int col = k0 + nb * 8 + 2 * t + (e & 1);
         const int row = row0 + (e >> 1) * 8;
         float x = s[nb][e] * p.scale_log2;
-        if (col >= p.sk || (p.causal && col > row)) x = -INFINITY;
+        if (!key_visible(row, col, p.sk, p.causal)) x = -INFINITY;
         s[nb][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -200,6 +175,16 @@ __global__ void __launch_bounds__(128)
       o[dn][2] *= alpha[1];
       o[dn][3] *= alpha[1];
     }
+    if (p.drop.on()) {  // after l: the normalizer keeps the dropped p
+#pragma unroll
+      for (int nb = 0; nb < kBlockK / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t col = k0 + nb * 8 + 2 * t + (e & 1);
+          if (!keep_elem(rh[e >> 1], col, p.drop.threshold)) s[nb][e] = 0.f;
+        }
+      }
+    }
 
     // O += P V: the C fragments of two key n-blocks form one A fragment.
 #pragma unroll
@@ -213,10 +198,8 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
         const uint16_t* vr = v_s + (kk * 16 + 2 * t) * kStride + dn * 8 + g;
-        const uint32_t b0 = vr[0] | (uint32_t(vr[kStride]) << 16);
-        const uint32_t b1 =
-            vr[8 * kStride] | (uint32_t(vr[9 * kStride]) << 16);
-        Mma<T>::run(o[dn], pa, b0, b1);
+        Mma<T>::run(o[dn], pa, ld_col_pair(vr, kStride),
+                    ld_col_pair(vr + 8 * kStride, kStride));
       }
     }
   }
@@ -232,7 +215,7 @@ __global__ void __launch_bounds__(128)
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
     if (row >= p.sq) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    const float inv = l[r] > 0.f ? (1.f / l[r]) * p.drop.rp : 0.f;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
       *reinterpret_cast<uint32_t*>(out + (size_t)row * D + dn * 8 + 2 * t) =
@@ -277,8 +260,10 @@ __global__ void __launch_bounds__(256)
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
+  const uint32_t rh =
+      p.drop.on() ? hash_row(p.drop.seed, bb * p.h + hh, row) : 0u;
 
-  const int n_keys = p.causal ? min(p.sk, q0 + kBlockQ) : p.sk;
+  const int n_keys = keys_for_rows(q0, kBlockQ, p.sk, p.causal);
   for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
     __syncthreads();
     for (int i = threadIdx.x; i < kBlockK * D / 4; i += blockDim.x) {
@@ -303,8 +288,8 @@ __global__ void __launch_bounds__(256)
       a += __shfl_xor_sync(0xffffffffu, a, 1);
       a += __shfl_xor_sync(0xffffffffu, a, 2);
       const int col = k0 + j;
-      s[j] = (col >= p.sk || (p.causal && col > row)) ? -INFINITY
-                                                       : a * p.scale_log2;
+      s[j] = key_visible(row, col, p.sk, p.causal) ? a * p.scale_log2
+                                                   : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float base = mx == -INFINITY ? 0.f : mx;
@@ -317,6 +302,12 @@ __global__ void __launch_bounds__(256)
       rs += s[j];
     }
     l = l * alpha + rs;
+    if (p.drop.on()) {  // after l: the normalizer keeps the dropped p
+#pragma unroll
+      for (int j = 0; j < kBlockK; ++j) {
+        if (!keep_elem(rh, k0 + j, p.drop.threshold)) s[j] = 0.f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       float a = acc[i] * alpha;
@@ -328,7 +319,7 @@ __global__ void __launch_bounds__(256)
 
   if (row >= p.sq) return;
   float* out = static_cast<float*>(p.o) + (size_t)(bb * p.h + hh) * p.sq * D;
-  const float inv = l > 0.f ? 1.f / l : 0.f;
+  const float inv = l > 0.f ? (1.f / l) * p.drop.rp : 0.f;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) out[(size_t)row * D + i * 4 + t4] = acc[i] * inv;
   if (p.lse != nullptr && t4 == 0) {
@@ -362,6 +353,7 @@ cudaError_t launch(const FwdParams& p, int dtype, int b, cudaStream_t st) {
 extern "C" int fattn_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int b, int h, int h_kv,
                                int sq, int sk, int d, float scale, int causal,
+                               unsigned seed, unsigned threshold, float rp,
                                int dtype, void* stream) {
   using namespace fattn;
   if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || sq <= 0 || sk <= 0) {
@@ -369,7 +361,7 @@ extern "C" int fattn_flash_fwd(const void* q, const void* k, const void* v,
   }
   const FwdParams p{q,  k,  v,  o,  static_cast<float*>(lse),
                     h,  h_kv, sq, sk, scale * kLog2e,
-                    causal != 0};
+                    causal != 0, Dropout{seed, threshold, rp}};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(p, dtype, b, st);
   if (d == 128) return launch<128>(p, dtype, b, st);

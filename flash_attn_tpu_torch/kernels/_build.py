@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 At first use, ``nvcc`` compiles every ``flash_attn_tpu_torch/csrc/*.cu``
-for ``sm_90a`` into one shared library with a plain C interface, placed in
+for ``sm_90a`` (one process per source, all at once) and links them into
+one shared library with a plain C interface, placed in
 ``flash_attn_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and flags, and loads it with ``ctypes``. Nothing includes PyTorch's
 headers, so a build takes seconds. Without ``nvcc`` the build raises: there
@@ -26,18 +27,21 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, b, h, h_kv, sq, sk, d, scale, causal, dtype, stream
-    "fattn_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, o, lse, b, h, h_kv, sq, sk, d, scale, causal,
+    # seed, threshold, rp, dtype, stream
+    "fattn_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
+    # q, k, v, o, dout, lse, dlse, di, dq_acc, dq, dk, dv, b, h, h_kv, sq,
+    # sk, d, scale, causal, seed, threshold, rp, dtype, stream
+    "fattn_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
     # q, k_pages, v_pages, lengths, page_table, out, b, h_kv, group,
     # num_pages, page_size, pages_max, d, scale, dtype, stream
     "fattn_paged_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
@@ -84,18 +88,38 @@ def build() -> Path:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: refusing to build kernels")
     nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    objs = BUILD_DIR / f"obj_{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
+    jobs = []  # (command, object file, process)
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = objs / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for cmd, _, proc in jobs:
+            output, _ = proc.communicate()
+            _check_run(cmd, proc.returncode, output)
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+                *(str(obj) for _, obj, _ in jobs)]
+        done = subprocess.run(link, capture_output=True, text=True)
+        _check_run(link, done.returncode, done.stdout + done.stderr)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(objs, ignore_errors=True)
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
+
+
+def _check_run(cmd, returncode, output) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{output}")
 
 
 def lib() -> ctypes.CDLL:

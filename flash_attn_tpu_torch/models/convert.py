@@ -14,11 +14,13 @@ import torch
 from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 
 
-def gpt2_from_jax_params(params, cfg: GPT2Config, device="cpu"
+def gpt2_from_jax_params(params, cfg: GPT2Config, device="cuda"
                          ) -> GPT2LMHeadModel:
     """``params``: the flax tree ``{"params": {...}}`` (or its inner dict)
     of ``flash_attn_tpu.models.gpt2.GPT2LMHeadModel`` as numpy arrays.
-    Returns the port's model on ``device`` in ``cfg.dtype``."""
+    Returns the port's model on ``device`` with its parameters stored in
+    ``cfg.param_dtype`` (fp32 by default, as the flax tree holds them);
+    ``cfg`` also carries ``dropout`` and ``remat`` for training."""
     p = params.get("params", params)
     # Every parameter is overwritten below; the seed only fills the module.
     model = GPT2LMHeadModel(cfg, device=device,

@@ -1,11 +1,44 @@
-"""Fused flash attention: the public entry point over the forward kernel
-(port of ``flash_attn_tpu/ops/attention.py`` ``flash_attention``)."""
+"""Fused flash attention: the public entry point over the forward and
+backward kernels (port of ``flash_attn_tpu/ops/attention.py``
+``flash_attention`` and its ``custom_vjp`` cores ``_flash_core`` /
+``_flash_core_lse``)."""
 
 from __future__ import annotations
 
 import torch
 
+from flash_attn_tpu_torch.kernels import prng
+from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel K1 with a saved lse; backward kernel K2. Saves q, k,
+    v, out, lse and the integer dropout seed: no RNG state. Differentiable
+    through both outputs; the lse cotangent folds into K2's di."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softmax_scale, dropout_p, seed):
+        out, lse = flash_attention_fwd(
+            q, k, v, causal=causal, softmax_scale=softmax_scale,
+            save_lse=True, dropout_p=dropout_p, seed=seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, softmax_scale, dropout_p, seed)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, softmax_scale, dropout_p, seed = ctx.args
+        # dout may come from the bshd transpose, or be absent when only the
+        # lse was used.
+        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout, lse, causal=causal,
+            softmax_scale=softmax_scale, dropout_p=dropout_p, seed=seed,
+            dlse=None if dlse is None else dlse.contiguous())
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -30,8 +63,8 @@ def flash_attention(
     num_sinks: int = 0,
     window_cell=None,
 ):
-    """O = softmax(scale * Q K^T + mask) V, exact, without materialising
-    the scores.
+    """O = dropout(softmax(scale * Q K^T + mask)) V, exact, without
+    materialising the scores.
 
     ``layout``: "bshd" (default; transposed to the kernel layout here) or
     "bhsd" (the kernel-native layout). GQA/MQA: k/v may carry fewer heads
@@ -39,15 +72,18 @@ def flash_attention(
     ``return_lse`` also returns the fp32 (b, h, sq) logsumexp. Out is in the
     q dtype; rows with no visible key give out = 0 and lse = -inf.
 
-    Forward only: on a CUDA tensor that requires grad this raises, since the
-    backward kernel (K2) is ROADMAP port item P1. The other arguments of the
-    JAX signature raise NotImplementedError naming the item that ports them.
+    ``dropout_p`` drops attention weights after the softmax; it requires
+    ``dropout_seed`` (an int or a 0-dim integer tensor), and the same seed
+    gives the same mask in the forward and the backward, on any tiling.
+
+    Differentiable in q, k and v (through both outputs with ``return_lse``)
+    when grad is enabled and an input requires it; otherwise the forward
+    runs alone and skips the lse. The other arguments of the JAX signature
+    raise NotImplementedError naming the item that ports them.
     """
     # Arguments of the JAX signature that the port does not run yet, each
     # with the ROADMAP port item that brings it.
     for name, is_set, item in (
-        ("dropout_p", dropout_p != 0.0, "P1 (backward + dropout)"),
-        ("dropout_seed", dropout_seed is not None, "P1 (backward + dropout)"),
         ("window_size", window_size is not None, "P2 (window/ALiBi/...)"),
         ("alibi_slopes", alibi_slopes is not None, "P2 (window/ALiBi/...)"),
         ("softcap", softcap is not None, "P2 (window/ALiBi/softcap/...)"),
@@ -62,11 +98,6 @@ def flash_attention(
         if is_set:
             raise NotImplementedError(
                 f"flash_attention({name}=...) is ROADMAP port item {item}")
-    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward on CUDA yet (kernel K2, ROADMAP "
-            "port item P1): call it under torch.no_grad() or detach inputs")
 
     if layout == "bshd":
         b, sq, h, d = q.shape
@@ -84,15 +115,21 @@ def flash_attention(
             f"q/k/v shape mismatch: {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)} (GQA/MQA requires q heads to be a multiple "
             "of kv heads)")
+    # The kernels' wrappers validate dropout_p against the seed.
+    seed = None if dropout_seed is None else prng.seed_value(dropout_seed)
     if softmax_scale is None:
         softmax_scale = d ** -0.5
 
     if layout == "bshd":
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    out, lse = flash_attention_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        softmax_scale=softmax_scale, save_lse=return_lse,
-    )
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v, causal, softmax_scale,
+                                         dropout_p, seed)
+    else:
+        out, lse = flash_attention_fwd(
+            q, k, v, causal=causal, softmax_scale=softmax_scale,
+            save_lse=return_lse, dropout_p=dropout_p, seed=seed)
     if layout == "bshd":
         out = out.transpose(1, 2)
     return (out, lse) if return_lse else out

@@ -27,10 +27,18 @@ def _expand_kv(q, k, v):
 
 
 def attention_ref(q, k, v, *, causal: bool = False,
-                  softmax_scale: float | None = None, upcast: bool = True):
+                  softmax_scale: float | None = None, upcast: bool = True,
+                  dropout_mask=None, dropout_p: float = 0.0,
+                  return_attn_probs: bool = False):
     """Reference attention. ``upcast=True`` computes in fp32 (the ground
     truth); ``upcast=False`` computes in the input dtype (the baseline whose
-    error sets the bar). Returns out in the q dtype."""
+    error sets the bar). Returns out in the q dtype.
+
+    ``dropout_mask``: optional boolean (..., sq, sk), True = keep, applied to
+    the normalized probabilities and rescaled by 1 / (1 - dropout_p)
+    (dropout after the softmax). ``return_attn_probs`` also returns the
+    pre-dropout probabilities. Differentiable, so autograd through it is the
+    oracle for the backward kernel's gradients."""
     orig_dtype = q.dtype
     if softmax_scale is None:
         softmax_scale = q.shape[-1] ** -0.5
@@ -42,10 +50,13 @@ def attention_ref(q, k, v, *, causal: bool = False,
         visible = torch.ones(scores.shape[-2:], dtype=torch.bool,
                              device=q.device).tril()
         scores = torch.where(visible, scores, DEFAULT_MASK_VALUE)
-    probs = torch.softmax(scores, dim=-1)
+    probs_pre_drop = probs = torch.softmax(scores, dim=-1)
+    if dropout_mask is not None and dropout_p > 0.0:
+        probs = torch.where(dropout_mask, probs, 0.0) / (1.0 - dropout_p)
     if not upcast:
         probs = probs.to(orig_dtype)
-    return (probs @ v).to(orig_dtype)
+    out = (probs @ v).to(orig_dtype)
+    return (out, probs_pre_drop) if return_attn_probs else out
 
 
 def attention_lse_ref(q, k, v, *, causal: bool = False,

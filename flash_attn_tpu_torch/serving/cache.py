@@ -31,7 +31,7 @@ class PagedKVCache:
 
 
 def init_cache(n_kv_heads: int, num_pages: int, page_size: int,
-               head_dim: int, *, dtype=torch.bfloat16, device="cpu",
+               head_dim: int, *, dtype=torch.bfloat16, device="cuda",
                quantization: str | None = None) -> PagedKVCache:
     if quantization is not None:
         raise NotImplementedError(

@@ -26,6 +26,7 @@ sliding windows (``cfg.window``) are ROADMAP port items P4, P3 and P2.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -86,6 +87,10 @@ class ServingEngine:
         if cfg.window is not None:
             raise NotImplementedError(
                 "cfg.window: sliding-window serving is ROADMAP port item P2")
+        if model.wte.weight.dtype != cfg.dtype:
+            # Serve a copy stored in the compute dtype, cast once here, so
+            # that no decode step casts the weights.
+            model = copy.deepcopy(model).to(cfg.dtype)
         self.model = model
         self.cfg = cfg
         self.device = model.wte.weight.device

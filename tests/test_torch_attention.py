@@ -101,7 +101,8 @@ def test_bf16_two_x_rule(causal):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("dropout_p", 0.1), ("window_size", (16, 0)), ("alibi_slopes", [1.0]),
+    ("kv_positions", np.zeros((1, 8))), ("window_size", (16, 0)),
+    ("alibi_slopes", [1.0]),
     ("softcap", 30.0), ("q_segment_ids", np.zeros((1, 8))),
     ("qk_quant", "int8"), ("num_sinks", 4), ("window_cell", (16, 256)),
 ])

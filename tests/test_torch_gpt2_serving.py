@@ -42,7 +42,7 @@ def setup():
     params = jmodel.init(jax.random.PRNGKey(0), ids)
     cfg = GPT2Config.tiny(dtype=torch.float32)
     model = gpt2_from_jax_params(jax.tree_util.tree_map(np.asarray, params),
-                                 cfg)
+                                 cfg, device="cpu")
     return jcfg, jmodel, params, cfg, model
 
 
@@ -62,7 +62,7 @@ def test_convert_round_trip(setup):
         np.testing.assert_array_equal(sd[name].numpy(), want, err_msg=name)
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
     want = jmodel.apply(params, jnp.asarray(ids, jnp.int32))
-    got = model(torch.from_numpy(ids))
+    got = model(torch.from_numpy(ids)).detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=RTOL)
 
@@ -97,7 +97,7 @@ def test_teacher_forced_decode_matches_jax(setup):
     jc = [jax_cache.init_cache(cfg.n_head, 6, ps, cfg.head_dim,
                                dtype=jnp.float32) for _ in range(cfg.n_layer)]
     tc = [torch_cache.init_cache(cfg.n_head, 6, ps, cfg.head_dim,
-                                 dtype=torch.float32)
+                                 dtype=torch.float32, device="cpu")
           for _ in range(cfg.n_layer)]
     _, ksj, vsj = jax_decode.prefill(params, jcfg,
                                      jnp.asarray(ids[:, :prompt_len]))

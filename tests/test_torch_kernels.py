@@ -9,7 +9,11 @@ imports no JAX, so it runs on a machine that has only PyTorch
 
 Tolerances: attention and decode are held to the repo's 2x rule (error
 against the fp32 twin at most twice a plain same-dtype implementation's,
-plus 1e-5); cache writes are bitwise equal outside the scratch page 0.
+plus 1e-5); cache writes are bitwise equal outside the scratch page 0. The
+backward kernel's gradients are held to the 2x rule against fp32 autograd
+through ``attention_ref`` (the same-dtype ``attention_ref(upcast=False)``
+in autograd is the baseline), plus 1e-4: the fp32 gradients sum hundreds
+of terms in another order than the oracle.
 """
 
 import copy
@@ -23,11 +27,20 @@ from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
 )
+from flash_attn_tpu_torch.kernels.flash_bwd import (
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+)
 from flash_attn_tpu_torch.kernels.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
-from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from flash_attn_tpu_torch.kernels.prng import dropout_mask_dense
+from flash_attn_tpu_torch.models.gpt2 import (
+    GPT2Config,
+    GPT2LMHeadModel,
+    make_train_step,
+)
 from flash_attn_tpu_torch.reference import attention_lse_ref, attention_ref
 from flash_attn_tpu_torch.serving import cache as torch_cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
@@ -85,10 +98,132 @@ def test_flash_fwd_kernel_matches_twin(cuda, case, dtype):
                                atol=1e-3, rtol=1e-3)
 
 
-def test_flash_attention_refuses_grad_on_cuda(cuda):
-    q = torch.zeros(1, 8, 1, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q, q, q)
+def _qkv(case, dtype, device, seed=0):
+    b, sq, sk, h, h_kv, d, _ = case
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, (b, h, sq, d), dtype, device),
+            _randn(rng, (b, h_kv, sk, d), dtype, device),
+            _randn(rng, (b, h_kv, sk, d), dtype, device),
+            _randn(rng, (b, h, sq, d), dtype, device))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_flash_fwd_dropout_kernel_matches_twin(cuda, case, dtype):
+    """K1 with dropout 0.1: the kernel's mask is the twin's hash."""
+    b, sq, sk, h, h_kv, d, causal = case
+    q, k, v, _ = _qkv(case, dtype, cuda)
+    kw = dict(causal=causal, softmax_scale=d ** -0.5, dropout_p=0.1,
+              seed=77)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    torch.cuda.synchronize()
+    twin, _ = flash_attention_fwd_plain(q, k, v, save_lse=False, **kw)
+    keep = dropout_mask_dense(77, b, h, sq, sk, 0.1, device=cuda)
+    native = attention_ref(q, k, v, causal=causal, upcast=False,
+                           dropout_mask=keep, dropout_p=0.1)
+    assert_two_x_bound(out, twin.float(), native, label=f"{case} {dtype}")
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=causal),
+                               atol=1e-3, rtol=1e-3)
+
+
+def _ref_grads(q, k, v, dout, causal, keep, p, upcast):
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = attention_ref(*leaves, causal=causal, upcast=upcast,
+                        dropout_mask=keep, dropout_p=p)
+    out.backward(dout.to(out.dtype))
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_flash_bwd_kernel_matches_twin(cuda, case, dtype, dropout_p):
+    """K2's dq, dk, dv against the twin and, by the 2x rule, against fp32
+    autograd through attention_ref."""
+    b, sq, sk, h, h_kv, d, causal = case
+    q, k, v, dout = _qkv(case, dtype, cuda)
+    kw = dict(causal=causal, softmax_scale=d ** -0.5, dropout_p=dropout_p,
+              seed=5 if dropout_p else None)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    twins = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    keep = (dropout_mask_dense(5, b, h, sq, sk, dropout_p, device=cuda)
+            if dropout_p else None)
+    oracle = _ref_grads(q.float(), k.float(), v.float(), dout.float(),
+                        causal, keep, dropout_p, True)
+    native = _ref_grads(q, k, v, dout, causal, keep, dropout_p, False)
+    for name, g, tw, o, n in zip("qkv", grads, twins, oracle, native):
+        assert g.dtype == dtype and g.shape == tw.shape
+        assert_two_x_bound(g, o, n, atol=1e-4,
+                           label=f"d{name} {case} {dtype} p={dropout_p}")
+        assert_two_x_bound(g, tw.float(), n, atol=1e-4,
+                           label=f"d{name} vs twin {case} {dtype}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_kernel_neg_inf_lse_rows(cuda, dtype):
+    """Rows whose lse is -inf (no visible key) give p = 0, not inf: they
+    add nothing to dk/dv and get dq = 0, as in the twin."""
+    case = ATTN_CASES[5]
+    q, k, v, dout = _qkv(case, dtype, cuda)
+    kw = dict(causal=True, softmax_scale=0.125)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    lse[:, :, 5:40] = float("-inf")
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    twins = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    assert torch.equal(grads[0][:, :, 5:40], torch.zeros_like(q[:, :, 5:40]))
+    # fp32: summation order; 16-bit: a few units of the last place of
+    # gradients up to ~10 (the bf16 kernel rounds p and dS for its products)
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    for g, tw in zip(grads, twins):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), tw.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_autograd_on_cuda_matches_cpu(cuda):
+    """bshd layout, GQA, dropout and a loss on both outputs through the
+    autograd Function: the card's gradients equal the CPU plain path's."""
+    rng = np.random.default_rng(4)
+    shapes = [(2, 200, 4, 64), (2, 200, 2, 64), (2, 200, 2, 64)]
+    host = [torch.from_numpy(rng.standard_normal(s)).float() for s in shapes]
+    g_out = torch.from_numpy(rng.standard_normal(shapes[0])).float()
+    g_lse = torch.from_numpy(rng.standard_normal((2, 4, 200))).float()
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [x.to(dev, copy=True).requires_grad_() for x in host]
+        out, lse = flash_attention(*leaves, causal=True, return_lse=True,
+                                   dropout_p=0.1, dropout_seed=9)
+        torch.autograd.backward([out, lse], [g_out.to(dev), g_lse.to(dev)])
+        grads.append([x.grad.cpu() for x in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_gpt2_train_step_on_card_matches_cpu(cuda):
+    """A tiny fp32 GPT-2 (head_dim 64): one AdamW step on the card (K1 +
+    K2) gives the CPU plain path's loss and gradients. Dropout 0: the
+    activation masks come from torch's generators, which differ between
+    the CPU and the card (the attention hash does not; see above)."""
+    cfg = GPT2Config.tiny(dtype=torch.float32, n_head=2)
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 130)))
+    results = []
+    for dev in ("cpu", cuda):
+        model = GPT2LMHeadModel(cfg, generator=torch.Generator().manual_seed(0),
+                                device=dev)
+        step = make_train_step(model, torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4))
+        batch = {"input_ids": ids.to(dev), "labels": ids.to(dev)}
+        loss = step(batch, torch.Generator().manual_seed(1))
+        results.append((float(loss), {n: p.grad.cpu()
+                                      for n, p in model.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results
+    assert abs(loss_gpu - loss_cpu) < 1e-4
+    for name, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[name], g, atol=1e-4, rtol=1e-3,
+                                   msg=name)
 
 
 def _paged_inputs(rng, lengths, h, h_kv, d, ps, num_pages, pmax, dtype,
@@ -179,7 +314,8 @@ def test_engine_on_card_matches_cpu(cuda):
     """A tiny fp32 GPT-2 (head_dim 64, as the kernels need): the engine on
     the card (all four kernels) gives the CPU plain path's greedy tokens."""
     cfg = GPT2Config.tiny(dtype=torch.float32, n_head=2)
-    model = GPT2LMHeadModel(cfg, generator=torch.Generator().manual_seed(0))
+    model = GPT2LMHeadModel(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (9, 40, 130)]
