@@ -4,11 +4,21 @@
 
 Builds the CUDA kernels from flash_attn_tpu_torch/csrc with nvcc (sm_90a,
 one process per source), checks each kernel against its plain-torch twin
-and the repo's 2x rule at the shapes of the two main paths, then drives
-both paths at GPT-2's full width with random weights from torch.Generator
-seed 0:
-  - serving: 12 requests through ServingEngine (bf16 weights), prefill +
-    decode held to teacher forcing against the full-sequence model;
+and the repo's 2x rule at the shapes of the main paths, then drives the
+paths with random weights from torch.Generator seed 0:
+  - serving, GPT-2 at full width (bf16 weights): 12 requests through
+    ServingEngine, prefill + decode held to teacher forcing against the
+    full-sequence model;
+  - chunked serving, GPT-2: 12 requests (prompts 9..1000) with
+    prefill_chunk=256, and a 700-token prompt in three chunks + 16 decode
+    steps held to teacher forcing;
+  - speculative verification, GPT-2: a 6-layer draft proposes 4 tokens,
+    the 12-layer model scores them through flash_attn_with_kvcache; every
+    round's logits held to the 2x rule;
+  - chunked serving, Llama-3-8B's published widths (32 layers, GQA 32/8,
+    head_dim 128, bf16): 8 requests (prompts 300..4000) with
+    prefill_chunk=512, and a 1500-token prompt in three chunks + 16 decode
+    steps held to the 2x rule against the same weights in fp32;
   - training: 6 AdamW steps of GPT2Config(dropout=0.1) (fp32 weights,
     bf16 compute) on one b=8, s=1024 batch, with falling finite loss, K1
     and K2 launched 12 times per step and no SDPA op in a traced step; one
@@ -23,6 +33,7 @@ last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -37,6 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels.chunk import (
+    paged_chunk_attention,
+    paged_chunk_attention_plain,
+)
 from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -50,16 +65,18 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     flash_attention_fwd_plain,
 )
 from flash_attn_tpu_torch.kernels.prng import dropout_mask_dense
-from flash_attn_tpu_torch.models import gpt2_decode, modules
+from flash_attn_tpu_torch.models import gpt2_decode, llama_decode, modules
 from flash_attn_tpu_torch.models.gpt2 import (
     GPT2Config,
     GPT2LMHeadModel,
     cross_entropy_loss,
     make_train_step,
 )
-from flash_attn_tpu_torch.reference import attention_ref
+from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from flash_attn_tpu_torch.reference import attention_ref, paged_chunk_ref
 from flash_attn_tpu_torch.serving import cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
+from flash_attn_tpu_torch.serving.speculative import speculative_decode
 from flash_attn_tpu_torch.utils.testing import assert_two_x_bound, max_err
 
 DEV = torch.device("cuda")
@@ -79,9 +96,24 @@ KERNELS = {
     "write_pages": (cache.write_prompt,
                     "flash_attn_tpu_torch/csrc/cache_write.cu",
                     "flash_attn_tpu/serving/cache.py:460"),
+    "paged_chunk": (paged_chunk_attention,
+                    "flash_attn_tpu_torch/csrc/paged_chunk.cu",
+                    "flash_attn_tpu/kernels/chunk.py:61"),
+    "append_span": (cache.append_span,
+                    "flash_attn_tpu_torch/csrc/cache_write.cu",
+                    "flash_attn_tpu/serving/cache.py:250"),
 }
 SERVE_KERNELS = ("flash_fwd", "paged_decode", "append_token", "write_pages")
+CHUNKED_KERNELS = ("paged_chunk", "write_pages", "paged_decode",
+                   "append_token")
+SPEC_KERNELS = ("flash_fwd", "write_pages", "paged_chunk", "append_span")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd")
+# Llama-3-8B (meta-llama/Meta-Llama-3-8B config.json), bf16.
+LLAMA3_8B = LlamaConfig(
+    vocab_size=128256, n_layer=32, n_embd=4096, n_head=32, n_kv_head=8,
+    intermediate_size=14336, rope_theta=500000.0,
+    max_position_embeddings=8192, rms_norm_eps=1e-5,
+    dtype=torch.bfloat16, param_dtype=torch.bfloat16)
 # H100 SXM at 700 W (NVIDIA's data sheet): dense bf16 tensor-core rate and
 # HBM bandwidth, for each kernel's bound.
 PEAK_FLOPS = 989e12
@@ -192,43 +224,54 @@ def phase_kernels(gen):
               f"{err:.3e} (bf16 baseline {base:.3e}), vs twin "
               f"{max_err(out, twin):.3e}")
 
-    # K5: batch 8, lengths across 1..1000, one inactive slot (length 0).
-    q, kp, vp, lens, table = decode_inputs(gen)
-    out = paged_decode_attention(q, kp, vp, lens, table)
-    torch.cuda.synchronize()
-    twin = paged_decode_attention_plain(q, kp, vp, lens, table,
-                                        softmax_scale=64 ** -0.5)
-    ref32, ref16 = dense_decode_refs(q, kp, vp, lens, table)
-    err, base = assert_two_x_bound(out, ref32, ref16, label="paged_decode")
-    errs["paged_decode"] = max_err(out, twin)
-    print(f"paged_decode lengths={lens.tolist()}: err vs fp32 {err:.3e} "
-          f"(bf16 baseline {base:.3e}), vs twin {errs['paged_decode']:.3e}")
+    # K5 at GPT-2's and Llama-3-8B's decode shapes.
+    errs["paged_decode"] = 0.0
+    for shape in DECODE_SHAPES:
+        q, kp, vp, lens, table = decode_inputs(gen, shape)
+        out = paged_decode_attention(q, kp, vp, lens, table)
+        torch.cuda.synchronize()
+        twin = paged_decode_attention_plain(q, kp, vp, lens, table,
+                                            softmax_scale=q.shape[-1] ** -0.5)
+        ref32, ref16 = dense_decode_refs(q, kp, vp, lens, table)
+        err, base = assert_two_x_bound(out, ref32, ref16,
+                                       label=f"paged_decode {shape}")
+        vs_twin = max_err(out, twin)
+        errs["paged_decode"] = max(errs["paged_decode"], vs_twin)
+        print(f"paged_decode {shape} h={q.shape[1]}/{kp.shape[0]} "
+              f"d={q.shape[-1]} lengths={lens.tolist()}: err vs fp32 "
+              f"{err:.3e} (bf16 baseline {base:.3e}), vs twin {vs_twin:.3e}")
+        del q, kp, vp, out, twin, ref32, ref16
 
-    # K7c / K7a: bitwise equal to the twins outside the scratch page 0.
-    h, d, ps, num_pages = 12, 64, 128, 65
-    pages = (randn(gen, (h, num_pages, ps, d)), randn(gen, (h, num_pages, ps, d)))
-    on_card = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
-    plain = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
-    # A 700-token prompt: 6 pages (tail zero-filled) plus a scratch entry.
-    k, v = randn(gen, (700, h, d)), randn(gen, (700, h, d))
-    ids = torch.tensor([7, 3, 9, 11, 5, 13, 0], dtype=torch.int32, device=DEV)
-    cache.write_prompt(on_card, k, v, ids)
-    cache.write_prompt_plain(plain, k, v, ids)
-    # Batch 8: page edges, an inactive slot (-1), the last slot of a table.
-    lens8 = torch.tensor([5, 127, 128, 300, -1, 640, 1023, 0],
-                         dtype=torch.int32, device=DEV)
-    tbl8 = torch.arange(1, 65, dtype=torch.int32, device=DEV).reshape(8, 8)
-    nk, nv = randn(gen, (8, h, d)), randn(gen, (8, h, d))
-    cache.append_token(on_card, nk, nv, tbl8, lens8)
-    cache.append_token_plain(plain, nk, nv, tbl8, lens8)
-    torch.cuda.synchronize()
-    for name, a, b in (("k", on_card.k_pages, plain.k_pages),
-                       ("v", on_card.v_pages, plain.v_pages)):
-        check(torch.equal(a[:, 1:], b[:, 1:]),
-              f"cache writes differ from the twins in {name} pages")
+    # K7c / K7a: bitwise equal to the twins outside the scratch page 0, on
+    # GPT-2's 128-byte rows and Llama-3-8B's 256-byte rows (8 kv heads).
+    for h, d in ((12, 64), (8, 128)):
+        ps, num_pages = 128, 65
+        pages = (randn(gen, (h, num_pages, ps, d)),
+                 randn(gen, (h, num_pages, ps, d)))
+        on_card = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
+        plain = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
+        # A 700-token prompt: 6 pages (tail zero-filled) plus a scratch
+        # entry.
+        k, v = randn(gen, (700, h, d)), randn(gen, (700, h, d))
+        ids = int32([7, 3, 9, 11, 5, 13, 0])
+        cache.write_prompt(on_card, k, v, ids)
+        cache.write_prompt_plain(plain, k, v, ids)
+        # Batch 8: page edges, an inactive slot (-1), the last slot of a
+        # table.
+        lens8 = int32([5, 127, 128, 300, -1, 640, 1023, 0])
+        tbl8 = torch.arange(1, 65, dtype=torch.int32, device=DEV).reshape(8, 8)
+        nk, nv = randn(gen, (8, h, d)), randn(gen, (8, h, d))
+        cache.append_token(on_card, nk, nv, tbl8, lens8)
+        cache.append_token_plain(plain, nk, nv, tbl8, lens8)
+        torch.cuda.synchronize()
+        for name, a, b in (("k", on_card.k_pages, plain.k_pages),
+                           ("v", on_card.v_pages, plain.v_pages)):
+            check(torch.equal(a[:, 1:], b[:, 1:]),
+                  f"cache writes (h_kv={h}, d={d}) differ from the twins in "
+                  f"{name} pages")
+        print(f"write_pages + append_token h_kv={h} d={d}: bitwise equal to "
+              "the twins outside page 0")
     errs["write_pages"] = errs["append_token"] = 0.0
-    print("write_pages + append_token: bitwise equal to the twins outside "
-          "page 0")
     return errs
 
 
@@ -297,37 +340,171 @@ def phase_train_kernels(gen, errs):
         torch.cuda.empty_cache()
 
 
-def decode_inputs(gen, b=8, h=12, d=64, ps=128, pages_per_seq=8):
-    lengths = [1, 127, 128, 129, 400, 777, 1000, 0]  # 0: an inactive slot
-    num_pages = 1 + sum(-(-n // ps) for n in lengths)
-    kp = randn(gen, (h, num_pages, ps, d))
-    vp = randn(gen, (h, num_pages, ps, d))
+def random_pages(gen, lengths, h_kv, d, ps=128, pages_max=8):
+    """bf16 K/V pages holding ``lengths`` tokens per sequence, each
+    sequence on its own pages in random order (page 0 is never used), and
+    the page table."""
+    num_pages = 1 + sum(-(-max(n, 0) // ps) for n in lengths)
+    kp = randn(gen, (h_kv, num_pages, ps, d))
+    vp = randn(gen, (h_kv, num_pages, ps, d))
     perm = torch.randperm(num_pages - 1, generator=gen, device=DEV) + 1
-    table = torch.zeros((b, pages_per_seq), dtype=torch.int32, device=DEV)
+    table = torch.zeros((len(lengths), pages_max), dtype=torch.int32,
+                        device=DEV)
     used = 0
     for i, n in enumerate(lengths):
-        need = -(-n // ps)
+        need = -(-max(n, 0) // ps)
         table[i, :need] = perm[used:used + need].to(torch.int32)
         used += need
-    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
-    return randn(gen, (b, h, d)), kp, vp, lens, table
+    return kp, vp, table
+
+
+def int32(values):
+    return torch.tensor(values, dtype=torch.int32, device=DEV)
+
+
+# name: (lengths, h, h_kv, d, pages_max)
+DECODE_SHAPES = {
+    # GPT-2 serving: lengths across 1..1000, an inactive slot (length 0)
+    "GPT-2 decode": ([1, 127, 128, 129, 400, 777, 1000, 0], 12, 12, 64, 8),
+    # Llama-3-8B chunked serving at batch 8: GQA 32/8, head_dim 128, the
+    # contexts 300..4020 of its decode steps
+    "Llama decode": ([300, 831, 1362, 1894, 2425, 2957, 3488, 4020], 32, 8,
+                     128, 32),
+}
+
+
+def decode_inputs(gen, shape="GPT-2 decode"):
+    lengths, h, h_kv, d, pages_max = DECODE_SHAPES[shape]
+    kp, vp, table = random_pages(gen, lengths, h_kv, d, pages_max=pages_max)
+    return randn(gen, (len(lengths), h, d)), kp, vp, int32(lengths), table
+
+
+def decode_work(q, kp, lens, table):
+    """Bytes and tensor-core operations paged decode needs: the cached K and
+    V of each active sequence read once, q read and out written for each
+    active sequence (an inactive one's output is 0 by definition), the
+    int32 tables; QK^T and PV over every cached key for each query head."""
+    h, d = q.shape[1:]
+    live, active = int(lens.clamp(min=0).sum()), int((lens > 0).sum())
+    elem = q.element_size()
+    return (2 * live * kp.shape[0] * d * elem + 2 * active * h * d * elem
+            + nbytes(lens, table), 4 * live * h * d)
 
 
 def dense_decode_refs(q, kp, vp, lens, table):
-    """fp32 and same-dtype dense attention over each sequence's keys."""
-    ps = kp.shape[2]
-    outs = ([], [])
-    for i, n in enumerate(lens.tolist()):
-        if n <= 0:
-            for o in outs:
-                o.append(torch.zeros_like(q[i]))
-            continue
-        idx = table[i, : -(-n // ps)].long()
-        k = kp[:, idx].flatten(1, 2)[:, :n]
-        v = vp[:, idx].flatten(1, 2)[:, :n]
-        for o, up in zip(outs, (True, False)):
-            o.append(attention_ref(q[i][:, None], k, v, upcast=up)[:, 0])
-    return torch.stack(outs[0]), torch.stack(outs[1])
+    """fp32 and same-dtype dense attention over each sequence's keys: the
+    chunk oracle at sq = 1 (the query is each sequence's last position)."""
+    one = (lens > 0).to(torch.int32)
+    return tuple(paged_chunk_ref(q[:, None], kp, vp, lens, table, one,
+                                 upcast=up)[:, 0] for up in (True, False))
+
+
+# name: (lengths including the chunk, chunk_lens, sq, h, h_kv, d, pages_max)
+CHUNK_SHAPES = {
+    # an engine chunk of GPT-2: rows in their first to fourth chunk, short
+    # rows, a padding row
+    "GPT-2 chunk": ([9, 200, 256, 300, 512, 777, 1000, 600],
+                    [9, 200, 256, 44, 256, 9, 232, 0], 256, 12, 12, 64, 8),
+    # an engine chunk of Llama-3-8B: GQA 32/8, head_dim 128
+    "Llama chunk": ([300, 512, 1024, 1500, 2048, 3000, 4000, 700],
+                    [300, 512, 512, 476, 512, 440, 416, 188], 512, 32, 8,
+                    128, 32),
+    # speculative verification: [last, d1..d4]
+    "verify": ([5, 6, 130, 500, 505, 1000, 17, 0],
+               [5, 5, 5, 5, 5, 3, 5, 0], 5, 12, 12, 64, 8),
+}
+
+
+def chunk_inputs(gen, shape):
+    lengths, chunk_lens, sq, h, h_kv, d, pages_max = CHUNK_SHAPES[shape]
+    kp, vp, table = random_pages(gen, lengths, h_kv, d, pages_max=pages_max)
+    q = randn(gen, (len(lengths), sq, h, d))
+    return q, kp, vp, int32(lengths), table, int32(chunk_lens)
+
+
+def phase_chunk_kernels(gen, errs):
+    """K6 at the GPT-2 and Llama chunk shapes, the verify shape and sq = 1
+    (where it must also agree with K5), held to the 2x rule (oracle:
+    paged_chunk_ref in fp32; baseline: the same in bf16), padding rows
+    exactly 0; K7b bit for bit against its twin, and at sq = 1 against
+    K7a. Adds the max errors vs the twins to ``errs``."""
+    errs["paged_chunk"] = 0.0
+    for shape, (lengths, chunk_lens, sq, h, h_kv, d, _) in \
+            CHUNK_SHAPES.items():
+        q, kp, vp, lens, table, cl = chunk_inputs(gen, shape)
+        out = paged_chunk_attention(q, kp, vp, lens, table, chunk_lens=cl)
+        torch.cuda.synchronize()
+        twin = paged_chunk_attention_plain(q, kp, vp, lens, table,
+                                           chunk_lens=cl,
+                                           softmax_scale=d ** -0.5)
+        err, base = assert_two_x_bound(
+            out, paged_chunk_ref(q, kp, vp, lens, table, cl),
+            paged_chunk_ref(q, kp, vp, lens, table, cl, upcast=False),
+            label=f"paged_chunk {shape}")
+        for i, c in enumerate(chunk_lens):
+            check(not out[i, c:].any(),
+                  f"paged_chunk {shape}: padding rows of sequence {i}")
+        vs_twin = max_err(out, twin)
+        errs["paged_chunk"] = max(errs["paged_chunk"], vs_twin)
+        print(f"paged_chunk {shape} b={len(lengths)} sq={sq} h={h}/{h_kv} "
+              f"d={d}: err vs fp32 {err:.3e} (bf16 baseline {base:.3e}), vs "
+              f"twin {vs_twin:.3e}")
+        del q, kp, vp, out, twin
+
+    # sq = 1: decode through K6, against K5 on the same cache.
+    for shape in DECODE_SHAPES:
+        q, kp, vp, lens, table = decode_inputs(gen, shape)
+        cl = (lens > 0).to(torch.int32)
+        k6 = paged_chunk_attention(q[:, None], kp, vp, lens, table,
+                                   chunk_lens=cl)[:, 0]
+        k5 = paged_decode_attention(q, kp, vp, lens, table)
+        torch.cuda.synchronize()
+        ref32, ref16 = dense_decode_refs(q, kp, vp, lens, table)
+        err, base = assert_two_x_bound(k6, ref32, ref16,
+                                       label=f"paged_chunk sq=1 {shape}")
+        k6_k5 = max_err(k6, k5)
+        check(k6_k5 <= 2 * base + 1e-5, f"K6 at sq=1 vs K5 ({shape}): "
+              f"{k6_k5:.3e} > 2 * {base:.3e} + 1e-5")
+        twin = paged_chunk_attention_plain(
+            q[:, None], kp, vp, lens, table, chunk_lens=cl,
+            softmax_scale=q.shape[-1] ** -0.5)
+        errs["paged_chunk"] = max(errs["paged_chunk"],
+                                  max_err(k6, twin[:, 0]))
+        print(f"paged_chunk sq=1 {shape} lengths={lens.tolist()}: err vs "
+              f"fp32 {err:.3e} (bf16 baseline {base:.3e}), vs K5 "
+              f"{k6_k5:.3e}")
+        del q, kp, vp, k6, k5, twin, ref32, ref16
+
+    # K7b: batch 8, spans of 5 crossing page edges, an inactive row (-1), a
+    # row running past its table, a short row and a padding row.
+    h, d, ps, num_pages = 12, 64, 128, 65
+    pages = (randn(gen, (h, num_pages, ps, d)),
+             randn(gen, (h, num_pages, ps, d)))
+    on_card = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
+    plain = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
+    lens8 = int32([5, 125, 128, 300, -1, 1020, 638, 0])
+    new8 = int32([5, 5, 5, 2, 5, 5, 5, 0])
+    tbl8 = torch.arange(1, 65, dtype=torch.int32, device=DEV).reshape(8, 8)
+    nk, nv = randn(gen, (8, 5, h, d)), randn(gen, (8, 5, h, d))
+    cache.append_span(on_card, nk, nv, tbl8, lens8, new8)
+    cache.append_span_plain(plain, nk, nv, tbl8, lens8, new8)
+    span = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
+    token = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
+    first_k, first_v = nk[:, :1].contiguous(), nv[:, :1].contiguous()
+    cache.append_span(span, first_k, first_v, tbl8, lens8)
+    cache.append_token(token, first_k[:, 0], first_v[:, 0], tbl8, lens8)
+    torch.cuda.synchronize()
+    for name, a, b in (("k", on_card.k_pages, plain.k_pages),
+                       ("v", on_card.v_pages, plain.v_pages)):
+        check(torch.equal(a, b), f"append_span differs from its twin in "
+              f"{name} pages")
+    for name, a, b in (("k", span.k_pages, token.k_pages),
+                       ("v", span.v_pages, token.v_pages)):
+        check(torch.equal(a[:, 1:], b[:, 1:]),
+              f"append_span at sq=1 differs from append_token in {name}")
+    errs["append_span"] = 0.0
+    print("append_span: bitwise equal to its twin on every page; at sq=1 "
+          "equal to append_token outside page 0")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -361,25 +538,37 @@ def phase_serve(model, cfg, rng):
     return launches
 
 
-def phase_teacher_forcing(model, cfg, rng, prompt_len=300, n_decode=16):
-    """prefill + n_decode decode steps against the full-sequence model.
+def gpt2_fp32(model):
+    """The same GPT-2 weights, stored and computed in fp32: the oracle."""
+    model32 = GPT2LMHeadModel(
+        GPT2Config(dtype=torch.float32), device=DEV,
+        generator=torch.Generator(device=DEV).manual_seed(0))
+    model32.load_state_dict(model.state_dict())
+    return model32
 
-    Tolerance: the repo's 2x rule applied to the whole serving path. The
-    oracle is the same model with its (bf16) weights upcast to fp32; the
-    baseline is the full-sequence bf16 forward. The serving path's logits
-    may be at most twice as far from the oracle as the baseline's, plus
-    1e-3 (fp32 noise of the oracle's own kernels)."""
+
+def check_teacher_forced(label, served, full32, full16):
+    """The repo's 2x rule applied to a whole serving path. The oracle is
+    the same model with its (bf16) weights upcast to fp32; the baseline is
+    the full-sequence bf16 forward. The served logits may be at most twice
+    as far from the oracle as the baseline's, plus 1e-3 (fp32 noise of the
+    oracle's own kernels)."""
+    check(bool(torch.isfinite(served).all()), f"{label}: non-finite logits")
+    err, base = assert_two_x_bound(served, full32, full16, atol=1e-3,
+                                   label=label)
+    agree = float((served.argmax(-1) == full32.argmax(-1)).float().mean())
+    return (f"max |logit err| vs fp32 model {err:.3e} (bf16 full forward "
+            f"{base:.3e}); argmax agreement with fp32 {agree:.3f}")
+
+
+def phase_teacher_forcing(model, cfg, model32, rng, prompt_len=300,
+                          n_decode=16):
+    """prefill + n_decode decode steps against the full-sequence model."""
     ids = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, prompt_len + n_decode))).to(DEV)
     with torch.no_grad():
         full16 = model(ids)[0, prompt_len - 1:]
-        cfg32 = GPT2Config(dtype=torch.float32)
-        model32 = GPT2LMHeadModel(
-            cfg32, device=DEV,
-            generator=torch.Generator(device=DEV).manual_seed(0))
-        model32.load_state_dict(model.state_dict())
         full32 = model32(ids)[0, prompt_len - 1:]
-        del model32
     ps = 128
     n_pages = -(-(prompt_len + n_decode) // ps)
     caches = [cache.init_cache(cfg.n_head, 1 + n_pages, ps, cfg.head_dim,
@@ -396,53 +585,294 @@ def phase_teacher_forcing(model, cfg, rng, prompt_len=300, n_decode=16):
         logits, caches = gpt2_decode.decode_step(
             model, cfg, caches, table, lens, ids[:, prompt_len + t])
         steps.append(logits[0])
-    served = torch.stack(steps)
-    check(bool(torch.isfinite(served).all()), "non-finite served logits")
-    err, base = assert_two_x_bound(served, full32, full16, atol=1e-3,
-                                   label="teacher forcing")
-    agree = float((served.argmax(-1) == full32.argmax(-1)).float().mean())
-    print(f"teacher forcing: prefill + {n_decode} decode steps, max |logit "
-          f"err| vs fp32 model {err:.3e} (bf16 full forward {base:.3e}); "
-          f"argmax agreement with fp32 {agree:.3f}")
+    result = check_teacher_forced("teacher forcing", torch.stack(steps),
+                                  full32, full16)
+    print(f"teacher forcing: prefill + {n_decode} decode steps, {result}")
+
+
+def serve_teacher_forced(model, cfg, fns, ids, prompt_len, chunk, n_decode,
+                         ps=128):
+    """Chunked prefill of ids[:, :prompt_len] in chunks of ``chunk`` tokens,
+    then ``n_decode`` decode steps fed ids' next tokens, through ``fns``
+    (gpt2_decode or llama_decode) on one sequence's pages. Returns (the
+    positions whose logits were served, those logits)."""
+    n_pages = -(-max(-(-prompt_len // chunk) * chunk,
+                     prompt_len + n_decode) // ps)
+    caches = [cache.init_cache(cfg.n_kv_heads, 1 + n_pages, ps, cfg.head_dim,
+                               dtype=cfg.dtype, device=DEV)
+              for _ in range(cfg.n_layer)]
+    table = torch.arange(1, 1 + n_pages, dtype=torch.int32,
+                         device=DEV)[None]
+    positions, steps = [], []
+    for off in range(0, prompt_len, chunk):
+        c = min(chunk, prompt_len - off)
+        chunk_ids = torch.zeros((1, chunk), dtype=ids.dtype, device=DEV)
+        chunk_ids[0, :c] = ids[0, off:off + c]
+        logits, caches = fns.chunk_prefill_step(
+            model, cfg, caches, chunk_ids, int32([off]), int32([c]),
+            table[:, off // ps:(off + chunk) // ps], table)
+        positions.append(off + c - 1)
+        steps.append(logits[0])
+    for t in range(n_decode):
+        logits, caches = fns.decode_step(model, cfg, caches, table,
+                                         int32([prompt_len + t]),
+                                         ids[:, prompt_len + t])
+        positions.append(prompt_len + t)
+        steps.append(logits[0])
+    return positions, torch.stack(steps)
+
+
+def check_finished(label, finished, n, cfg, new_tokens, limit):
+    check(len(finished) == n, f"{label}: {len(finished)} of {n} requests "
+          "finished")
+    for r in finished:
+        # A prompt near the position limit retires when its cache is full.
+        want = min(new_tokens, limit - len(r.prompt))
+        check(len(r.generated) == want, f"{label}: request {r.seq_id} gave "
+              f"{len(r.generated)} tokens, want {want}")
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"{label}: request {r.seq_id}: token out of range")
+
+
+def run_chunked(label, model, cfg, prompts, engine_kw, new_tokens=32):
+    """Serve ``prompts`` through a chunked-prefill engine; every request
+    must finish, the chunk path's kernels must launch and the dense
+    forward must not. Returns the launch counts of the run."""
+    engine = ServingEngine(model, cfg, **engine_kw)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=new_tokens)
+    reset_launches()
+    t0 = time.perf_counter()
+    finished = engine.run(max_steps=1000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(KERNELS)
+    limit = min(cfg.max_position_embeddings,
+                engine_kw["pages_per_seq"] * engine_kw["page_size"])
+    check_finished(label, finished, len(prompts), cfg, new_tokens, limit)
+    for name in CHUNKED_KERNELS:
+        check(launches[name] > 0, f"{label}: kernel {name} not launched")
+    check(launches["flash_fwd"] == 0,
+          f"{label}: the dense forward ran; prefill was not chunked")
+    lens = [len(p) for p in prompts]
+    print(f"{label}: {len(prompts)} requests (prompts {min(lens)}.."
+          f"{max(lens)}, chunks of {engine_kw['prefill_chunk']}) x up to "
+          f"{new_tokens} tokens in {dt:.2f} s; launches {launches}")
+    return launches
+
+
+def phase_serve_chunked(model, cfg, model32, rng):
+    """GPT-2 chunked serving: 12 requests, then a 700-token prompt in three
+    chunks of 256 + 16 decode steps held to teacher forcing (logits at each
+    chunk's last token and at every decode step). Returns the launch
+    counts of the 12 requests."""
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in np.linspace(9, 1000, 12).astype(int)]
+    launches = run_chunked("serve chunked", model, cfg, prompts, dict(
+        max_batch=8, page_size=128, num_pages=128, pages_per_seq=8,
+        prefill_chunk=256))
+    prompt_len, n_decode = 700, 16
+    ids = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, prompt_len + n_decode))).to(DEV)
+    positions, served = serve_teacher_forced(model, cfg, gpt2_decode, ids,
+                                             prompt_len, 256, n_decode)
+    with torch.no_grad():
+        full16 = model(ids)[0, positions]
+        full32 = model32(ids)[0, positions]
+    result = check_teacher_forced("chunked teacher forcing", served, full32,
+                                  full16)
+    print(f"chunked teacher forcing: {prompt_len}-token prompt in chunks of "
+          f"256 + {n_decode} decode steps (positions {positions[:3]}, "
+          f"{positions[3]}..{positions[-1]}), {result}")
+    return launches
+
+
+def phase_speculative(model, cfg, model32, rng, prompt_len=500,
+                      new_tokens=48, k=4, draft_layers=6):
+    """Speculative decoding at full width: a 6-layer draft of the same
+    weights proposes k tokens through K1, the 12-layer model verifies them
+    through flash_attn_with_kvcache (K7b + K6). Every verify round's logits
+    are held to the 2x rule against the fp32 and bf16 full-sequence models
+    on the same tokens (bf16 argmax near-ties may make the tokens differ
+    from plain greedy decoding, so they are not compared). Returns the
+    launch counts of the run."""
+    prompt = rng.integers(0, cfg.vocab_size, prompt_len).tolist()
+    reset_launches()
+    t0 = time.perf_counter()
+    generated, rounds = speculative_decode(model, cfg, prompt, new_tokens,
+                                           k=k, draft_layers=draft_layers)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(KERNELS)
+    check(len(generated) == new_tokens, f"speculative: {len(generated)} "
+          "tokens")
+    for name in SPEC_KERNELS:
+        check(launches[name] > 0, f"speculative: kernel {name} not launched")
+    final = prompt + generated
+    accepted, worst = 0, (0.0, 0.0)
+    for pos0, chunk, logits in rounds:
+        greedy = logits.argmax(-1).tolist()
+        n_acc = 0
+        while n_acc < k and chunk[1 + n_acc] == greedy[n_acc]:
+            n_acc += 1
+        accepted += n_acc
+        seq = torch.tensor([final[:pos0] + chunk], device=DEV)
+        with torch.no_grad():
+            full16 = model(seq)[0, pos0:]
+            full32 = model32(seq)[0, pos0:]
+        check(bool(torch.isfinite(logits).all()), "speculative: non-finite")
+        err, base = assert_two_x_bound(logits, full32, full16, atol=1e-3,
+                                       label=f"verify round at {pos0}")
+        worst = max(worst, (err, base))
+    print(f"speculative: {prompt_len}-token prompt, {new_tokens} tokens in "
+          f"{len(rounds)} verify rounds of {k + 1} rows ({accepted} of "
+          f"{k * len(rounds)} drafts accepted) in {dt:.2f} s; worst verify "
+          f"logit err vs fp32 {worst[0]:.3e} (bf16 full forward "
+          f"{worst[1]:.3e}); launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 4
 
-def phase_timing(model, cfg, rng, gen):
-    lens = np.linspace(9, 700, 8).astype(int)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+def admission(model, cfg, prompts, engine_kw):
+    """A fresh engine with ``prompts`` queued and admitted in one call, and
+    the host ms of that admission (prefill of all: time to first token)."""
+    eng = ServingEngine(model, cfg, **engine_kw)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._admit()
+    torch.cuda.synchronize()
+    return eng, (time.perf_counter() - t0) * 1e3
 
-    def admitted_engine():
-        eng = ServingEngine(model, cfg, max_batch=8, page_size=128,
-                            num_pages=128, pages_per_seq=8)
-        for p in prompts:
-            eng.submit(p, max_new_tokens=1000)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng._admit()  # one batched prefill of all 8: time to first token
-        torch.cuda.synchronize()
-        return eng, (time.perf_counter() - t0) * 1e3
 
-    admitted_engine()  # warm-up: cuBLAS handles, allocator
-    ttft = sorted(admitted_engine()[1] for _ in range(3))
-    eng, _ = admitted_engine()
+def ttft_ms(model, cfg, prompts, engine_kw):
+    """Sorted TTFT of 3 admissions on fresh engines after a warm-up."""
+    admission(model, cfg, prompts, engine_kw)  # cuBLAS handles, allocator
+    return sorted(admission(model, cfg, prompts, engine_kw)[1]
+                  for _ in range(3))
+
+
+def decode_rate(model, cfg, prompts, engine_kw, n_steps=32):
+    """(tokens/s, ms/step) of n_steps engine steps with every slot active,
+    after 3 warm-up steps."""
+    eng, _ = admission(model, cfg, prompts, engine_kw)
     for _ in range(3):
         eng.step()
-    n_steps = 32
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
         eng.step()
     torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    tok_s = 8 * n_steps / decode_s
+    dt = time.perf_counter() - t0
+    return len(prompts) * n_steps / dt, dt / n_steps * 1e3
+
+
+def ttft_line(label, ttft, card):
+    return (f"{label}: median {ttft[1]:.2f} ms (min {ttft[0]:.2f}, max "
+            f"{ttft[2]:.2f}) [{card}]")
+
+
+def phase_timing(model, cfg, rng):
+    lens = np.linspace(9, 700, 8).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    kw = dict(max_batch=8, page_size=128, num_pages=128, pages_per_seq=8)
+    ttft = ttft_ms(model, cfg, prompts, kw)
+    ttft_chunked = ttft_ms(model, cfg, prompts, dict(kw, prefill_chunk=256))
+    tok_s, ms_step = decode_rate(model, cfg, prompts, kw)
     card = card_line()
-    print(f"prefill TTFT, one batch of 8 admissions (prompts {lens.min()}.."
-          f"{lens.max()}, bucket 768): median {ttft[1]:.2f} ms "
-          f"(min {ttft[0]:.2f}, max {ttft[2]:.2f}) [{card}]")
+    print(ttft_line(f"prefill TTFT, one batch of 8 admissions (prompts "
+                    f"{lens.min()}..{lens.max()}, bucket 768)", ttft, card))
+    print(ttft_line("chunked prefill TTFT, the same 8 admissions in chunks "
+                    "of 256", ttft_chunked, card))
     print(f"decode at batch 8 (contexts {lens.min()}..{lens.max() + 35}): "
-          f"{tok_s:.1f} tokens/s, {decode_s / n_steps * 1e3:.2f} ms/step "
+          f"{tok_s:.1f} tokens/s, {ms_step:.2f} ms/step [{card}]")
+
+
+def llama_fp32(model):
+    """The same Llama weights, stored and computed in fp32: the oracle."""
+    cfg32 = dataclasses.replace(model.config, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    model32 = LlamaForCausalLM(
+        cfg32, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    model32.load_state_dict(model.state_dict())
+    return model32
+
+
+def phase_llama(rng):
+    """Llama-3-8B's published widths, bf16, random weights: 8 requests
+    (prompts 300..4000) through the chunked engine, its TTFT and decode
+    rate, and a 1500-token prompt in three chunks of 512 + 16 decode steps
+    held to the 2x rule against the same weights in fp32. Returns the
+    launch counts of the 8 requests."""
+    cfg = LLAMA3_8B
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"llama: Llama-3-8B widths, {n_params / 1e9:.3f} B parameters "
+          f"(bf16) built in {time.perf_counter() - t0:.1f} s")
+    lens = np.linspace(300, 4000, 8).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    kw = dict(model_fns=llama_decode, max_batch=8, page_size=128,
+              pages_per_seq=32, num_pages=8 * 32 + 1, prefill_chunk=512)
+    launches = run_chunked("llama chunked", model, cfg, prompts, kw)
+    ttft = ttft_ms(model, cfg, prompts, kw)
+    tok_s, ms_step = decode_rate(model, cfg, prompts, kw, n_steps=16)
+    card = card_line()
+    print(ttft_line(f"llama chunked prefill TTFT, one batch of 8 admissions "
+                    f"(prompts {lens.min()}..{lens.max()}, chunks of 512)",
+                    ttft, card))
+    print(f"llama decode at batch 8 (contexts {lens.min()}.."
+          f"{lens.max() + 20}): {tok_s:.1f} tokens/s, {ms_step:.2f} ms/step "
           f"[{card}]")
+    engine = ServingEngine(model, cfg, **kw)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=1000)
+    print(f"llama prefill trace, one admission of 8: "
+          f"{device_summary(*trace_call(engine._admit)[::2])} [{card}]")
+    wall, _, events = trace_call(lambda: [engine.step() for _ in range(4)])
+    print(f"llama decode trace, 4 steps at batch 8: "
+          f"{device_summary(wall, events)} [{card}]")
+    del engine
+    torch.cuda.empty_cache()
+
+    prompt_len, n_decode = 1500, 16
+    ids = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, prompt_len + n_decode))).to(DEV)
+    positions, served = serve_teacher_forced(model, cfg, llama_decode, ids,
+                                             prompt_len, 512, n_decode)
+    with torch.no_grad():
+        full16 = model(ids)[0, positions]
+        model32 = llama_fp32(model)
+        del model
+        torch.cuda.empty_cache()
+        full32 = model32(ids)[0, positions]
+    del model32
+    torch.cuda.empty_cache()
+    result = check_teacher_forced("llama chunked teacher forcing", served,
+                                  full32, full16)
+    print(f"llama chunked teacher forcing: {prompt_len}-token prompt in "
+          f"chunks of 512 + {n_decode} decode steps, {result}")
+    return launches
+
+
+def chunk_work(shape, elem=2):
+    """Bytes and tensor-core operations paged chunk attention needs on
+    CHUNK_SHAPES[shape]: q read for each live row (a padding row's output
+    is 0 by definition), out written for every row, the cached K and V of
+    each sequence with a live row read once, the int32 tables; QK^T and PV
+    over each live row's visible keys."""
+    lengths, chunk_lens, sq, h, h_kv, d, pages_max = CHUNK_SHAPES[shape]
+    keys = sum(n for n, c in zip(lengths, chunk_lens) if c > 0)
+    pairs = sum(n - c + t + 1 for n, c in zip(lengths, chunk_lens)
+                for t in range(c))
+    rows = sum(chunk_lens) + len(lengths) * sq  # q read, out written
+    n_bytes = (rows * h * d + 2 * keys * h_kv * d) * elem \
+        + 4 * len(lengths) * (2 + pages_max)
+    return n_bytes, 4 * pairs * h * d
 
 
 def kernel_timing(gen):
@@ -463,6 +893,7 @@ def kernel_timing(gen):
     og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                         dropout_p=0.1)
     qd, kp, vp, dl, tbl = decode_inputs(gen)
+    ql, kl, vl, ll, tl = decode_inputs(gen, "Llama decode")
     pages = cache.init_cache(12, 65, 128, 64, dtype=BF16, device=DEV)
     kw, vw = randn(gen, (768, 12, 64)), randn(gen, (768, 12, 64))
     ids = torch.tensor([7, 3, 9, 11, 5, 13], dtype=torch.int32, device=DEV)
@@ -470,7 +901,11 @@ def kernel_timing(gen):
     tbl8 = torch.arange(1, 65, dtype=torch.int32, device=DEV).reshape(8, 8)
     l8 = torch.tensor([5, 127, 128, 300, -1, 640, 999, 0], dtype=torch.int32,
                       device=DEV)
-    live = int(dl.clamp(min=0).sum())  # keys the decode kernel must read
+    sk, sv = randn(gen, (8, 5, 12, 64)), randn(gen, (8, 5, 12, 64))
+    span = ([5, 125, 128, 300, -1, 1020, 638, 0], [5, 5, 5, 2, 5, 5, 5, 0])
+    span_lens, span_new = int32(span[0]), int32(span[1])
+    written = sum(1 for n, c in zip(*span) if n >= 0 for t in range(c)
+                  if (n + t) // 128 < 8)  # tokens append_span stores
 
     specs = {
         # name: (kernel, plain twin, library call or None, bytes, flops)
@@ -498,10 +933,12 @@ def kernel_timing(gen):
             lambda: paged_decode_attention(qd, kp, vp, dl, tbl),
             lambda: paged_decode_attention_plain(qd, kp, vp, dl, tbl,
                                                  softmax_scale=0.125),
-            None,
-            2 * live * 12 * 64 * kp.element_size() + 2 * nbytes(qd)
-            + nbytes(dl, tbl),
-            4 * live * 12 * 64),
+            None, *decode_work(qd, kp, dl, tbl)),
+        "paged_decode (Llama decode)": (
+            lambda: paged_decode_attention(ql, kl, vl, ll, tl),
+            lambda: paged_decode_attention_plain(ql, kl, vl, ll, tl,
+                                                 softmax_scale=128 ** -0.5),
+            None, *decode_work(ql, kl, ll, tl)),
         "append_token": (
             lambda: cache.append_token(pages, nk, nv, tbl8, l8),
             lambda: cache.append_token_plain(pages, nk, nv, tbl8, l8),
@@ -510,7 +947,35 @@ def kernel_timing(gen):
             lambda: cache.write_prompt(pages, kw, vw, ids),
             lambda: cache.write_prompt_plain(pages, kw, vw, ids),
             None, 2 * nbytes(kw, vw) + nbytes(ids), 0),
+        "append_span": (
+            lambda: cache.append_span(pages, sk, sv, tbl8, span_lens,
+                                      span_new),
+            lambda: cache.append_span_plain(pages, sk, sv, tbl8, span_lens,
+                                            span_new),
+            None, 4 * written * 12 * 64 * sk.element_size()
+            + nbytes(tbl8, span_lens, span_new), 0),
     }
+    for shape in CHUNK_SHAPES:
+        name = "paged_chunk" if shape == "GPT-2 chunk" \
+            else f"paged_chunk ({shape})"
+        args = chunk_inputs(gen, shape)
+        specs[name] = (
+            lambda a=args: paged_chunk_attention(*a[:5], chunk_lens=a[5]),
+            lambda a=args: paged_chunk_attention_plain(
+                *a[:5], chunk_lens=a[5], softmax_scale=a[0].shape[-1] ** -0.5),
+            None, *chunk_work(shape))
+    # K6 at sq = 1 on K5's inputs: decode through K6.
+    for shape, inputs, k5 in (
+            ("GPT-2 decode", (qd, kp, vp, dl, tbl), "paged_decode"),
+            ("Llama decode", (ql, kl, vl, ll, tl),
+             "paged_decode (Llama decode)")):
+        a = (inputs[0][:, None].contiguous(), *inputs[1:])
+        one = (a[3] > 0).to(torch.int32)
+        specs[f"paged_chunk (sq=1, {shape})"] = (
+            lambda a=a, one=one: paged_chunk_attention(*a, chunk_lens=one),
+            lambda a=a, one=one: paged_chunk_attention_plain(
+                *a, chunk_lens=one, softmax_scale=a[0].shape[-1] ** -0.5),
+            None, *specs[k5][3:])
     times = {}
     for name, (kern, plain, library, n_bytes, flops) in specs.items():
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
@@ -526,9 +991,15 @@ def kernel_timing(gen):
     print("shapes: flash_fwd b=8 h=12 s=768 d=64 causal (the serving "
           "bucket), library = SDPA forward; flash_fwd (train step) and "
           "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1, library = "
-          "SDPA forward / backward with dropout 0.1; paged_decode b=8 h=12 "
-          "d=64 page 128, lengths 0..1000; append_token b=8 h=12; "
-          "write_pages 768 tokens into 6 pages; all bf16")
+          "SDPA forward / backward with dropout 0.1; paged_decode at "
+          "DECODE_SHAPES (GPT-2 decode b=8 h=12 d=64 page 128, lengths "
+          "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020); "
+          "append_token b=8 h=12; write_pages 768 tokens into 6 pages; "
+          "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); "
+          "paged_chunk at CHUNK_SHAPES (GPT-2 chunk b=8 sq=256 h=12 d=64, "
+          "Llama chunk b=8 sq=512 h=32/8 d=128, verify b=8 sq=5 h=12 d=64) "
+          "and at sq=1 on paged_decode's inputs at both DECODE_SHAPES; all "
+          "bf16")
     return times
 
 
@@ -582,6 +1053,9 @@ def phase_train(n_steps=6):
 KERNEL_CLASSES = [  # (class, substrings of the kernel name), first match
     ("flash_bwd (K2)", ("flash_bwd", "bwd_di", "bwd_dq")),
     ("flash_fwd (K1)", ("flash_fwd",)),
+    ("paged_decode (K5)", ("paged_decode",)),
+    ("paged_chunk (K6)", ("paged_chunk",)),
+    ("cache writes (K7)", ("append_token", "append_span", "write_pages")),
     ("GEMM", ("gemm", "cutlass", "nvjet", "xmma", "sm90_")),
     ("optimizer", ("multi_tensor", "adam")),
     ("loss", ("cross_entropy", "softmax", "nll")),
@@ -591,14 +1065,14 @@ KERNEL_CLASSES = [  # (class, substrings of the kernel name), first match
 ]
 
 
-def trace_step(step, batch, gen, record_shapes):
-    """One profiled train step: (host wall ms, the operator names, the
+def trace_call(fn, record_shapes=False):
+    """``fn()`` under torch.profiler: (host wall ms, the operator names, the
     chrome-trace events)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
-        step(batch, gen)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     names = {e.key for e in prof.key_averages()}
@@ -617,18 +1091,9 @@ def device_events(events):
     return dev
 
 
-def phase_trace(step, batch, gen):
-    """Two traced train steps. The first: no SDPA op may appear, and the
-    device time is broken down by kernel class (the union of the trace's
-    kernel, memcpy and memset intervals is the busy time). The second
-    records input shapes (which slows the host, so it is not used for the
-    idle share) to name the op behind each of the largest kernels."""
-    step(batch, gen)
-    torch.cuda.synchronize()
-    wall, names, events = trace_step(step, batch, gen, record_shapes=False)
-    sdpa = sorted(n for n in names if n.startswith(
-        ("aten::_scaled_dot_product", "aten::_efficient_attention")))
-    check(not sdpa, f"SDPA ops in the train step: {sdpa}")
+def device_summary(wall, events):
+    """GPU span, busy time (the union of the trace's kernel, memcpy and
+    memset intervals), idle share and device time by kernel class."""
     dev = device_events(events)
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
     busy, end = 0.0, -math.inf
@@ -645,13 +1110,27 @@ def phase_trace(step, batch, gen):
     total = sum(by_class.values())
     shares = ", ".join(f"{c} {t / total * 100:.1f}%" for c, t in sorted(
         by_class.items(), key=lambda kv: -kv[1]))
-    print(f"train step trace: wall {wall:.2f} ms (traced), GPU span "
-          f"{span / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle "
-          f"{(1 - busy / span) * 100:.1f}% of the span; {len(dev)} device "
-          f"events; device time by class: {shares}; no SDPA op "
+    return (f"wall {wall:.2f} ms (traced), GPU span {span / 1e3:.2f} ms, "
+            f"device busy {busy / 1e3:.2f} ms, idle "
+            f"{(1 - busy / span) * 100:.1f}% of the span; {len(dev)} device "
+            f"events; device time by class: {shares}")
+
+
+def phase_trace(step, batch, gen):
+    """Two traced train steps. The first: no SDPA op may appear, and the
+    device time is broken down by kernel class. The second records input
+    shapes (which slows the host, so it is not used for the idle share) to
+    name the op behind each of the largest kernels."""
+    step(batch, gen)
+    torch.cuda.synchronize()
+    wall, names, events = trace_call(lambda: step(batch, gen))
+    sdpa = sorted(n for n in names if n.startswith(
+        ("aten::_scaled_dot_product", "aten::_efficient_attention")))
+    check(not sdpa, f"SDPA ops in the train step: {sdpa}")
+    print(f"train step trace: {device_summary(wall, events)}; no SDPA op "
           f"[{card_line()}]")
 
-    _, _, events = trace_step(step, batch, gen, record_shapes=True)
+    _, _, events = trace_call(lambda: step(batch, gen), record_shapes=True)
     ops = {e["args"]["External id"]: (e["name"], e["args"].get("Input Dims"))
            for e in events if e.get("cat") == "cpu_op"
            and "External id" in e.get("args", {})}
@@ -736,30 +1215,37 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(0)
     rng = np.random.default_rng(0)
     errs = phase_kernels(gen)
+    phase_chunk_kernels(gen, errs)
     phase_train_kernels(gen, errs)
 
-    # Serving: full width, weights stored in bf16 (the serving dtype).
+    # Serving GPT-2: full width, weights stored in bf16 (the serving dtype).
     cfg = GPT2Config(param_dtype=BF16)
     model = GPT2LMHeadModel(cfg, device=DEV,
                             generator=torch.Generator(device=DEV).manual_seed(0))
-    serve_launches = phase_serve(model, cfg, rng)
-    phase_teacher_forcing(model, cfg, rng)
-    phase_timing(model, cfg, rng, gen)
-    del model
+    model32 = gpt2_fp32(model)
+    launches = {"serve": phase_serve(model, cfg, rng)}
+    phase_teacher_forcing(model, cfg, model32, rng)
+    launches["serve_chunked"] = phase_serve_chunked(model, cfg, model32, rng)
+    launches["speculative"] = phase_speculative(model, cfg, model32, rng)
+    phase_timing(model, cfg, rng)
+    del model, model32
     torch.cuda.empty_cache()
 
-    train_launches, step, batch, dgen, *held = phase_train()
+    launches["train"], step, batch, dgen, *held = phase_train()
     phase_trace(step, batch, dgen)
     phase_train_timing(step, batch, dgen)
     del step, held
     torch.cuda.empty_cache()
     phase_train_check(batch)
+    torch.cuda.empty_cache()
+
+    launches["llama_chunked"] = phase_llama(rng)
     times = kernel_timing(gen)
 
     kernels = []
     for name, (_, src, tpu) in KERNELS.items():
         ms, plain_ms, lib_ms, b_ms, b_by = times[name]
-        by_path = {"serve": serve_launches[name], "train": train_launches[name]}
+        by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

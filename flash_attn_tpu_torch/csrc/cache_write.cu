@@ -7,6 +7,14 @@
 // The TPU kernel read-modified-wrote the whole page, because Mosaic has no
 // dynamic row store; here each thread stores its elements directly.
 //
+// append_span replaces cache.py:_append_span_kernel: up to sq tokens per
+// sequence, token t of sequence b to slot lengths[b] + t for t <
+// new_lens[b]. Inactive sequences (length < 0), padding rows and positions
+// past the page table write nothing: unlike append_token nothing goes to
+// page 0, so this kernel has no scratch-page race. The TPU launcher staged
+// each chunk page-aligned and the kernel RMW'd whole pages by row select
+// (Mosaic's workaround); here each thread stores one 16-byte vector.
+//
 // write_pages replaces cache.py:_write_pages_kernel: a prompt's K/V
 // (prompt_len, h, d) is copied page by page to the given page ids, with the
 // tail of the last page zero-filled. The engine pads every page list with
@@ -67,8 +75,58 @@ __global__ void write_pages_kernel(const U* k, const U* v, U* k_pages,
   }
 }
 
+// One thread per 16-byte vector of (sequence, chunk row, kv head): it finds
+// its slot and page itself and stores directly.
+__global__ void append_span_kernel(const uint4* new_k, const uint4* new_v,
+                                   uint4* k_pages, uint4* v_pages,
+                                   const int* page_table, const int* lengths,
+                                   const int* new_lens, int b, int sq, int h,
+                                   int num_pages, int page_size,
+                                   int pages_max, int vecs) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)b * sq * h * vecs) return;
+  const int vec = i % vecs;
+  const int hh = (i / vecs) % h;
+  const int t = (i / ((size_t)vecs * h)) % sq;
+  const int bb = i / ((size_t)vecs * h * sq);
+  const int len = lengths[bb];
+  if (len < 0 || t >= new_lens[bb]) return;  // inactive or padding: nothing
+  const int pos = len + t;
+  if (pos / page_size >= pages_max) return;  // past the table: nothing
+  const int page = page_table[(size_t)bb * pages_max + pos / page_size];
+  const size_t dst =
+      (((size_t)hh * num_pages + page) * page_size + pos % page_size) * vecs +
+      vec;
+  k_pages[dst] = new_k[i];
+  v_pages[dst] = new_v[i];
+}
+
 }  // namespace
 }  // namespace fattn
+
+extern "C" int fattn_append_span(const void* new_k, const void* new_v,
+                                 void* k_pages, void* v_pages,
+                                 const void* page_table, const void* lengths,
+                                 const void* new_lens, int b, int sq, int h,
+                                 int num_pages, int page_size, int pages_max,
+                                 int d, int elem_bytes, void* stream) {
+  using namespace fattn;
+  if (b <= 0 || sq <= 0 || h <= 0 || d <= 0 || page_size <= 0 ||
+      pages_max <= 0 || elem_bytes <= 0 || (d * elem_bytes) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int vecs = d * elem_bytes / 16;
+  const size_t n = (size_t)b * sq * h * vecs;
+  const int threads = 256;
+  append_span_kernel<<<(n + threads - 1) / threads, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(new_k), static_cast<const uint4*>(new_v),
+      static_cast<uint4*>(k_pages), static_cast<uint4*>(v_pages),
+      static_cast<const int*>(page_table), static_cast<const int*>(lengths),
+      static_cast<const int*>(new_lens), b, sq, h, num_pages, page_size,
+      pages_max, vecs);
+  return cudaGetLastError();
+}
 
 extern "C" int fattn_append_token(const void* new_k, const void* new_v,
                                   void* k_pages, void* v_pages,

@@ -5,6 +5,7 @@
 // for head_dim 64) and :_decode_dma_kernel (manual DMA, taken when head_dim
 // % 128 == 0). One query token per sequence attends to its keys, which lie
 // in pages scattered over the cache and are found through the page table.
+// The visibility predicates are csrc/paged.cuh, shared with K6.
 //
 // Layout: q (b, h_kv, group, d); k_pages and v_pages (h_kv, num_pages,
 // page_size, d); lengths (b,) int32; page_table (b, pages_max) int32;
@@ -22,6 +23,7 @@
 // (sequence, kv head) a small batch fills few SMs; splitting the keys over
 // several blocks with a combine step is the later performance work.
 #include "common.cuh"
+#include "paged.cuh"
 
 namespace fattn {
 namespace {
@@ -54,7 +56,10 @@ __global__ void __launch_bounds__(kThreads)
   const int G = p.group;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ps = p.page_size;
-  const int length = max(0, min(p.lengths[bb], p.pages_max * ps));
+  // The query sits at position lengths[bb] - 1: every cached key is
+  // visible, so the key walk's bound is the whole visibility test.
+  const int length = paged_live_keys(
+      paged_length(p.lengths[bb], p.pages_max, ps), p.lengths[bb] - 1);
 
   const T* q = static_cast<const T*>(p.q) + (size_t)(bb * p.h_kv + hk) * G * D;
   const T* kh =

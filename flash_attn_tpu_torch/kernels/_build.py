@@ -45,6 +45,12 @@ _SIGNATURES = {
     # q, k_pages, v_pages, lengths, page_table, out, b, h_kv, group,
     # num_pages, page_size, pages_max, d, scale, dtype, stream
     "fattn_paged_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # q, k_pages, v_pages, lengths, chunk_lens, page_table, out, b, sq,
+    # h_kv, group, num_pages, page_size, pages_max, d, scale, dtype, stream
+    "fattn_paged_chunk": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    # new_k, new_v, k_pages, v_pages, page_table, lengths, new_lens, b, sq,
+    # h, num_pages, page_size, pages_max, d, elem_bytes, stream
+    "fattn_append_span": [_P] * 7 + [_I] * 8 + [_P],
     # new_k, new_v, k_pages, v_pages, page_table, lengths, b, h,
     # num_pages, page_size, pages_max, d, elem_bytes, stream
     "fattn_append_token": [_P] * 6 + [_I] * 7 + [_P],

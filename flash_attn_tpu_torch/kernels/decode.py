@@ -22,6 +22,7 @@ import torch
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
+    check_ported,
     paged_block_softmax,
     paged_visibility_mask,
 )
@@ -38,15 +39,9 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
     """Single-token decode against a paged bf16/fp16/fp32 KV cache. A CPU
     tensor takes the plain twin; a CUDA tensor launches the kernel or
     raises."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "k_scales/v_scales: quantized KV pages are ROADMAP port item P3")
-    if window_left is not None or num_sinks:
-        raise NotImplementedError(
-            "window_left/num_sinks: ROADMAP port item P2 (window in K1/K5)")
-    if alibi_slopes is not None or softcap is not None:
-        raise NotImplementedError(
-            "alibi_slopes/softcap: ROADMAP port item P2 (ALiBi/softcap)")
+    check_ported(k_scales=k_scales, v_scales=v_scales,
+                 window_left=window_left, num_sinks=num_sinks or None,
+                 alibi_slopes=alibi_slopes, softcap=softcap)
     batch, n_q_heads, d = q.shape
     n_kv_heads, num_pages, page_size, dk = k_pages.shape
     if dk != d or v_pages.shape != k_pages.shape or n_q_heads % n_kv_heads:

@@ -1,4 +1,5 @@
-"""Load a flax GPT-2 parameter tree into the port's ``GPT2LMHeadModel``.
+"""Load a flax GPT-2 or Llama parameter tree into the port's
+``GPT2LMHeadModel`` or ``LlamaForCausalLM``.
 
 The tree comes in as numpy arrays (the caller runs
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module imports no
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 
 def gpt2_from_jax_params(params, cfg: GPT2Config, device="cuda"
@@ -25,15 +27,6 @@ def gpt2_from_jax_params(params, cfg: GPT2Config, device="cuda"
     # Every parameter is overwritten below; the seed only fills the module.
     model = GPT2LMHeadModel(cfg, device=device,
                             generator=torch.Generator().manual_seed(0))
-
-    def put(dst: torch.Tensor, src, transpose=False):
-        src = np.array(src)  # a writable copy
-        if transpose:
-            src = src.T
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {src.shape} for a {tuple(dst.shape)} "
-                             "parameter")
-        dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
 
     def dense(lin, tree):
         put(lin.weight, tree["kernel"], transpose=True)
@@ -56,3 +49,44 @@ def gpt2_from_jax_params(params, cfg: GPT2Config, device="cuda"
             dense(block.mlp.c_proj, tree["mlp"]["c_proj"])
         norm(model.ln_f, p["ln_f"])
     return model
+
+
+def llama_from_jax_params(params, cfg: LlamaConfig, device="cuda"
+                          ) -> LlamaForCausalLM:
+    """``params``: the flax tree of ``flash_attn_tpu.models.llama
+    .LlamaForCausalLM`` as numpy arrays (``wte``, ``lm_head``,
+    ``layers_{i}/{input_layernorm, attn/{q,k,v,o}_proj,
+    post_attention_layernorm, mlp/{gate,up,down}_proj}``, ``norm``).
+    Returns the port's model on ``device``, parameters in
+    ``cfg.param_dtype``."""
+    p = params.get("params", params)
+    model = LlamaForCausalLM(cfg, device=device,
+                             generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        put(model.wte.weight, p["wte"])
+        put(model.lm_head.weight, p["lm_head"])  # (vocab, n_embd) both
+        put(model.norm.weight, p["norm"]["scale"])
+        for i, block in enumerate(model.layers):
+            tree = p[f"layers_{i}"]
+            put(block.input_layernorm.weight,
+                tree["input_layernorm"]["scale"])
+            put(block.post_attention_layernorm.weight,
+                tree["post_attention_layernorm"]["scale"])
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                put(getattr(block.attn, name).weight,
+                    tree["attn"][name]["kernel"], transpose=True)
+            for name in ("gate_proj", "up_proj", "down_proj"):
+                put(getattr(block.mlp, name).weight,
+                    tree["mlp"][name]["kernel"], transpose=True)
+    return model
+
+
+def put(dst: torch.Tensor, src, transpose=False):
+    """Copy a numpy leaf into a parameter, transposed when asked."""
+    src = np.array(src)  # a writable copy
+    if transpose:
+        src = src.T
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {src.shape} for a {tuple(dst.shape)} "
+                         "parameter")
+    dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))

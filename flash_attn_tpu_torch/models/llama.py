@@ -1,0 +1,236 @@
+"""Llama-family causal LM over the port's flash attention (port of
+``flash_attn_tpu/models/llama.py``: config, rotary, modules and the
+full-sequence forward).
+
+RMSNorm, rotary position embeddings in the HF half-split layout,
+grouped-query attention (``n_kv_head`` < ``n_head``, served by the kernels'
+GQA group axis), SwiGLU MLP and an untied LM head. Submodules are named
+after the flax parameter tree (``wte``, ``layers.{i}.input_layernorm``,
+``layers.{i}.attn.{q,k,v,o}_proj``, ``layers.{i}.post_attention_layernorm``,
+``layers.{i}.mlp.{gate,up,down}_proj``, ``norm``, ``lm_head``) so
+``convert.llama_from_jax_params`` maps one onto the other.
+
+Numerics follow the flax model: parameters stored in ``cfg.param_dtype``,
+every projection computed in ``cfg.dtype`` from a cast of them, RMSNorm
+statistics and rotary in fp32, and the head bf16 x bf16 -> fp32 (the
+product GPT-2's tied head computes). Serving forward only: the train step,
+``chunked_lm_loss``, remat and HF loading are ROADMAP port item P8;
+sliding windows (``window``, ``window_sinks``) are P2.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from flash_attn_tpu_torch.models.gpt2 import tied_logits
+from flash_attn_tpu_torch.models.modules import linear
+from flash_attn_tpu_torch.ops.attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    n_layer: int = 32
+    n_head: int = 32
+    n_kv_head: int = 32  # < n_head => GQA (Llama-2-70B / Llama-3 / Mistral)
+    n_embd: int = 4096
+    intermediate_size: int = 11008
+    max_position_embeddings: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    window: Any = None  # sliding-window attention: ROADMAP port item P2
+    window_sinks: int = 0
+    dtype: Any = torch.bfloat16  # compute: activations and the KV cache
+    param_dtype: Any = torch.float32  # stored weights
+    remat: bool = False  # training: ROADMAP port item P8
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    @property
+    def n_kv_heads(self) -> int:  # the engine's name (GPT2Config parity)
+        return self.n_kv_head
+
+    @classmethod
+    def tiny(cls, **kw):
+        base = dict(
+            vocab_size=512, n_layer=2, n_head=4, n_kv_head=2, n_embd=128,
+            intermediate_size=352, max_position_embeddings=256,
+            dtype=torch.float32, param_dtype=torch.float32,
+        )
+        base.update(kw)
+        return cls(**base)
+
+
+def llama_rope_tables(positions, dim: int, base: float):
+    """fp32 cos/sin of shape positions.shape + (dim,), half-split layout."""
+    inv_freq = 1.0 / (base ** (
+        torch.arange(0, dim, 2, dtype=torch.float32,
+                     device=positions.device) / dim))
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def apply_llama_rope(x, cos, sin):
+    """x (b, s, h, d); cos/sin (s, d) or (b, s, d). Rotates in fp32 and
+    returns x's dtype."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None], sin[:, :, None]  # (b, s, 1, d)
+    xf = x.float()
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rotated * sin).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """y = x / rms(x) * weight, statistics in fp32, cast to ``out_dtype``."""
+
+    def __init__(self, dim: int, eps: float, out_dtype, **factory):
+        super().__init__()
+        self.eps, self.out_dtype = eps, out_dtype
+        self.weight = nn.Parameter(torch.ones(dim, **factory))
+
+    def forward(self, x):
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (y * self.weight.float()).to(self.out_dtype)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, **factory):
+        super().__init__()
+        self.config = cfg
+        hd = cfg.head_dim
+        self.q_proj = nn.Linear(cfg.n_embd, cfg.n_head * hd, bias=False,
+                                **factory)
+        self.k_proj = nn.Linear(cfg.n_embd, cfg.n_kv_head * hd, bias=False,
+                                **factory)
+        self.v_proj = nn.Linear(cfg.n_embd, cfg.n_kv_head * hd, bias=False,
+                                **factory)
+        self.o_proj = nn.Linear(cfg.n_head * hd, cfg.n_embd, bias=False,
+                                **factory)
+
+    def qkv(self, x, positions):
+        """x (b, s, n_embd), positions (b, s) -> rotary-applied q (b, s,
+        n_head, hd), k and v (b, s, n_kv_head, hd)."""
+        cfg = self.config
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+        q = linear(x, self.q_proj, cfg.dtype).reshape(b, s, cfg.n_head, hd)
+        k = linear(x, self.k_proj, cfg.dtype).reshape(b, s, cfg.n_kv_head,
+                                                      hd)
+        v = linear(x, self.v_proj, cfg.dtype).reshape(b, s, cfg.n_kv_head,
+                                                      hd)
+        cos, sin = llama_rope_tables(positions, hd, cfg.rope_theta)
+        return apply_llama_rope(q, cos, sin), apply_llama_rope(k, cos, sin), v
+
+    def forward(self, x, positions):
+        q, k, v = self.qkv(x, positions)
+        ctx = flash_attention(q, k, v, causal=True)
+        return linear(ctx.flatten(2), self.o_proj, self.config.dtype)
+
+
+class LlamaMlp(nn.Module):
+    def __init__(self, cfg: LlamaConfig, **factory):
+        super().__init__()
+        self.config = cfg
+        self.gate_proj = nn.Linear(cfg.n_embd, cfg.intermediate_size,
+                                   bias=False, **factory)
+        self.up_proj = nn.Linear(cfg.n_embd, cfg.intermediate_size,
+                                 bias=False, **factory)
+        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.n_embd,
+                                   bias=False, **factory)
+
+    def forward(self, x):
+        dt = self.config.dtype
+        # SwiGLU: silu(gate) * up -> down
+        h = torch.nn.functional.silu(linear(x, self.gate_proj, dt)) \
+            * linear(x, self.up_proj, dt)
+        return linear(h, self.down_proj, dt)
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, **factory):
+        super().__init__()
+        self.config = cfg
+        self.input_layernorm = RMSNorm(cfg.n_embd, cfg.rms_norm_eps,
+                                       cfg.dtype, **factory)
+        self.attn = LlamaAttention(cfg, **factory)
+        self.post_attention_layernorm = RMSNorm(
+            cfg.n_embd, cfg.rms_norm_eps, cfg.dtype, **factory)
+        self.mlp = LlamaMlp(cfg, **factory)
+
+    def forward(self, x, positions):
+        x = x + self.attn(self.input_layernorm(x), positions)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+    def qkv(self, x, positions):
+        """Serving: the normed input's rotary-applied q, k and v."""
+        return self.attn.qkv(self.input_layernorm(x), positions)
+
+    def finish(self, x, ctx):
+        """Serving: residual stream after attention context ``ctx``
+        (..., n_head * hd): output projection, then the MLP."""
+        x = x + linear(ctx, self.attn.o_proj, self.config.dtype)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama with an untied LM head. Weights are drawn from ``generator``:
+    normal(0.02) for ``wte``, ``lm_head`` and the projections, ones for the
+    norms; stored in ``cfg.param_dtype`` on ``device``."""
+
+    def __init__(self, cfg: LlamaConfig, *, generator: torch.Generator,
+                 device="cuda"):
+        super().__init__()
+        if cfg.window is not None or cfg.window_sinks:
+            raise NotImplementedError(
+                "LlamaConfig.window/window_sinks: sliding windows are "
+                "ROADMAP port item P2")
+        if cfg.remat:
+            raise NotImplementedError(
+                "LlamaConfig.remat: Llama training is ROADMAP port item P8")
+        self.config = cfg
+        factory = dict(device=device, dtype=cfg.param_dtype)
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
+        self.layers = nn.ModuleList(LlamaBlock(cfg, **factory)
+                                    for _ in range(cfg.n_layer))
+        self.norm = RMSNorm(cfg.n_embd, cfg.rms_norm_eps, cfg.dtype,
+                            **factory)
+        self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False,
+                                 **factory)
+        self._init_weights(generator)
+
+    @torch.no_grad()
+    def _init_weights(self, generator):
+        for name, p in self.named_parameters():
+            if name.endswith("layernorm.weight") or name == "norm.weight":
+                continue  # ones, as made
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=generator.device) * 0.02)
+
+    def embed(self, input_ids):
+        return self.wte(input_ids).to(self.config.dtype)
+
+    def logits(self, x):
+        """Serving: final RMSNorm and the head, fp32 logits."""
+        return tied_logits(self.norm(x), self.lm_head.weight,
+                           self.config.dtype)
+
+    def forward(self, input_ids, positions=None):
+        """Full-sequence causal forward: (b, s) ids -> (b, s, vocab) fp32
+        logits."""
+        b, s = input_ids.shape
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+        x = self.embed(input_ids)
+        for block in self.layers:
+            x = block(x, positions)
+        return self.logits(x)

@@ -86,7 +86,8 @@ class FlashMHA(nn.Module):
     out_proj. With GQA (``num_kv_heads`` < ``num_heads``) the projection
     splits as [hq * hd | hkv * hd | hkv * hd]. ``dtype`` is the compute
     dtype (None: the promotion of the input's and the parameters'), and
-    ``param_dtype`` the stored one."""
+    ``param_dtype`` the stored one. The parameters are made on the card
+    unless ``device`` says otherwise."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  num_kv_heads: int | None = None, bias: bool = True,
@@ -95,7 +96,7 @@ class FlashMHA(nn.Module):
                  softmax_scale: float | None = None, dtype=None,
                  param_dtype=torch.float32, window_size=None,
                  use_alibi: bool = False, softcap: float | None = None,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         _unported(use_rotary_emb=use_rotary_emb)
         if embed_dim % num_heads:

@@ -59,6 +59,40 @@ def attention_ref(q, k, v, *, causal: bool = False,
     return (out, probs_pre_drop) if return_attn_probs else out
 
 
+def paged_chunk_ref(q, k_pages, v_pages, lengths, page_table, chunk_lens, *,
+                    softmax_scale: float | None = None, upcast: bool = True):
+    """Dense oracle of paged chunk attention (and, at sq = 1 with chunk_lens
+    = 1, of paged decode). q (b, sq, hq, d); each sequence's keys are
+    gathered from its pages and row t sees keys [0, lengths - chunk_lens +
+    t] (tail-aligned). Padding rows (t >= chunk_lens) and rows that see no
+    key give 0. ``upcast`` as in ``attention_ref``."""
+    b, sq, _, d = q.shape
+    ps = k_pages.shape[2]
+    if softmax_scale is None:
+        softmax_scale = d ** -0.5
+    out = torch.zeros_like(q)
+    for i in range(b):
+        n, c = int(lengths[i]), int(chunk_lens[i])
+        cached = min(n, page_table.shape[1] * ps)
+        if cached <= 0 or c <= 0:
+            continue
+        pages = page_table[i, : -(-cached // ps)].long()
+        qi = q[i].transpose(0, 1)  # (hq, sq, d)
+        k, v = _expand_kv(qi, k_pages[:, pages].flatten(1, 2)[:, :cached],
+                          v_pages[:, pages].flatten(1, 2)[:, :cached])
+        if upcast:
+            qi, k, v = qi.float(), k.float(), v.float()
+        s = (qi @ k.transpose(-1, -2)).float() * softmax_scale
+        t = torch.arange(sq, device=q.device)[:, None]
+        j = torch.arange(cached, device=q.device)[None]
+        s = s.masked_fill(~((j <= n - c + t) & (t < c)), float("-inf"))
+        p = torch.softmax(s, dim=-1).nan_to_num(0.0)  # empty rows: 0
+        if not upcast:
+            p = p.to(q.dtype)
+        out[i] = (p @ v).to(q.dtype).transpose(0, 1)
+    return out
+
+
 def attention_lse_ref(q, k, v, *, causal: bool = False,
                       softmax_scale: float | None = None):
     """fp32 logsumexp of the scaled scores, (..., sq)."""

@@ -1,7 +1,8 @@
 """Paged KV cache: device tensors updated in place + host page allocator
 (port of ``flash_attn_tpu/serving/cache.py``).
 
-``PagedKVCache`` holds one layer's pages. The two writes are CUDA kernels
+``PagedKVCache`` holds one layer's pages. The three writes (one token,
+a span of tokens, whole pages) are CUDA kernels
 (``csrc/cache_write.cu``) that update the pages IN PLACE, where the JAX
 package's were functional with input/output aliasing; each still returns
 the cache so call sites read the same. ``PageAllocator`` is the host-side
@@ -100,6 +101,73 @@ def append_token_plain(cache: PagedKVCache, new_k, new_v, page_table,
     slots = torch.where(ok, lengths.long() % ps, 0)
     cache.k_pages[:, page_ids, slots] = new_k.transpose(0, 1)
     cache.v_pages[:, page_ids, slots] = new_v.transpose(0, 1)
+    return cache
+
+
+def append_span(cache: PagedKVCache, new_k, new_v, page_table, lengths,
+                new_lens=None) -> PagedKVCache:
+    """Write up to ``sq`` tokens per sequence IN PLACE in one launch.
+
+    new_k/new_v (batch, sq, n_kv_heads, d); page_table (batch, pages_max)
+    int32; lengths (batch,) int32, the length BEFORE the append; new_lens
+    (batch,) int32 valid rows (default sq). Token t of sequence b lands at
+    slot ``lengths[b] + t`` for ``t < new_lens[b]``. Inactive sequences
+    (length < 0), padding rows and slots past the page table write nothing.
+    Replaces ``cache.py:_append_span_kernel``."""
+    _check_dtype("append_span", cache, new_k, new_v)
+    batch, sq, h, d = new_k.shape
+    n_kv, num_pages, ps, dk = cache.k_pages.shape
+    if new_lens is None:
+        new_lens = torch.full((batch,), sq, dtype=torch.int32,
+                              device=new_k.device)
+    if new_v.shape != new_k.shape or (h, d) != (n_kv, dk) \
+            or lengths.shape != (batch,) or new_lens.shape != (batch,) \
+            or page_table.shape[0] != batch:
+        raise ValueError(f"append_span: new_k {tuple(new_k.shape)}, pages "
+                         f"{tuple(cache.k_pages.shape)}")
+    if new_k.device.type == "cpu":
+        return append_span_plain(cache, new_k, new_v, page_table, lengths,
+                                 new_lens)
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or new_lens.dtype != torch.int32:
+        raise ValueError("append_span: page_table, lengths and new_lens "
+                         "must be int32")
+    _build.require_cuda("append_span", new_k, new_v, cache.k_pages,
+                        cache.v_pages, page_table, lengths, new_lens)
+    if (d * new_k.element_size()) % 16 or any(
+            x.data_ptr() % 16 for x in (new_k, new_v, cache.k_pages,
+                                        cache.v_pages)):
+        raise ValueError("append_span: rows and data must be 16-byte "
+                         "aligned (the kernel stores 16-byte vectors)")
+    code = _build.lib().fattn_append_span(
+        new_k.data_ptr(), new_v.data_ptr(), cache.k_pages.data_ptr(),
+        cache.v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+        new_lens.data_ptr(), batch, sq, h, num_pages, ps,
+        page_table.shape[1], d, new_k.element_size(),
+        _build.stream_ptr(new_k.device),
+    )
+    append_span.launches += 1
+    _build.check(code, "fattn_append_span")
+    return cache
+
+
+append_span.launches = 0
+
+
+def append_span_plain(cache: PagedKVCache, new_k, new_v, page_table,
+                      lengths, new_lens) -> PagedKVCache:
+    """Plain-torch twin of ``append_span`` (in place)."""
+    ps, pages_max = cache.page_size, page_table.shape[1]
+    batch, sq = new_k.shape[:2]
+    t = torch.arange(sq, device=new_k.device)
+    pos = lengths.long()[:, None] + t  # (b, sq)
+    write = (lengths[:, None] >= 0) & (t < new_lens[:, None]) \
+        & (pos // ps < pages_max)
+    b_idx, t_idx = write.nonzero(as_tuple=True)
+    p = pos[b_idx, t_idx]
+    pages = page_table[b_idx, p // ps].long()
+    cache.k_pages[:, pages, p % ps] = new_k[b_idx, t_idx].transpose(0, 1)
+    cache.v_pages[:, pages, p % ps] = new_v[b_idx, t_idx].transpose(0, 1)
     return cache
 
 

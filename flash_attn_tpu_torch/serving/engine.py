@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine for GPT-2 (port of
+"""Continuous-batching serving engine for GPT-2 and Llama (port of
 ``flash_attn_tpu/serving/engine.py``).
 
 Host-side scheduler with numpy tables; device-side steps in PyTorch over
@@ -9,7 +9,10 @@ the port's kernels:
   - prefill: every admissible pending request in one bucketed call
     (prompts padded to a shared 128-multiple bucket, batch padded to a
     power of two, as in the JAX engine), K/V then written into each
-    request's pages by the page-copy kernel (``write_prompt``)
+    request's pages by the page-copy kernel (``write_prompt``); or, with
+    ``prefill_chunk``, in page-aligned chunks of that many tokens, each
+    written to its pages and attended against the cache by the
+    multi-token paged kernel (``chunk_prefill_step``)
   - decode: all active slots advance one token per engine step through
     the cache-append and paged decode kernels (inactive slots are masked
     and write to the reserved scratch page 0)
@@ -20,8 +23,10 @@ the port's kernels:
     (it does not reproduce the JAX engine's random bits)
   - sequences retire on EOS / max tokens
 
-Chunked prefill (``prefill_chunk``), quantized KV (``kv_quantization``) and
-sliding windows (``cfg.window``) are ROADMAP port items P4, P3 and P2.
+The model's phases come from ``model_fns`` (default ``gpt2_decode``; pass
+``llama_decode`` with a ``LlamaForCausalLM``). Quantized KV
+(``kv_quantization``) and sliding windows (``cfg.window``) are ROADMAP port
+items P3 and P2.
 """
 
 from __future__ import annotations
@@ -33,7 +38,6 @@ import numpy as np
 import torch
 
 from flash_attn_tpu_torch.models import gpt2_decode
-from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from flash_attn_tpu_torch.serving.cache import (
     PageAllocator,
     init_cache,
@@ -64,8 +68,8 @@ def _next_pow2(x):
 class ServingEngine:
     def __init__(
         self,
-        model: GPT2LMHeadModel,
-        cfg: GPT2Config,
+        model: torch.nn.Module,
+        cfg,
         *,
         max_batch: int = 8,
         num_pages: int = 128,
@@ -77,23 +81,34 @@ class ServingEngine:
         top_k: int | None = None,  # with temperature > 0
         sample_seed: int = 0,
         prefill_chunk: int | None = None,
+        model_fns=gpt2_decode,
     ):
-        if prefill_chunk is not None:
-            raise NotImplementedError(
-                "prefill_chunk: chunked prefill is ROADMAP port item P4")
+        """``model_fns``: a module with ``prefill``, ``decode_step`` and
+        ``chunk_prefill_step`` of ``gpt2_decode``'s signatures, for
+        ``model`` and ``cfg``. ``prefill_chunk``: admit prompts in chunks
+        of this many tokens (a positive multiple of ``page_size``) instead
+        of one bucketed call."""
+        if prefill_chunk is not None and (
+                prefill_chunk <= 0 or prefill_chunk % page_size):
+            raise ValueError(
+                f"prefill_chunk must be a positive multiple of "
+                f"page_size={page_size}, got {prefill_chunk}")
         if kv_quantization is not None:
             raise NotImplementedError(
                 "kv_quantization: quantized KV is ROADMAP port item P3")
         if cfg.window is not None:
             raise NotImplementedError(
                 "cfg.window: sliding-window serving is ROADMAP port item P2")
-        if model.wte.weight.dtype != cfg.dtype:
+        first = next(model.parameters())
+        if first.dtype != cfg.dtype:
             # Serve a copy stored in the compute dtype, cast once here, so
             # that no decode step casts the weights.
             model = copy.deepcopy(model).to(cfg.dtype)
         self.model = model
         self.cfg = cfg
-        self.device = model.wte.weight.device
+        self.model_fns = model_fns
+        self.prefill_chunk = prefill_chunk
+        self.device = first.device
         self.max_batch = max_batch
         self.page_size = page_size
         self.pages_per_seq = pages_per_seq
@@ -208,7 +223,10 @@ class ServingEngine:
         if not batch:
             return
 
-        first = self._prefill_single_shot(batch)
+        if self.prefill_chunk is not None:
+            first = self._prefill_chunked(batch)
+        else:
+            first = self._prefill_single_shot(batch)
         for i, (slot, req, pages) in enumerate(batch):
             self.lengths[slot] = len(req.prompt) + len(req.generated)
             self.page_table[slot] = self.alloc.table_row(req.seq_id)
@@ -234,7 +252,7 @@ class ServingEngine:
         for i, p in enumerate(prompts):
             ids[i, : len(p)] = p
             lens[i] = len(p)
-        logits, ks, vs = gpt2_decode.prefill(
+        logits, ks, vs = self.model_fns.prefill(
             self.model, self.cfg, self._to_device(ids), self._to_device(lens)
         )
         first = self._sample(logits)
@@ -250,6 +268,46 @@ class ServingEngine:
         for cache, k, v in zip(self.caches, ks, vs):
             for i in range(rows):
                 write_prompt(cache, k[i], v[i], tbl_d[i])
+        return first
+
+    def _prefill_chunked(self, batch) -> np.ndarray:
+        """Walk the admitted prompts in page-aligned chunks of
+        ``prefill_chunk`` tokens: each chunk's K/V go to its pages and the
+        chunk attends to the cache, earlier chunks included. Each chunk's
+        tables are built on the host and copied to the device once. Returns
+        each row's first token, sampled from the chunk where its prompt
+        ends."""
+        C, ps = self.prefill_chunk, self.page_size
+        rows = _next_pow2(len(batch))
+        prompts = [req.prompt + req.generated for _, req, _ in batch]
+        lens = [len(p) for p in prompts]
+        pages_per_chunk = C // ps
+        tbl = np.zeros((rows, self.pages_per_seq), np.int32)
+        for i, (_, _, pages) in enumerate(batch):
+            tbl[i, : len(pages)] = pages
+        tbl_d = self._to_device(tbl)
+        first = np.zeros((len(batch),), np.int32)
+        for off in range(0, max(lens), C):
+            ids = np.zeros((rows, C), np.int64)
+            pos0 = np.zeros((rows,), np.int32)
+            cl = np.zeros((rows,), np.int32)
+            wtbl = np.zeros((rows, pages_per_chunk), np.int32)
+            for i, (_, _, pages) in enumerate(batch):
+                pos0[i] = min(lens[i], off)
+                cl[i] = max(0, min(lens[i] - off, C))
+                if cl[i] > 0:
+                    ids[i, : cl[i]] = prompts[i][off : off + cl[i]]
+                    span = pages[off // ps : off // ps + pages_per_chunk]
+                    wtbl[i, : len(span)] = span
+            logits, self.caches = self.model_fns.chunk_prefill_step(
+                self.model, self.cfg, self.caches, self._to_device(ids),
+                self._to_device(pos0), self._to_device(cl),
+                self._to_device(wtbl), tbl_d)
+            ending = [i for i in range(len(batch))
+                      if off < lens[i] <= off + C]
+            if ending:
+                sampled = self._sample(logits)
+                first[ending] = sampled[ending]
         return first
 
     def _preempt_youngest(self, exclude_slot: int) -> bool:
@@ -299,7 +357,7 @@ class ServingEngine:
             [s in self.slot_req for s in range(self.max_batch)]
         )
         lengths = np.where(active, self.lengths, -1).astype(np.int32)
-        logits, self.caches = gpt2_decode.decode_step(
+        logits, self.caches = self.model_fns.decode_step(
             self.model, self.cfg, self.caches,
             self._to_device(self.page_table), self._to_device(lengths),
             self._to_device(self.next_token.astype(np.int64)),

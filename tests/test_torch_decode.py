@@ -16,7 +16,7 @@ from flash_attn_tpu.kernels.decode import (
     paged_decode_attention as jax_paged_decode_attention,
 )
 from flash_attn_tpu_torch.kernels.decode import paged_decode_attention
-from flash_attn_tpu_torch.reference import attention_ref
+from flash_attn_tpu_torch.reference import paged_chunk_ref
 
 ATOL = RTOL = 1e-5
 
@@ -66,19 +66,11 @@ def test_matches_jax_fp32(case):
 
 
 def _dense_ref(q, kp, vp, lens, table):
-    """Gather each sequence's keys and run the dense oracle (the query is
-    the last position, so every key below the length is visible)."""
-    outs = []
-    ps = kp.shape[2]
-    for i, n in enumerate(lens.tolist()):
-        if n == 0:
-            outs.append(torch.zeros_like(q[i]))
-            continue
-        pages = table[i, : -(-n // ps)].long()
-        k = kp[:, pages].flatten(1, 2)[:, :n]  # (h_kv, n, d)
-        v = vp[:, pages].flatten(1, 2)[:, :n]
-        outs.append(attention_ref(q[i][:, None], k, v)[:, 0])
-    return torch.stack(outs)
+    """The dense chunk oracle at sq = 1: each sequence's keys gathered, the
+    query at the last position, so every key below the length is
+    visible."""
+    one = (lens > 0).to(torch.int32)
+    return paged_chunk_ref(q[:, None], kp, vp, lens, table, one)[:, 0]
 
 
 def test_plain_twin_matches_dense_oracle():

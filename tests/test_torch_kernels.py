@@ -7,9 +7,10 @@ imports no JAX, so it runs on a machine that has only PyTorch
 
     python -m pytest -m gpu --noconftest tests/test_torch_kernels.py -q
 
-Tolerances: attention and decode are held to the repo's 2x rule (error
-against the fp32 twin at most twice a plain same-dtype implementation's,
-plus 1e-5); cache writes are bitwise equal outside the scratch page 0. The
+Tolerances: attention, decode and chunk attention are held to the repo's
+2x rule (error against the fp32 twin at most twice a plain same-dtype
+implementation's, plus 1e-5); cache writes are bitwise equal outside the
+scratch page 0 (the span append writes nothing there: all pages). The
 backward kernel's gradients are held to the 2x rule against fp32 autograd
 through ``attention_ref`` (the same-dtype ``attention_ref(upcast=False)``
 in autograd is the baseline), plus 1e-4: the fp32 gradients sum hundreds
@@ -23,6 +24,10 @@ import pytest
 import torch
 
 from flash_attn_tpu_torch import flash_attention
+from flash_attn_tpu_torch.kernels.chunk import (
+    paged_chunk_attention,
+    paged_chunk_attention_plain,
+)
 from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -41,10 +46,17 @@ from flash_attn_tpu_torch.models.gpt2 import (
     GPT2LMHeadModel,
     make_train_step,
 )
-from flash_attn_tpu_torch.reference import attention_lse_ref, attention_ref
+from flash_attn_tpu_torch.models import llama_decode
+from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from flash_attn_tpu_torch.reference import (
+    attention_lse_ref,
+    attention_ref,
+    paged_chunk_ref,
+)
 from flash_attn_tpu_torch.serving import cache as torch_cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
-from flash_attn_tpu_torch.utils.testing import assert_two_x_bound
+from flash_attn_tpu_torch.serving.speculative import speculative_decode
+from flash_attn_tpu_torch.utils.testing import assert_two_x_bound, max_err
 
 pytestmark = pytest.mark.gpu
 
@@ -244,18 +256,11 @@ def _paged_inputs(rng, lengths, h, h_kv, d, ps, num_pages, pmax, dtype,
 
 
 def _dense_native(q, kp, vp, lens, table):
-    """Same-dtype dense attention over each sequence's gathered keys."""
-    outs = []
-    ps = kp.shape[2]
-    for i, n in enumerate(lens.tolist()):
-        if n == 0:
-            outs.append(torch.zeros_like(q[i]))
-            continue
-        pages = table[i, : -(-n // ps)].long()
-        k = kp[:, pages].flatten(1, 2)[:, :n]
-        v = vp[:, pages].flatten(1, 2)[:, :n]
-        outs.append(attention_ref(q[i][:, None], k, v, upcast=False)[:, 0])
-    return torch.stack(outs)
+    """Same-dtype dense attention over each sequence's gathered keys (the
+    chunk oracle at sq = 1)."""
+    one = (lens > 0).to(torch.int32)
+    return paged_chunk_ref(q[:, None], kp, vp, lens, table, one,
+                           upcast=False)[:, 0]
 
 
 # (lengths, h, h_kv, d, page_size, pages_max)
@@ -327,3 +332,141 @@ def test_engine_on_card_matches_cpu(cuda):
             eng.submit(p, max_new_tokens=6)
         outs.append({r.seq_id: r.generated for r in eng.run(max_steps=100)})
     assert outs[0] == outs[1]
+
+
+def _chunk_inputs(rng, lengths, sq, h, h_kv, d, ps, pmax, dtype, device):
+    """q (b, sq, h, d) and pages with each sequence's pages in shuffled
+    order; lengths include the chunk."""
+    q, kp, vp, lens, table = _paged_inputs(
+        rng, lengths, h, h_kv, d, ps, 1 + sum(-(-n // ps) for n in lengths),
+        pmax, dtype, device)
+    q = _randn(rng, (len(lengths), sq, h, d), dtype, device)
+    return q, kp, vp, lens, table
+
+
+# (lengths incl. the chunk, chunk_lens, sq, h, h_kv, d, page_size, pages_max)
+CHUNK_CASES = [
+    ([40, 17, 5, 33], [8, 3, 5, 0], 8, 2, 2, 64, 16, 3),      # group 1
+    ([300, 64, 9], [5, 5, 1], 5, 8, 2, 128, 32, 10),           # verify, group 4
+    ([700, 256, 1000, 5], [256, 200, 40, 0], 256, 12, 12, 64, 128, 8),
+    ([600, 513, 256], [256, 256, 100], 256, 32, 4, 128, 128, 5),  # group 8
+    ([100, 1, 0, 47], [1, 1, 0, 1], 1, 8, 2, 64, 16, 7),       # sq 1, group 4
+    ([77, 130], [1, 1], 1, 8, 1, 128, 16, 9),                  # sq 1, group 8
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CHUNK_CASES, ids=str)
+def test_paged_chunk_kernel_matches_twin(cuda, case, dtype):
+    """K6: ragged chunk_lens, padding rows (exactly 0), shuffled pages."""
+    lengths, chunk_lens, sq, h, h_kv, d, ps, pmax = case
+    q, kp, vp, lens, table = _chunk_inputs(np.random.default_rng(6),
+                                           lengths, sq, h, h_kv, d, ps, pmax,
+                                           dtype, cuda)
+    cl = torch.tensor(chunk_lens, dtype=torch.int32, device=cuda)
+    out = paged_chunk_attention(q, kp, vp, lens, table, chunk_lens=cl)
+    torch.cuda.synchronize()
+    twin = paged_chunk_attention_plain(q, kp, vp, lens, table, chunk_lens=cl,
+                                       softmax_scale=d ** -0.5)
+    native = paged_chunk_ref(q, kp, vp, lens, table, cl, upcast=False)
+    assert_two_x_bound(out, twin.float(), native, label=f"{case} {dtype}")
+    for i, c in enumerate(chunk_lens):
+        assert not out[i, c:].any(), f"padding rows of sequence {i}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_chunk_kernel_sq1_matches_decode_kernel(cuda, dtype):
+    """K6 at sq = 1 against K5 on the same cache: both within the 2x rule
+    of the fp32 oracle, and within twice the baseline of each other."""
+    lengths = [1, 127, 128, 129, 400, 777, 1000, 0]
+    q, kp, vp, lens, table = _chunk_inputs(np.random.default_rng(7), lengths,
+                                           1, 12, 12, 64, 128, 8, dtype, cuda)
+    cl = (lens > 0).to(torch.int32)
+    k6 = paged_chunk_attention(q, kp, vp, lens, table, chunk_lens=cl)[:, 0]
+    k5 = paged_decode_attention(q[:, 0].contiguous(), kp, vp, lens, table)
+    torch.cuda.synchronize()
+    ref32 = paged_chunk_ref(q, kp, vp, lens, table, cl)[:, 0]
+    ref16 = paged_chunk_ref(q, kp, vp, lens, table, cl, upcast=False)[:, 0]
+    _, base = assert_two_x_bound(k6, ref32, ref16, label=f"K6 {dtype}")
+    assert_two_x_bound(k5, ref32, ref16, label=f"K5 {dtype}")
+    assert max_err(k6, k5) <= 2 * base + 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_append_span_kernel_matches_twin(cuda, dtype):
+    """K7b bit for bit on every page (it writes nothing to page 0): spans
+    crossing a page edge, an inactive row, a row running past its table,
+    a short row; and at sq = 1 the pages K7a gives active rows."""
+    rng = np.random.default_rng(8)
+    h, d, ps, num_pages, sq = 2, 64, 16, 13, 5
+    k0 = _randn(rng, (h, num_pages, ps, d), dtype, "cpu")
+    v0 = _randn(rng, (h, num_pages, ps, d), dtype, "cpu")
+    table = torch.tensor([[1, 2, 3], [4, 5, 6], [7, 8, 9], [10, 11, 12]],
+                         dtype=torch.int32)
+    lens = torch.tensor([14, -1, 45, 0], dtype=torch.int32)
+    new_lens = torch.tensor([5, 5, 5, 3], dtype=torch.int32)
+    nk = _randn(rng, (4, sq, h, d), dtype, "cpu")
+    nv = _randn(rng, (4, sq, h, d), dtype, "cpu")
+    on_cpu = torch_cache.PagedKVCache(k0.clone(), v0.clone())
+    on_card = torch_cache.PagedKVCache(k0.to(cuda), v0.to(cuda))
+    torch_cache.append_span(on_cpu, nk, nv, table, lens, new_lens)
+    torch_cache.append_span(on_card, nk.to(cuda), nv.to(cuda), table.to(cuda),
+                            lens.to(cuda), new_lens.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(on_card.k_pages.cpu(), on_cpu.k_pages)
+    assert torch.equal(on_card.v_pages.cpu(), on_cpu.v_pages)
+
+    span = torch_cache.PagedKVCache(k0.to(cuda), v0.to(cuda))
+    token = torch_cache.PagedKVCache(k0.to(cuda), v0.to(cuda))
+    args = (table.to(cuda), lens.to(cuda))
+    torch_cache.append_span(span, nk[:, :1].to(cuda), nv[:, :1].to(cuda),
+                            *args)
+    torch_cache.append_token(token, nk[:, 0].to(cuda), nv[:, 0].to(cuda),
+                             *args)
+    torch.cuda.synchronize()
+    assert torch.equal(span.k_pages[:, 1:], token.k_pages[:, 1:])
+    assert torch.equal(span.v_pages[:, 1:], token.v_pages[:, 1:])
+
+
+@pytest.mark.parametrize("prefill_chunk", [None, 32])
+def test_engines_on_card_match_cpu(cuda, prefill_chunk):
+    """Tiny fp32 GPT-2 and Llama (GQA group 2), head_dim 64 as the kernels
+    need: the engine on the card, single-shot and chunked, gives the CPU
+    plain path's greedy tokens."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (9, 40, 130)]
+    for cfg, cls, fns in (
+            (GPT2Config.tiny(dtype=torch.float32, n_head=2), GPT2LMHeadModel,
+             None),
+            (LlamaConfig.tiny(n_embd=256, n_head=4, n_kv_head=2),
+             LlamaForCausalLM, llama_decode)):
+        model = cls(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+        kw = dict(max_batch=2, num_pages=24, page_size=16, pages_per_seq=12,
+                  prefill_chunk=prefill_chunk)
+        if fns is not None:
+            kw["model_fns"] = fns
+        outs = []
+        for m in (model, copy.deepcopy(model).to(cuda)):
+            eng = ServingEngine(m, cfg, **kw)
+            for p in prompts:
+                eng.submit(p, max_new_tokens=6)
+            outs.append({r.seq_id: r.generated
+                         for r in eng.run(max_steps=100)})
+        assert outs[0] == outs[1], cls.__name__
+
+
+def test_speculative_decode_on_card_matches_cpu(cuda):
+    """The speculative loop (K1 draft, K7b + K6 verify) on the card gives
+    the CPU plain path's tokens and verify logits, tiny fp32 GPT-2."""
+    cfg = GPT2Config.tiny(dtype=torch.float32, n_head=2)
+    model = GPT2LMHeadModel(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    prompt = np.random.default_rng(10).integers(0, 512, 70).tolist()
+    cpu = speculative_decode(model, cfg, prompt, 12, page_size=16)
+    card = speculative_decode(copy.deepcopy(model).to(cuda), cfg, prompt, 12,
+                              page_size=16)
+    assert card[0] == cpu[0]
+    for (p0, c0, l0), (p1, c1, l1) in zip(cpu[1], card[1]):
+        assert (p0, c0) == (p1, c1)
+        torch.testing.assert_close(l1.cpu(), l0, atol=1e-4, rtol=1e-4)
