@@ -48,6 +48,16 @@ import torch
 import torch.nn.functional as F
 
 from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels.blocksparse import (
+    blocksparse_attention_bwd,
+    blocksparse_attention_bwd_plain,
+    blocksparse_attention_dkv,
+    blocksparse_attention_dq,
+    blocksparse_attention_fwd,
+    blocksparse_attention_fwd_plain,
+    build_layout,
+    visible_plain,
+)
 from flash_attn_tpu_torch.kernels.chunk import (
     paged_chunk_attention,
     paged_chunk_attention_plain,
@@ -66,6 +76,9 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
 )
 from flash_attn_tpu_torch.kernels.prng import dropout_mask_dense
 from flash_attn_tpu_torch.models import gpt2_decode, llama_decode, modules
+from flash_attn_tpu_torch.models.blocksparse_modules import (
+    LocalGlobalSparsityConfig,
+)
 from flash_attn_tpu_torch.models.gpt2 import (
     GPT2Config,
     GPT2LMHeadModel,
@@ -73,6 +86,7 @@ from flash_attn_tpu_torch.models.gpt2 import (
     make_train_step,
 )
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
 from flash_attn_tpu_torch.reference import attention_ref, paged_chunk_ref
 from flash_attn_tpu_torch.serving import cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
@@ -102,12 +116,22 @@ KERNELS = {
     "append_span": (cache.append_span,
                     "flash_attn_tpu_torch/csrc/cache_write.cu",
                     "flash_attn_tpu/serving/cache.py:250"),
+    "blocksparse_fwd": (blocksparse_attention_fwd,
+                        "flash_attn_tpu_torch/csrc/blocksparse_fwd.cu",
+                        "flash_attn_tpu/kernels/blocksparse.py:537"),
+    "blocksparse_dkv": (blocksparse_attention_dkv,
+                        "flash_attn_tpu_torch/csrc/blocksparse_bwd.cu",
+                        "flash_attn_tpu/kernels/blocksparse.py:855"),
+    "blocksparse_dq": (blocksparse_attention_dq,
+                       "flash_attn_tpu_torch/csrc/blocksparse_bwd.cu",
+                       "flash_attn_tpu/kernels/blocksparse.py:988"),
 }
 SERVE_KERNELS = ("flash_fwd", "paged_decode", "append_token", "write_pages")
 CHUNKED_KERNELS = ("paged_chunk", "write_pages", "paged_decode",
                    "append_token")
 SPEC_KERNELS = ("flash_fwd", "write_pages", "paged_chunk", "append_span")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd")
+BS_KERNELS = ("blocksparse_fwd", "blocksparse_dkv", "blocksparse_dq")
 # Llama-3-8B (meta-llama/Meta-Llama-3-8B config.json), bf16.
 LLAMA3_8B = LlamaConfig(
     vocab_size=128256, n_layer=32, n_embd=4096, n_head=32, n_kv_head=8,
@@ -976,6 +1000,7 @@ def kernel_timing(gen):
             lambda a=a, one=one: paged_chunk_attention_plain(
                 *a, chunk_lens=one, softmax_scale=a[0].shape[-1] ** -0.5),
             None, *specs[k5][3:])
+    specs.update(bs_timing_specs(gen))
     times = {}
     for name, (kern, plain, library, n_bytes, flops) in specs.items():
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
@@ -998,16 +1023,31 @@ def kernel_timing(gen):
           "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); "
           "paged_chunk at CHUNK_SHAPES (GPT-2 chunk b=8 sq=256 h=12 d=64, "
           "Llama chunk b=8 sq=512 h=32/8 d=128, verify b=8 sq=5 h=12 d=64) "
-          "and at sq=1 on paged_decode's inputs at both DECODE_SHAPES; all "
-          "bf16")
+          "and at sq=1 on paged_decode's inputs at both DECODE_SHAPES; "
+          "blocksparse_* at BS_SHAPES (i) (b=8 h=12 s=1024 d=64 causal "
+          "LocalGlobalSparsityConfig(window=256), dropout 0.1) and (ii) "
+          "(config 4: b=1 h=8 s=8192 d=64 causal, 25% random cells), the "
+          "dkv and dq rows' plain = the whole plain backward, library = SDPA "
+          "with the element mask as attn_mask (forward; backward for k, v "
+          "and for q), bound by operations over visible pairs (4d forward, "
+          "8d dK/dV, 6d dQ); dense K1/K2 on config 4's inputs; all bf16")
+    print_sparsity_pays(times)
     return times
 
 
 # ---------------------------------------------------------------- phase 5
 
-def train_model(cfg):
+def train_model(cfg, attn_impl=None):
     return GPT2LMHeadModel(
-        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0),
+        attn_impl=attn_impl)
+
+
+def train_batch(cfg):
+    """One b=8, s=1024 batch from numpy's default_rng(0)."""
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 1024))).to(DEV)
+    return {"input_ids": ids, "labels": ids}
 
 
 def phase_train(n_steps=6):
@@ -1016,9 +1056,7 @@ def phase_train(n_steps=6):
     (the JAX package's benchmark run_config(8, 1024)). Returns (launches,
     step, batch, generator, model, optimizer)."""
     cfg = GPT2Config(dropout=0.1)
-    ids = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (8, 1024))).to(DEV)
-    batch = {"input_ids": ids, "labels": ids}
+    batch = train_batch(cfg)
     model = train_model(cfg)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
     step = make_train_step(model, opt)
@@ -1051,6 +1089,7 @@ def phase_train(n_steps=6):
 
 
 KERNEL_CLASSES = [  # (class, substrings of the kernel name), first match
+    ("blocksparse (K8)", ("bs_fwd", "bs_dkv", "bs_dq")),
     ("flash_bwd (K2)", ("flash_bwd", "bwd_di", "bwd_dq")),
     ("flash_fwd (K1)", ("flash_fwd",)),
     ("paged_decode (K5)", ("paged_decode",)),
@@ -1146,7 +1185,9 @@ def phase_trace(step, batch, gen):
           f"that launched it: {top}")
 
 
-def phase_train_timing(step, batch, gen, warmup=2, n=5):
+def phase_train_timing(step, batch, gen, warmup=2, n=5, label="train"):
+    """Host ms of ``n`` steps after ``warmup``; prints and returns the
+    median."""
     for _ in range(warmup):
         step(batch, gen)
     times = []
@@ -1157,10 +1198,11 @@ def phase_train_timing(step, batch, gen, warmup=2, n=5):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    print(f"train step b=8 s=1024 dropout 0.1: median {med:.2f} ms (min "
+    print(f"{label} step b=8 s=1024 dropout 0.1: median {med:.2f} ms (min "
           f"{min(times):.2f}, max {max(times):.2f}, {n} steps after "
           f"{warmup} warm-ups), {8 * 1024 / med * 1e3:.0f} tokens/s "
           f"[{card_line()}]")
+    return med
 
 
 def reference_attention(q, k, v, *, causal, softmax_scale=None,
@@ -1210,6 +1252,321 @@ def phase_train_check(batch):
               f"baseline {b:.3e})")
 
 
+# ---------------------------------------------------------------- phase 6
+
+# name: (b, h, s, d, cell mask, causal, dropout_p, valid keys of batch row 0
+# or None)
+BS_SHAPES = {
+    # (i) the GPT-2 training step's attention
+    "(i) GPT-2 train": (8, 12, 1024, 64, "local-global", True, 0.1, None),
+    # (ii) benchmarks/benchmark_baseline_configs.py config4
+    "(ii) config 4": (1, 8, 8192, 64, "config4", True, 0.0, None),
+    # (iii) every tile FULL, keys >= 300 of batch row 0 padded (C9)
+    "(iii) padding on full tiles": (2, 4, 512, 64, "ones", False, 0.0, 300),
+    # (iv) ragged s (not a multiple of 16 rows or 256 columns), d=128
+    "(iv) ragged, d=128": (2, 4, 600, 128, "random", False, 0.1, None),
+}
+
+
+def gpt2_bs_layout(s=1024):
+    """The GPT-2 training mask: LocalGlobalSparsityConfig(window=256) (one
+    global cell column, 16 global cell rows), causal."""
+    return build_layout(LocalGlobalSparsityConfig(window=256).make_layout(s),
+                        sq=s, sk=s, causal=True)
+
+
+def bs_inputs(gen, shape):
+    """q, k, v, dout (b, h, s, d) bf16, the layout, q_valid, k_valid and
+    dropout_p of BS_SHAPES[shape]. Config 4 draws q, k, v and then its 25%
+    cell mask from numpy's default_rng(0), as the benchmark does."""
+    b, h, s, d, cells, causal, p, valid = BS_SHAPES[shape]
+    if cells == "config4":
+        rng = np.random.default_rng(0)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d))).to(
+            DEV, BF16).transpose(1, 2).contiguous() for _ in range(3))
+        bm = rng.random((s // 16, s // 256)) < 0.25
+    else:
+        q, k, v = (randn(gen, (b, h, s, d)) for _ in range(3))
+        n = (-(-s // 16), -(-s // 256))
+        bm = {"local-global": lambda: LocalGlobalSparsityConfig(
+                  window=256).make_layout(s),
+              "ones": lambda: np.ones(n, bool),
+              "random": lambda: np.random.default_rng(s).random(n) < 0.35,
+              }[cells]()
+    layout = build_layout(bm, sq=s, sk=s, causal=causal)
+    q_valid = k_valid = None
+    if valid is not None:
+        k_valid = torch.ones((b, s), dtype=torch.uint8, device=DEV)
+        k_valid[0, valid:] = 0
+        q_valid = k_valid.clone()
+    return q, k, v, randn(gen, (b, h, s, d)), layout, q_valid, k_valid, p
+
+
+def bs_oracle(q, k, v, dout, ref, upcast):
+    """out and dq, dk, dv of attention_ref with the element mask, dropout
+    mask and p in ``ref``, by autograd."""
+    leaves = [(x.float() if upcast else x).detach().requires_grad_()
+              for x in (q, k, v)]
+    out = attention_ref(*leaves, upcast=upcast, **ref)
+    out.backward(dout.to(out.dtype))
+    return out.detach(), [x.grad for x in leaves]
+
+
+def phase_blocksparse_kernels(gen, errs):
+    """K8a, K8b and K8c at BS_SHAPES against their twins and, by the 2x
+    rule, the fp32 oracle attention_ref(mask=...) (gradients by autograd,
+    atol 1e-4); bf16. Rows that see nothing give 0 and lse -inf. Adds the
+    max errors vs the twins to ``errs``."""
+    for name in BS_KERNELS:
+        errs[name] = 0.0
+    for shape, (b, h, s, d, _, _, p, valid) in BS_SHAPES.items():
+        q, k, v, dout, layout, qv, kv, p = bs_inputs(gen, shape)
+        kw = dict(softmax_scale=d ** -0.5, dropout_p=p,
+                  seed=SEED if p else None)
+        out, lse = blocksparse_attention_fwd(q, k, v, layout, qv, kv, **kw)
+        grads = blocksparse_attention_bwd(q, k, v, out, dout, lse, layout,
+                                          qv, kv, **kw)
+        torch.cuda.synchronize()
+        twin, twin_lse = blocksparse_attention_fwd_plain(q, k, v, layout, qv,
+                                                         kv, **kw)
+        di = (out.float() * dout.float()).sum(-1)
+        twins = blocksparse_attention_bwd_plain(q, k, v, dout, lse, di,
+                                                layout, qv, kv, **kw)
+        mask = visible_plain(layout, qv, kv, DEV)
+        keep = dropout_mask_dense(SEED, b, h, s, s, p, device=DEV) if p \
+            else None
+        ref = dict(mask=mask, dropout_mask=keep, dropout_p=p)
+        out32, oracle = bs_oracle(q, k, v, dout, ref, True)
+        out16, native = bs_oracle(q, k, v, dout, ref, False)
+        label = f"blocksparse {shape}"
+        err, base = assert_two_x_bound(out, out32, out16, label=label)
+        dead = ~mask.any(-1).expand(b, h, s)
+        check(not out[dead].any() and bool(torch.isneginf(lse[dead]).all()),
+              f"{label}: rows that see nothing")
+        check(torch.equal(torch.isneginf(lse), torch.isneginf(twin_lse))
+              and max_err(lse[~dead], twin_lse[~dead]) < 1e-3,
+              f"{label}: lse vs twin")
+        if valid is not None:  # C9: padded keys of full tiles unseen
+            check(bool(layout.kv_full.all()), f"{label}: a tile not FULL")
+        errs["blocksparse_fwd"] = max(errs["blocksparse_fwd"],
+                                      max_err(out, twin))
+        parts = []
+        for g_name, g, tw, o, n in zip("qkv", grads, twins, oracle, native):
+            e, be = assert_two_x_bound(g, o, n, atol=1e-4,
+                                       label=f"{label} d{g_name}")
+            kernel = "blocksparse_dq" if g_name == "q" else "blocksparse_dkv"
+            errs[kernel] = max(errs[kernel], max_err(g, tw))
+            parts.append(f"d{g_name} {e:.3e} ({be:.3e})")
+        print(f"{label} b={b} h={h} s={s} d={d} causal={layout.causal} "
+              f"p={p}: {int(mask.expand(b, 1, s, s).sum()) * h} visible "
+              f"pairs, "
+              f"{int(layout.kv_counts.sum())} live and "
+              f"{int(layout.kv_full.sum())} full 64x64 tiles; out err vs "
+              f"fp32 {err:.3e} (bf16 baseline {base:.3e}); grads "
+              f"{', '.join(parts)}; vs twins fwd {max_err(out, twin):.3e}")
+        del q, k, v, dout, out, lse, grads, twin, twins, oracle, native, mask
+        torch.cuda.empty_cache()
+
+
+def bs_attn_impl(layout, dropout_p):
+    """GPT-2's ``attn_impl``: causal blocksparse attention over ``layout``,
+    with dropout when the block passes a seed."""
+    def attn(q, k, v, dropout_seed=None):
+        return blocksparse_attention(
+            q, k, v, layout, causal=True, dropout_seed=dropout_seed,
+            dropout_p=0.0 if dropout_seed is None else dropout_p)
+    return attn
+
+
+def phase_blocksparse_train(n_steps=4):
+    """The blocksparse training path: GPT2Config(dropout=0.1) at full
+    width, attn_impl = causal blocksparse attention over gpt2_bs_layout(),
+    n_steps AdamW steps on the train batch. Each step launches K8a, K8b and
+    K8c once per layer and no dense attention kernel; a traced step holds no
+    K1, K2 or SDPA kernel. Returns (launches, median step ms)."""
+    cfg = GPT2Config(dropout=0.1)
+    batch = train_batch(cfg)
+    model = train_model(cfg, bs_attn_impl(gpt2_bs_layout(), cfg.dropout))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    step = make_train_step(model, opt)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(batch, gen) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(KERNELS)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name in BS_KERNELS:
+        check(launches[name] == cfg.n_layer * n_steps,
+              f"{name}: {launches[name]} launches in {n_steps} steps, want "
+              f"{cfg.n_layer} per step")
+    for name in TRAIN_KERNELS:
+        check(launches[name] == 0, f"blocksparse training launched {name}")
+    print(f"blocksparse train: GPT-2 full width, b=8 s=1024, dropout 0.1, "
+          f"LocalGlobalSparsityConfig(window=256) causal, {n_steps} AdamW "
+          f"steps in {dt:.2f} s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+
+    wall, names, events = trace_call(lambda: step(batch, gen))
+    sdpa = sorted(n for n in names if n.startswith(
+        ("aten::_scaled_dot_product", "aten::_efficient_attention",
+         "aten::_flash_attention")))
+    dense = sorted({e["name"][:60] for e in device_events(events) if any(
+        key in e["name"] for key in ("flash_fwd", "flash_bwd", "bwd_di_",
+                                     "bwd_dq_kernel", "fmha", "sdpa"))})
+    check(not sdpa and not dense,
+          f"dense attention in the blocksparse step: {sdpa} {dense}")
+    print(f"blocksparse train step trace: {device_summary(wall, events)}; "
+          f"no K1, K2 or SDPA kernel [{card_line()}]")
+    med = phase_train_timing(step, batch, gen, warmup=1,
+                             label="blocksparse train")
+    return launches, med
+
+
+def masked_reference(mask, upcast):
+    """attn_impl over attention_ref with an element mask, differentiable by
+    autograd: fp32 (``upcast``) or in the input dtype."""
+    def attn(q, k, v, dropout_seed=None):
+        def tr(x):
+            return x.transpose(1, 2)
+
+        return tr(attention_ref(tr(q), tr(k), tr(v), mask=mask,
+                                upcast=upcast))
+    return attn
+
+
+def phase_blocksparse_train_check(batch):
+    """One step at dropout 0 through blocksparse attention, its loss and
+    global gradient norm: the bf16 model through K8a-c against the same
+    step in fp32 compute with attention through the fp32 masked
+    attention_ref (no port kernel on that side), by the 2x rule. Baseline:
+    the bf16 model through the bf16 masked attention_ref. The floor, 1e-6
+    of the fp32 value, is fp32 rounding, far under the bf16 baseline. The
+    check has power: the fp32 step with plain causal attention lies outside
+    the bound it sets, in the loss or the gradient norm."""
+    layout = gpt2_bs_layout()
+    mask = layout.visible(DEV)
+    model16 = train_model(GPT2Config(), bs_attn_impl(layout, 0.0))
+    got = loss_and_grad_norm(model16, batch)
+    for block in model16.h:
+        block.attn_impl = masked_reference(mask, upcast=False)
+    base = loss_and_grad_norm(model16, batch)
+    del model16
+    torch.cuda.empty_cache()
+    model32 = train_model(GPT2Config(dtype=torch.float32),
+                          masked_reference(mask, upcast=True))
+    want = loss_and_grad_norm(model32, batch)
+    for block in model32.h:
+        block.attn_impl = masked_reference(torch.ones_like(mask).tril(),
+                                           upcast=True)
+    causal = loss_and_grad_norm(model32, batch)
+    del model32
+    torch.cuda.empty_cache()
+    apart = []
+    for i, what in enumerate(("loss", "grad norm")):
+        atol = 1e-6 * float(want[i].abs())
+        err, b = assert_two_x_bound(got[i], want[i], base[i], atol=atol,
+                                    label=f"blocksparse train step {what}")
+        sep = max_err(causal[i], want[i])
+        apart.append(sep > 2 * b + atol)
+        print(f"blocksparse train step at dropout 0, {what}: bf16 + K8 "
+              f"{float(got[i]):.6f}, fp32 + masked attention_ref "
+              f"{float(want[i]):.6f}, bf16 + masked attention_ref "
+              f"{float(base[i]):.6f}: err {err:.3e} (bf16 baseline {b:.3e}, "
+              f"bound {2 * b + atol:.3e}); fp32 + causal attention_ref "
+              f"{float(causal[i]):.6f}, {sep:.3e} from the masked step")
+    check(any(apart), "the blocksparse train check cannot tell the mask "
+          "from causal attention")
+
+
+def bs_timing_specs(gen):
+    """kernel_timing rows of K8a, K8b and K8c at BS_SHAPES (i) and (ii),
+    and of dense K1 and K2 at shape (ii) (at shape (i) they are the train
+    step's rows). Library: SDPA with the element mask as attn_mask, its
+    forward, and its backward for (k, v) and for q."""
+    specs = {}
+    for shape, suffix in (("(i) GPT-2 train", ""),
+                          ("(ii) config 4", " (config 4)")):
+        q, k, v, dout, layout, _, _, p = bs_inputs(gen, shape)
+        b, h, s, d = q.shape
+        kw = dict(softmax_scale=d ** -0.5, dropout_p=p,
+                  seed=SEED if p else None)
+        out, lse = blocksparse_attention_fwd(q, k, v, layout, **kw)
+        di = (out.float() * dout.float()).sum(-1)
+        mask = layout.visible(DEV)
+        pairs = int(mask.sum()) * b * h
+        lay = layout.on(DEV)
+        q_lists = nbytes(lay["q_indices"], lay["q_counts"], lay["q_full"],
+                         lay["rowmask"])
+        kv_lists = nbytes(lay["kv_indices"], lay["kv_counts"],
+                          lay["kv_full"], lay["rowmask"])
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                            dropout_p=p)
+        bwd = (q, k, v, dout, lse, di, layout)
+
+        def plain_bwd(a=bwd, kw=kw):
+            return blocksparse_attention_bwd_plain(*a, **kw)
+
+        specs["blocksparse_fwd" + suffix] = (
+            lambda a=(q, k, v, layout), kw=kw:
+                blocksparse_attention_fwd(*a, **kw),
+            lambda a=(q, k, v, layout), kw=kw:
+                blocksparse_attention_fwd_plain(*a, **kw),
+            lambda a=(q, k, v), m=mask, p=p:
+                F.scaled_dot_product_attention(*a, attn_mask=m, dropout_p=p),
+            nbytes(q, k, v, q, lse) + kv_lists, 4 * pairs * d)
+        specs["blocksparse_dkv" + suffix] = (
+            lambda a=bwd, kw=kw: blocksparse_attention_dkv(*a, **kw),
+            plain_bwd,
+            lambda o=og, g=(kg, vg), t=dout:
+                torch.autograd.grad(o, g, t, retain_graph=True),
+            nbytes(q, k, v, dout, lse, di, k, v) + q_lists, 8 * pairs * d)
+        specs["blocksparse_dq" + suffix] = (
+            lambda a=bwd, kw=kw: blocksparse_attention_dq(*a, **kw),
+            plain_bwd,
+            lambda o=og, g=(qg,), t=dout:
+                torch.autograd.grad(o, g, t, retain_graph=True),
+            nbytes(q, k, v, dout, lse, di, q) + kv_lists, 6 * pairs * d)
+    # Dense K1 and K2 on config 4's q, k, v: does the sparsity pay?
+    dense = dict(causal=True, softmax_scale=d ** -0.5)
+    o_dense, l_dense = flash_attention_fwd(q, k, v, save_lse=True, **dense)
+    specs["flash_fwd (config 4 shape, dense)"] = (
+        lambda: flash_attention_fwd(q, k, v, save_lse=True, **dense),
+        lambda: flash_attention_fwd_plain(q, k, v, save_lse=True, **dense),
+        None, nbytes(q, k, v, q, l_dense), 4 * b * h * causal_pairs(s) * d)
+    specs["flash_bwd (config 4 shape, dense)"] = (
+        lambda: flash_attention_bwd(q, k, v, o_dense, dout, l_dense, **dense),
+        lambda: flash_attention_bwd_plain(q, k, v, o_dense, dout, l_dense,
+                                          **dense),
+        None, nbytes(q, k, v, o_dense, dout, l_dense, q, k, v),
+        10 * b * h * causal_pairs(s) * d)
+    return specs
+
+
+def print_sparsity_pays(times):
+    """K8 against dense K1/K2 on the same inputs, at both shapes."""
+    def ms(name):
+        return times[name][0]
+
+    for label, suffix, fwd, bwd in (
+            ("(i) GPT-2 train, dropout 0.1", "",
+             "flash_fwd (train step, dropout 0.1, lse)", "flash_bwd"),
+            ("(ii) config 4", " (config 4)",
+             "flash_fwd (config 4 shape, dense)",
+             "flash_bwd (config 4 shape, dense)")):
+        k8_bwd = ms("blocksparse_dkv" + suffix) + ms("blocksparse_dq" + suffix)
+        print(f"sparsity at {label}: K8a {ms('blocksparse_fwd' + suffix):.4f}"
+              f" ms vs dense K1 {ms(fwd):.4f} ms; K8b + K8c {k8_bwd:.4f} ms "
+              f"vs dense K2 {ms(bwd):.4f} ms [{card_line()}]")
+
+
 def main():
     phase_device()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1233,10 +1590,18 @@ def main():
 
     launches["train"], step, batch, dgen, *held = phase_train()
     phase_trace(step, batch, dgen)
-    phase_train_timing(step, batch, dgen)
+    dense_ms = phase_train_timing(step, batch, dgen)
     del step, held
     torch.cuda.empty_cache()
     phase_train_check(batch)
+    torch.cuda.empty_cache()
+
+    phase_blocksparse_kernels(gen, errs)
+    launches["blocksparse_train"], bs_ms = phase_blocksparse_train()
+    print(f"train step medians in this run: blocksparse {bs_ms:.2f} ms, "
+          f"dense {dense_ms:.2f} ms [{card_line()}]")
+    torch.cuda.empty_cache()
+    phase_blocksparse_train_check(batch)
     torch.cuda.empty_cache()
 
     launches["llama_chunked"] = phase_llama(rng)

@@ -7,6 +7,14 @@ package imports no JAX.
 """
 
 from flash_attn_tpu_torch.ops.attention import flash_attention
+from flash_attn_tpu_torch.ops.blocksparse import (
+    blocksparse_attention,
+    flash_blocksparse_attn_func,
+)
 
-__all__ = ["flash_attention"]
+__all__ = [
+    "blocksparse_attention",
+    "flash_attention",
+    "flash_blocksparse_attn_func",
+]
 __version__ = "0.1.0"

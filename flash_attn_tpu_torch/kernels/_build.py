@@ -57,6 +57,21 @@ _SIGNATURES = {
     # k, v, k_pages, v_pages, page_ids, prompt_len, n_pages, h,
     # num_pages, page_size, d, elem_bytes, stream
     "fattn_write_pages": [_P] * 5 + [_I] * 7 + [_P],
+    # q, k, v, o, lse, strides, kv_idx, kv_cnt, kv_full, rowmask, q_valid,
+    # k_valid, b, h, sq, sk, d, max_kv, ncells, scale, causal, seed,
+    # threshold, rp, dtype, stream
+    "fattn_blocksparse_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
+                                                     _P],
+    # q, k, v, dout, lse, di, dk, dv, strides, q_idx, q_cnt, q_full, rowmask,
+    # q_valid, k_valid, b, h, sq, sk, d, max_q, ncells, scale, causal, seed,
+    # threshold, rp, dtype, stream
+    "fattn_blocksparse_dkv": [_P] * 15 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
+                                                     _P],
+    # q, k, v, dout, lse, di, dq, strides, kv_idx, kv_cnt, kv_full, rowmask,
+    # q_valid, k_valid, b, h, sq, sk, d, max_kv, ncells, scale, causal, seed,
+    # threshold, rp, dtype, stream
+    "fattn_blocksparse_dq": [_P] * 14 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
+                                                    _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -16,21 +16,19 @@ from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 
-def gpt2_from_jax_params(params, cfg: GPT2Config, device="cuda"
-                         ) -> GPT2LMHeadModel:
+def gpt2_from_jax_params(params, cfg: GPT2Config, device="cuda",
+                         attn_impl=None) -> GPT2LMHeadModel:
     """``params``: the flax tree ``{"params": {...}}`` (or its inner dict)
     of ``flash_attn_tpu.models.gpt2.GPT2LMHeadModel`` as numpy arrays.
     Returns the port's model on ``device`` with its parameters stored in
     ``cfg.param_dtype`` (fp32 by default, as the flax tree holds them);
-    ``cfg`` also carries ``dropout`` and ``remat`` for training."""
+    ``cfg`` also carries ``dropout`` and ``remat`` for training, and
+    ``attn_impl`` the attention op (the tree is the same with or without
+    one)."""
     p = params.get("params", params)
     # Every parameter is overwritten below; the seed only fills the module.
-    model = GPT2LMHeadModel(cfg, device=device,
+    model = GPT2LMHeadModel(cfg, device=device, attn_impl=attn_impl,
                             generator=torch.Generator().manual_seed(0))
-
-    def dense(lin, tree):
-        put(lin.weight, tree["kernel"], transpose=True)
-        put(lin.bias, tree["bias"])
 
     def norm(ln, tree):
         put(ln.weight, tree["scale"])
@@ -43,12 +41,22 @@ def gpt2_from_jax_params(params, cfg: GPT2Config, device="cuda"
             tree = p[f"h_{i}"]
             norm(block.ln_1, tree["ln_1"])
             norm(block.ln_2, tree["ln_2"])
-            dense(block.attn.Wqkv, tree["attn"]["Wqkv"])
-            dense(block.attn.out_proj, tree["attn"]["out_proj"])
+            mha_from_jax_params(tree["attn"], block.attn)
             dense(block.mlp.c_fc, tree["mlp"]["c_fc"])
             dense(block.mlp.c_proj, tree["mlp"]["c_proj"])
         norm(model.ln_f, p["ln_f"])
     return model
+
+
+def mha_from_jax_params(params, mha):
+    """Carry a flax attention block's ``Wqkv`` and ``out_proj`` (numpy
+    leaves) into ``mha``, a ``FlashMHA`` or ``FlashBlocksparseMHA`` (the
+    same tree). Returns ``mha``."""
+    p = params.get("params", params)
+    with torch.no_grad():
+        dense(mha.Wqkv, p["Wqkv"])
+        dense(mha.out_proj, p["out_proj"])
+    return mha
 
 
 def llama_from_jax_params(params, cfg: LlamaConfig, device="cuda"
@@ -79,6 +87,13 @@ def llama_from_jax_params(params, cfg: LlamaConfig, device="cuda"
                 put(getattr(block.mlp, name).weight,
                     tree["mlp"][name]["kernel"], transpose=True)
     return model
+
+
+def dense(lin, tree):
+    """A flax ``Dense`` leaf pair into an ``nn.Linear``."""
+    put(lin.weight, tree["kernel"], transpose=True)
+    if lin.bias is not None:
+        put(lin.bias, tree["bias"])
 
 
 def put(dst: torch.Tensor, src, transpose=False):

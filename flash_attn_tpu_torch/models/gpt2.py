@@ -133,9 +133,15 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, **factory):
+    """One transformer block. ``attn_impl``, when given, replaces the flash
+    attention op between the block's own ``attn.Wqkv`` and
+    ``attn.out_proj`` (JAX ``_MhaWithImpl``, gpt2.py:180): a callable
+    ``(q, k, v, dropout_seed=None) -> ctx`` on (b, s, n_head, head_dim)."""
+
+    def __init__(self, cfg: GPT2Config, attn_impl=None, **factory):
         super().__init__()
         self.config = cfg
+        self.attn_impl = attn_impl
         eps = cfg.layer_norm_epsilon
         self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=eps, **factory)
         self.attn = FlashMHA(cfg.n_embd, cfg.n_head, causal=True,
@@ -153,9 +159,21 @@ class Block(nn.Module):
         gen = None if seeds is None else torch.Generator().manual_seed(
             seeds[0])
         h = layer_norm(x, self.ln_1, cfg.dtype)
-        x = x + self.attn(h, deterministic=gen is None, generator=gen)
+        x = x + self.attention(h, gen)
         h = layer_norm(x, self.ln_2, cfg.dtype)
         return x + self.mlp(h, None if seeds is None else seeds[1])
+
+    def attention(self, h, gen: torch.Generator | None):
+        """The attention sublayer; dropout is on when ``gen`` is given."""
+        if self.attn_impl is None:
+            return self.attn(h, deterministic=gen is None, generator=gen)
+        cfg = self.config
+        b, s, e = h.shape
+        q, k, v = linear(h, self.attn.Wqkv, cfg.dtype).reshape(
+            b, s, 3, cfg.n_head, cfg.head_dim).unbind(dim=2)
+        seed = None if gen is None else draw_seeds(gen, 1)[0]
+        ctx = self.attn_impl(q, k, v, dropout_seed=seed)
+        return linear(ctx.reshape(b, s, e), self.attn.out_proj, cfg.dtype)
 
     def qkv(self, x):
         """Serving: (..., n_embd) -> q, k, v (..., n_head, head_dim), split
@@ -177,10 +195,12 @@ class Block(nn.Module):
 class GPT2LMHeadModel(nn.Module):
     """GPT-2 with a tied LM head. Weights are drawn from ``generator`` as
     fp32 normals at the flax initialisers' scales and stored in
-    ``cfg.param_dtype`` on ``device``."""
+    ``cfg.param_dtype`` on ``device``. ``attn_impl`` replaces every block's
+    attention op (``Block``; JAX ``GPT2LMHeadModel.attn_impl``) and leaves
+    the parameters as they are."""
 
     def __init__(self, cfg: GPT2Config, *, generator: torch.Generator,
-                 device="cuda"):
+                 device="cuda", attn_impl=None):
         super().__init__()
         if cfg.window is not None:
             raise NotImplementedError(
@@ -194,7 +214,7 @@ class GPT2LMHeadModel(nn.Module):
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.n_embd,
                                 **factory)
-        self.h = nn.ModuleList(Block(cfg, **factory)
+        self.h = nn.ModuleList(Block(cfg, attn_impl, **factory)
                                for _ in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon,
                                  **factory)

@@ -91,8 +91,9 @@ def flash_attention(
         ("kv_segment_ids", kv_segment_ids is not None, "P2 (.../segments)"),
         ("q_positions", q_positions is not None, "P2 (.../segments)"),
         ("kv_positions", kv_positions is not None, "P2 (.../segments)"),
-        ("num_sinks", num_sinks != 0, "P9 (blocksparse band routing)"),
-        ("window_cell", window_cell is not None, "P9 (blocksparse)"),
+        ("num_sinks", num_sinks != 0, "P2 (window/sinks/band routing)"),
+        ("window_cell", window_cell is not None,
+         "P2 (window/sinks/band routing)"),
         ("qk_quant", qk_quant is not None, "P11 (int8 QK, K9)"),
     ):
         if is_set:

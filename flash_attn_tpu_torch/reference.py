@@ -27,13 +27,16 @@ def _expand_kv(q, k, v):
 
 
 def attention_ref(q, k, v, *, causal: bool = False,
-                  softmax_scale: float | None = None, upcast: bool = True,
-                  dropout_mask=None, dropout_p: float = 0.0,
-                  return_attn_probs: bool = False):
+                  softmax_scale: float | None = None, mask=None,
+                  upcast: bool = True, dropout_mask=None,
+                  dropout_p: float = 0.0, return_attn_probs: bool = False):
     """Reference attention. ``upcast=True`` computes in fp32 (the ground
     truth); ``upcast=False`` computes in the input dtype (the baseline whose
     error sets the bar). Returns out in the q dtype.
 
+    ``mask``: optional boolean (..., sq, sk), True = attend, ANDed with the
+    causal mask. Rows with no visible key get probability 0, so their output
+    is 0 (the kernels' ``l == 0`` rule; reference.py:122-134 there).
     ``dropout_mask``: optional boolean (..., sq, sk), True = keep, applied to
     the normalized probabilities and rescaled by 1 / (1 - dropout_p)
     (dropout after the softmax). ``return_attn_probs`` also returns the
@@ -46,11 +49,18 @@ def attention_ref(q, k, v, *, causal: bool = False,
     if upcast:
         q, k, v = q.float(), k.float(), v.float()
     scores = (q @ k.transpose(-1, -2)).float() * softmax_scale
-    if causal:  # top-left: every row sees key 0, so no row is empty
+    visible = None
+    if causal:  # top-left: every row sees key 0
         visible = torch.ones(scores.shape[-2:], dtype=torch.bool,
                              device=q.device).tril()
+    if mask is not None:
+        visible = mask if visible is None else mask & visible
+    if visible is not None:
         scores = torch.where(visible, scores, DEFAULT_MASK_VALUE)
     probs_pre_drop = probs = torch.softmax(scores, dim=-1)
+    if mask is not None:  # rows that see nothing: 0, not uniform
+        probs_pre_drop = probs = torch.where(
+            visible.any(dim=-1, keepdim=True), probs, 0.0)
     if dropout_mask is not None and dropout_p > 0.0:
         probs = torch.where(dropout_mask, probs, 0.0) / (1.0 - dropout_p)
     if not upcast:

@@ -11,10 +11,12 @@ Tolerances: attention, decode and chunk attention are held to the repo's
 2x rule (error against the fp32 twin at most twice a plain same-dtype
 implementation's, plus 1e-5); cache writes are bitwise equal outside the
 scratch page 0 (the span append writes nothing there: all pages). The
-backward kernel's gradients are held to the 2x rule against fp32 autograd
-through ``attention_ref`` (the same-dtype ``attention_ref(upcast=False)``
-in autograd is the baseline), plus 1e-4: the fp32 gradients sum hundreds
-of terms in another order than the oracle.
+backward kernels' gradients (K2, and K8b/K8c of blocksparse attention) are
+held to the 2x rule against fp32 autograd through ``attention_ref`` (the
+same-dtype ``attention_ref(upcast=False)`` in autograd is the baseline),
+plus 1e-4: the fp32 gradients sum hundreds of terms in another order than
+the oracle. Blocksparse dropout masks are held bit for bit to
+``dropout_mask_dense``.
 """
 
 import copy
@@ -24,6 +26,16 @@ import pytest
 import torch
 
 from flash_attn_tpu_torch import flash_attention
+from flash_attn_tpu_torch.kernels.blocksparse import (
+    blocksparse_attention_bwd,
+    blocksparse_attention_bwd_plain,
+    blocksparse_attention_dkv,
+    blocksparse_attention_dq,
+    blocksparse_attention_fwd,
+    blocksparse_attention_fwd_plain,
+    build_layout,
+    visible_plain,
+)
 from flash_attn_tpu_torch.kernels.chunk import (
     paged_chunk_attention,
     paged_chunk_attention_plain,
@@ -41,11 +53,15 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     flash_attention_fwd_plain,
 )
 from flash_attn_tpu_torch.kernels.prng import dropout_mask_dense
+from flash_attn_tpu_torch.models.blocksparse_modules import (
+    LocalGlobalSparsityConfig,
+)
 from flash_attn_tpu_torch.models.gpt2 import (
     GPT2Config,
     GPT2LMHeadModel,
     make_train_step,
 )
+from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
 from flash_attn_tpu_torch.models import llama_decode
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from flash_attn_tpu_torch.reference import (
@@ -470,3 +486,241 @@ def test_speculative_decode_on_card_matches_cpu(cuda):
     for (p0, c0, l0), (p1, c1, l1) in zip(cpu[1], card[1]):
         assert (p0, c0) == (p1, c1)
         torch.testing.assert_close(l1.cpu(), l0, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------ blocksparse: K8a, K8b, K8c
+
+# (b, h, s, d, causal, key padding): ragged s (600, 384), full tiles with
+# key padding, head_dim 128.
+BS_CASES = [
+    (2, 2, 256, 64, True, False),
+    (2, 2, 512, 64, False, False),
+    (1, 2, 600, 64, True, False),
+    (1, 2, 600, 128, False, False),
+    (2, 2, 512, 64, False, True),
+    (2, 2, 384, 128, True, True),
+]
+BS_DTYPES = DTYPES
+
+
+def _bs_inputs(case, dtype, device):
+    """q, k, v, dout (b, h, s, d), the layout of a random cell mask whose
+    first cell column is whole (so full tiles occur), and the padding:
+    batch row 0 has s - 150 valid keys."""
+    b, h, s, d, causal, pad = case
+    rng = np.random.default_rng(s + d)
+    bm = rng.random(((s + 15) // 16, (s + 255) // 256)) < 0.6
+    bm[:, 0] = True
+    layout = build_layout(bm, sq=s, sk=s, causal=causal)
+    q_valid = k_valid = None
+    if pad:
+        k_valid = torch.ones((b, s), dtype=torch.uint8, device=device)
+        k_valid[0, s - 150:] = 0
+        q_valid = k_valid.clone()
+    x = [_randn(rng, (b, h, s, d), dtype, device) for _ in range(4)]
+    return (*x, layout, q_valid, k_valid)
+
+
+def _bs_keep(case, p, device):
+    b, h, s, *_ = case
+    return dropout_mask_dense(11, b, h, s, s, p, device=device) if p else None
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", BS_DTYPES)
+@pytest.mark.parametrize("case", BS_CASES, ids=str)
+def test_blocksparse_fwd_kernel_matches_twin(cuda, case, dtype, dropout_p):
+    """K8a's out and lse against the twin and, by the 2x rule, the oracle
+    attention_ref with the layout's element mask and the padding."""
+    q, k, v, _, layout, q_valid, k_valid = _bs_inputs(case, dtype, cuda)
+    assert layout.kv_full.any()
+    kw = dict(softmax_scale=case[3] ** -0.5, dropout_p=dropout_p,
+              seed=11 if dropout_p else None)
+    out, lse = blocksparse_attention_fwd(q, k, v, layout, q_valid, k_valid,
+                                         **kw)
+    torch.cuda.synchronize()
+    twin, twin_lse = blocksparse_attention_fwd_plain(q, k, v, layout,
+                                                     q_valid, k_valid, **kw)
+    mask = visible_plain(layout, q_valid, k_valid, cuda)
+    keep = _bs_keep(case, dropout_p, cuda)
+    ref = dict(mask=mask, dropout_mask=keep, dropout_p=dropout_p)
+    native = attention_ref(q, k, v, upcast=False, **ref)
+    assert_two_x_bound(out, attention_ref(q, k, v, **ref), native,
+                       label=f"{case} {dtype} p={dropout_p}")
+    assert_two_x_bound(out, twin.float(), native, label=f"vs twin {case}")
+    torch.testing.assert_close(lse, twin_lse, atol=1e-3, rtol=1e-3)
+    assert not out[~mask.any(-1).expand_as(lse)].any()  # dead rows: 0
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", BS_DTYPES)
+@pytest.mark.parametrize("case", BS_CASES, ids=str)
+def test_blocksparse_bwd_kernels_match_twin(cuda, case, dtype, dropout_p):
+    """K8b's dk, dv and K8c's dq against the twin and, by the 2x rule, fp32
+    autograd through attention_ref with the element mask; dq and dk/dv
+    bitwise equal from run to run (no atomics)."""
+    q, k, v, dout, layout, q_valid, k_valid = _bs_inputs(case, dtype, cuda)
+    kw = dict(softmax_scale=case[3] ** -0.5, dropout_p=dropout_p,
+              seed=11 if dropout_p else None)
+    out, lse = blocksparse_attention_fwd(q, k, v, layout, q_valid, k_valid,
+                                         **kw)
+    grads = blocksparse_attention_bwd(q, k, v, out, dout, lse, layout,
+                                      q_valid, k_valid, **kw)
+    again = blocksparse_attention_bwd(q, k, v, out, dout, lse, layout,
+                                      q_valid, k_valid, **kw)
+    torch.cuda.synchronize()
+    di = (out.float() * dout.float()).sum(-1)
+    twins = blocksparse_attention_bwd_plain(q, k, v, dout, lse, di, layout,
+                                            q_valid, k_valid, **kw)
+    mask = visible_plain(layout, q_valid, k_valid, cuda)
+    keep = _bs_keep(case, dropout_p, cuda)
+
+    def ref_grads(upcast):
+        leaves = [(x.float() if upcast else x).detach().requires_grad_()
+                  for x in (q, k, v)]
+        o = attention_ref(*leaves, mask=mask, upcast=upcast,
+                          dropout_mask=keep, dropout_p=dropout_p)
+        o.backward(dout.to(o.dtype))
+        return [x.grad for x in leaves]
+
+    for name, g, g2, tw, o, n in zip("qkv", grads, again, twins,
+                                     ref_grads(True), ref_grads(False)):
+        assert g.dtype == dtype and torch.equal(g, g2), name
+        assert_two_x_bound(g, o, n, atol=1e-4,
+                           label=f"d{name} {case} {dtype} p={dropout_p}")
+        assert_two_x_bound(g, tw.float(), n, atol=1e-4,
+                           label=f"d{name} vs twin {case} {dtype}")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", BS_DTYPES)
+def test_blocksparse_dropout_mask_is_the_hash(cuda, dtype, d):
+    """With q = k = 0 every visible key gets p = 1/sk, and with v the
+    identity (sk = d) out[i, j] = keep[i, j] / ((1 - p) sk): the kernel's
+    mask is dropout_mask_dense bit for bit, on full tiles (all cells live)."""
+    b, h, sq, sk, p = 2, 2, 192, d, 0.3
+    q = torch.zeros((b, h, sq, d), dtype=dtype, device=cuda)
+    k = torch.zeros((b, h, sk, d), dtype=dtype, device=cuda)
+    v = torch.eye(d, dtype=dtype, device=cuda).expand(b, h, d, d).contiguous()
+    layout = build_layout(np.ones((sq // 16, 1), bool), sq=sq, sk=sk)
+    assert layout.kv_full.all()
+    out, _ = blocksparse_attention_fwd(q, k, v, layout, softmax_scale=1.0,
+                                       dropout_p=p, seed=21)
+    torch.cuda.synchronize()
+    keep = dropout_mask_dense(21, b, h, sq, sk, p, device=cuda)
+    assert torch.equal(out != 0, keep)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", BS_DTYPES)
+def test_blocksparse_kernels_take_strided_operands(cuda, dtype, d):
+    """q, k, v as views of a packed (b, s, 3, h, d) qkv and dout as a view
+    of (b, s, h, d) memory, as the op passes them: K8a-c read them in place
+    and give, bit for bit, what they give on contiguous copies; their
+    outputs lie in (b, s, h, d) memory."""
+    b, s, h = 2, 320, 2
+    rng = np.random.default_rng(d)
+    qkv = _randn(rng, (b, s, 3, h, d), dtype, cuda)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    dout = _randn(rng, (b, s, h, d), dtype, cuda).transpose(1, 2)
+    bm = rng.random(((s + 15) // 16, (s + 255) // 256)) < 0.6
+    bm[:, 0] = True
+    layout = build_layout(bm, sq=s, sk=s, causal=True)
+    kw = dict(softmax_scale=d ** -0.5, dropout_p=0.1, seed=5)
+    results = []
+    for x in ((q, k, v, dout), [t.contiguous() for t in (q, k, v, dout)]):
+        out, lse = blocksparse_attention_fwd(*x[:3], layout, **kw)
+        results.append((out, lse, *blocksparse_attention_bwd(
+            *x[:3], out, x[3], lse, layout, **kw)))
+    torch.cuda.synchronize()
+    for name, a, c in zip(("out", "lse", "dq", "dk", "dv"), *results):
+        assert torch.equal(a, c), name
+    for x in (results[0][0], *results[0][2:]):
+        assert x.transpose(1, 2).is_contiguous()
+
+
+def test_blocksparse_full_tiles_with_padding_match_oracle(cuda):
+    """ROADMAP C9: an all-ones mask (every tile FULL), keys valid up to 300
+    of 512: the kernels follow the oracle, which never attends a padded
+    key; the JAX kernels attend them on full tiles."""
+    rng = np.random.default_rng(3)
+    b, s, h, d = 2, 512, 2, 64
+    q, k, v, g = (_randn(rng, (b, s, h, d), torch.float32, cuda)
+                  for _ in range(4))
+    kpm = torch.ones((b, s), dtype=torch.bool, device=cuda)
+    kpm[:, 300:] = False
+    bm = np.ones((s // 16, s // 256), bool)
+    assert build_layout(bm, sq=s, sk=s).kv_full.all()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = blocksparse_attention(*leaves, bm, key_padding_mask=kpm)
+    out.backward(g)
+    mask = (kpm[:, None, :, None] & kpm[:, None, None, :])
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = attention_ref(*(x.transpose(1, 2) for x in ref_leaves),
+                        mask=mask).transpose(1, 2)
+    ref.backward(g)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    for a, r in zip(leaves, ref_leaves):
+        torch.testing.assert_close(a.grad, r.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_blocksparse_op_on_cuda_matches_cpu(cuda):
+    """bshd, head_dim 40 (padded to 64), key padding, dropout and both
+    outputs through the autograd Function: the card's gradients equal the
+    CPU plain path's."""
+    rng = np.random.default_rng(8)
+    b, s, h, d = 2, 300, 2, 40
+    host = [torch.from_numpy(rng.standard_normal((b, s, h, d))).float()
+            for _ in range(3)]
+    g_out = torch.from_numpy(rng.standard_normal((b, s, h, d))).float()
+    g_lse = torch.from_numpy(rng.standard_normal((b, h, s))).float()
+    kpm = torch.ones((b, s), dtype=torch.bool)
+    kpm[1, 250:] = False
+    bm = LocalGlobalSparsityConfig(window=256).make_layout(512)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [x.to(dev, copy=True).requires_grad_() for x in host]
+        out, lse = blocksparse_attention(
+            *leaves, bm, causal=True, key_padding_mask=kpm.to(dev),
+            dropout_p=0.1, dropout_seed=4, return_lse=True)
+        torch.autograd.backward([out, lse], [g_out.to(dev), g_lse.to(dev)])
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for a, c in zip(*grads):
+        torch.testing.assert_close(c, a, atol=1e-4, rtol=1e-4)
+
+
+def test_blocksparse_gpt2_train_step_on_card_matches_cpu(cuda):
+    """A tiny fp32 GPT-2 through attn_impl = blocksparse attention: one
+    AdamW step on the card (K8a-c) gives the CPU plain path's loss and
+    gradients; each kernel launches once per layer."""
+    cfg = GPT2Config.tiny(dtype=torch.float32, n_head=2)
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 256)))
+    layout = build_layout(LocalGlobalSparsityConfig(
+        window=128, num_global_rows=2).make_layout(256), sq=256, sk=256,
+        causal=True)
+
+    def attn(q, k, v, dropout_seed=None):
+        return blocksparse_attention(q, k, v, layout, causal=True)
+
+    results = []
+    for dev in ("cpu", cuda):
+        model = GPT2LMHeadModel(cfg, generator=torch.Generator().manual_seed(0),
+                                device=dev, attn_impl=attn)
+        step = make_train_step(model, torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4))
+        for fn in (blocksparse_attention_fwd, blocksparse_attention_dkv,
+                   blocksparse_attention_dq):
+            fn.launches = 0
+        loss = step({"input_ids": ids.to(dev), "labels": ids.to(dev)})
+        launches = [fn.launches for fn in (blocksparse_attention_fwd,
+                                           blocksparse_attention_dkv,
+                                           blocksparse_attention_dq)]
+        results.append((float(loss), {n: p.grad.cpu()
+                                      for n, p in model.named_parameters()}))
+    assert launches == [cfg.n_layer] * 3
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results
+    assert abs(loss_gpu - loss_cpu) < 1e-4
+    for name, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[name], g, atol=1e-4, rtol=1e-3,
+                                   msg=name)
