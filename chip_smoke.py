@@ -23,9 +23,15 @@ paths with random weights from torch.Generator seed 0:
     bf16 compute) on one b=8, s=1024 batch, with falling finite loss, K1
     and K2 launched 12 times per step and no SDPA op in a traced step; one
     step at dropout 0 held to the 2x rule against fp32 compute.
-It times both paths and every kernel against its twin and, where one
-exists, a single PyTorch call computing the same function. Any failed
-check raises and the exit code is nonzero. Without CUDA it exits nonzero
+It prints ptxas's registers and spills, the dynamic shared memory and the
+HGMMA (wgmma) instructions of the dense kernels K1 and K2, and times both
+paths and every kernel against its twin and, where one exists, a single
+PyTorch call computing the same function (SDPA under each of its flash,
+cuDNN and efficient backends pinned in turn, the fastest reported), all by
+device busy time in a profiler trace (dense_timing.busy_ms), since this
+host issues a call more slowly than the card runs the shortest ones; the
+host's time to issue a kernel call is printed beside. Any failed check raises and
+the exit code is nonzero. Without CUDA it exits nonzero
 and prints no result. Output, in order: the card and toolchain, per-phase
 lines, the kernels' JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.
@@ -37,16 +43,18 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dense_timing import busy_ms, device_events, host_ms, trace_call, union_us
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.blocksparse import (
     blocksparse_attention_bwd,
@@ -91,7 +99,11 @@ from flash_attn_tpu_torch.reference import attention_ref, paged_chunk_ref
 from flash_attn_tpu_torch.serving import cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
 from flash_attn_tpu_torch.serving.speculative import speculative_decode
-from flash_attn_tpu_torch.utils.testing import assert_two_x_bound, max_err
+from flash_attn_tpu_torch.utils.testing import (
+    assert_two_x_bound,
+    max_err,
+    packed_views,
+)
 
 DEV = torch.device("cuda")
 BF16 = torch.bfloat16
@@ -158,23 +170,20 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
-    back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def randn(gen, shape, dtype=BF16):
     return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def packed_inputs(gen, b, h, h_kv, s, d):
+    """q, k, v and dout as flash_attention hands them to K1 and K2 on the
+    main path: (b, h, s, d) views of one fused projection (b, s, (h + 2
+    h_kv) d) and of (b, s, h, d) memory."""
+    qkv = randn(gen, (b, s, (h + 2 * h_kv) * d))
+    views = [x.transpose(1, 2) for x in packed_views(qkv, h, h_kv, d)]
+    dout = randn(gen, (b, s, h, d)).transpose(1, 2)
+    check(not any(x.is_contiguous() for x in (*views, dout)),
+          "packed views came out contiguous")
+    return (*views, dout)
 
 
 def nbytes(*tensors) -> int:
@@ -191,6 +200,33 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
 
 def causal_pairs(s: int) -> int:
     return s * (s + 1) // 2
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_fastest(make):
+    """The library yardstick through scaled_dot_product_attention under each
+    backend of SDPA_BACKENDS pinned in turn: ``make()`` builds the call (for
+    a backward, its autograd graph too) under the pin, and busy_ms times it
+    there. Returns (ms, backend) of the fastest backend that accepts the
+    call, and {backend: ms, or None where it refused}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            try:
+                fn = make()
+                fn()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                times[name] = None
+                continue
+            times[name] = busy_ms(fn)
+    ok = {k: v for k, v in times.items() if v is not None}
+    check(ok, "no SDPA backend accepts the library call")
+    best = min(ok, key=ok.get)
+    return ok[best], best, times
 
 
 def reset_launches():
@@ -221,17 +257,69 @@ def phase_device():
           f"({_build.library_path().name})")
 
 
+def wgmma_label(mangled: str) -> str:
+    """'K1 bf16 d=64' for a mangled flash_{fwd,bwd}_wgmma_kernel name."""
+    kernel = "K1" if "flash_fwd_wgmma" in mangled else "K2"
+    dtype = "bf16" if "nv_bfloat16" in mangled else "fp16"
+    d = re.search(r"Li(\d+)E", mangled).group(1)
+    return f"{kernel} {dtype} d={d}"
+
+
+def phase_build_report():
+    """Evidence of what K1's and K2's bf16/fp16 kernels were built into:
+    ptxas's registers and spills (-Xptxas -v at build), their dynamic
+    shared memory, and, where cuobjdump exists, their HGMMA (wgmma)
+    instructions in the SASS."""
+    lib = _build.lib()
+    print("dynamic shared memory: " + ", ".join(
+        f"K1 d={d} {lib.fattn_flash_fwd_smem(d)} B, K2 d={d} "
+        f"{lib.fattn_flash_bwd_smem(d)} B" for d in (64, 128)))
+    log = _build.build_log()
+    if log is None:
+        print("ptxas report: not measured (the library was not built here)")
+    else:
+        name, spills = None, ""
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                name = entry.group(1) if "wgmma" in entry.group(1) else None
+            elif name and "spill" in line:
+                spills = line.strip()
+            elif name and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"ptxas {wgmma_label(name)}: {regs} registers; {spills}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        print("HGMMA count: not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if "wgmma" in name else None
+        elif name and "HGMMA" in line:
+            label = wgmma_label(name)
+            counts[label] = counts.get(label, 0) + 1
+    check(len(counts) == 8 and all(counts.values()),
+          f"HGMMA instructions missing from the wgmma kernels: {counts}")
+    print("HGMMA instructions in the SASS (cuobjdump): " + ", ".join(
+        f"{k} {v}" for k, v in sorted(counts.items())))
+
+
 # ---------------------------------------------------------------- phase 2
 
 def phase_kernels(gen):
     """Each kernel against its twin at main-path shapes, bf16. Returns
     {name: max_abs_err vs twin}."""
     errs = {}
-    # K1: causal prefill at GPT-2 widths, ragged, GQA, head_dim 128.
+    # K1: causal prefill at GPT-2 widths, ragged, GQA, head_dim 128, on
+    # views of a fused projection as the model passes them.
     for b, h, h_kv, s, d in [(4, 12, 12, 512, 64), (4, 12, 12, 300, 64),
                              (4, 12, 4, 512, 64), (4, 6, 6, 512, 128)]:
-        q = randn(gen, (b, h, s, d))
-        k, v = randn(gen, (b, h_kv, s, d)), randn(gen, (b, h_kv, s, d))
+        q, k, v, _ = packed_inputs(gen, b, h, h_kv, s, d)
         out, _ = flash_attention_fwd(q, k, v, causal=True,
                                      softmax_scale=d ** -0.5, save_lse=False)
         torch.cuda.synchronize()
@@ -322,11 +410,11 @@ def phase_train_kernels(gen, errs):
     """K1 with dropout and K2 against their twins and the 2x rule (oracle:
     fp32 attention_ref, by autograd for the gradients; baseline: the
     same-dtype attention_ref, atol 1e-4 for the gradients' fp32 sums),
-    causal bf16. Adds the max errors vs the twins to ``errs``."""
+    causal bf16, on the main path's strided operands (packed_inputs). Adds
+    the max errors vs the twins to ``errs``."""
     errs["flash_bwd"] = 0.0
     for b, h, h_kv, s, d, p in TRAIN_KERNEL_CASES:
-        q, dout = randn(gen, (b, h, s, d)), randn(gen, (b, h, s, d))
-        k, v = randn(gen, (b, h_kv, s, d)), randn(gen, (b, h_kv, s, d))
+        q, k, v, dout = packed_inputs(gen, b, h, h_kv, s, d)
         kw = dict(causal=True, softmax_scale=d ** -0.5, dropout_p=p,
                   seed=SEED if p else None)
         out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
@@ -899,23 +987,52 @@ def chunk_work(shape, elem=2):
     return n_bytes, 4 * pairs * h * d
 
 
+def sdpa_fwd(q, k, v, p=0.0, mask=None):
+    """The SDPA forward yardstick: causal, or with a boolean mask."""
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    gqa = k.shape[1] != q.shape[1]
+    return lambda: lambda: F.scaled_dot_product_attention(
+        q, k, v, dropout_p=p, enable_gqa=gqa, **kw)
+
+
+def sdpa_bwd(q, k, v, dout, p=0.0, mask=None, wrt="qkv"):
+    """The SDPA backward yardstick: the gradients ``wrt`` of a graph built
+    under the pinned backend."""
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    gqa = k.shape[1] != q.shape[1]
+
+    def make():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, dropout_p=p,
+                                             enable_gqa=gqa, **kw)
+        wanted = [leaves["qkv".index(c)] for c in wrt]
+        return lambda: torch.autograd.grad(out, wanted, dout,
+                                           retain_graph=True)
+    return make
+
+
 def kernel_timing(gen):
     """Each kernel against its twin and, where one exists, a single PyTorch
     call computing the same function, at the main paths' shapes, in turns
-    (plain, kernel, kernel, plain; the library call last). Returns {name:
-    (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    (plain, kernel, kernel, plain; the library call last, under each pinned
+    SDPA backend). Returns {name: (ms, plain_ms, library_ms, bound_ms,
+    bound_by, library_backend)}."""
     card = card_line()
     # K1 at the serving bucket (b=8, s=768, no lse) and at the train step
-    # (s=1024, dropout 0.1, lse saved); K2 at the train step.
+    # (s=1024, dropout 0.1 and 0, lse saved); K2 at the train step.
     q = randn(gen, (8, 12, 768, 64))
     k, v = randn(gen, (8, 12, 768, 64)), randn(gen, (8, 12, 768, 64))
     fwd = dict(causal=True, softmax_scale=0.125, save_lse=False)
     qt, kt, vt, dt = (randn(gen, (8, 12, 1024, 64)) for _ in range(4))
     train = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
+    train0 = dict(causal=True, softmax_scale=0.125)
     ot, lt = flash_attention_fwd(qt, kt, vt, save_lse=True, **train)
-    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                        dropout_p=0.1)
+    # K1 and K2 at Llama-3-8B's attention widths (GQA 32/8, d=128), b=2,
+    # s=2048: not on a path (Llama serving prefills through K6).
+    qa, da = randn(gen, (2, 32, 2048, 128)), randn(gen, (2, 32, 2048, 128))
+    ka, va = randn(gen, (2, 8, 2048, 128)), randn(gen, (2, 8, 2048, 128))
+    wide = dict(causal=True, softmax_scale=128 ** -0.5)
+    oa, la = flash_attention_fwd(qa, ka, va, save_lse=True, **wide)
     qd, kp, vp, dl, tbl = decode_inputs(gen)
     ql, kl, vl, ll, tl = decode_inputs(gen, "Llama decode")
     pages = cache.init_cache(12, 65, 128, 64, dtype=BF16, device=DEV)
@@ -936,23 +1053,41 @@ def kernel_timing(gen):
         "flash_fwd": (
             lambda: flash_attention_fwd(q, k, v, **fwd),
             lambda: flash_attention_fwd_plain(q, k, v, **fwd),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            sdpa_fwd(q, k, v),
             nbytes(q, k, v, q), 4 * 8 * 12 * causal_pairs(768) * 64),
         "flash_fwd (train step, dropout 0.1, lse)": (
             lambda: flash_attention_fwd(qt, kt, vt, save_lse=True, **train),
             lambda: flash_attention_fwd_plain(qt, kt, vt, save_lse=True,
                                               **train),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, dropout_p=0.1),
+            sdpa_fwd(qt, kt, vt, p=0.1),
+            nbytes(qt, kt, vt, qt, lt),
+            4 * 8 * 12 * causal_pairs(1024) * 64),
+        "flash_fwd (train step, dropout 0, lse)": (
+            lambda: flash_attention_fwd(qt, kt, vt, save_lse=True, **train0),
+            lambda: flash_attention_fwd_plain(qt, kt, vt, save_lse=True,
+                                              **train0),
+            sdpa_fwd(qt, kt, vt),
             nbytes(qt, kt, vt, qt, lt),
             4 * 8 * 12 * causal_pairs(1024) * 64),
         "flash_bwd": (
             lambda: flash_attention_bwd(qt, kt, vt, ot, dt, lt, **train),
             lambda: flash_attention_bwd_plain(qt, kt, vt, ot, dt, lt, **train),
-            lambda: torch.autograd.grad(og, (qg, kg, vg), dt,
-                                        retain_graph=True),
+            sdpa_bwd(qt, kt, vt, dt, p=0.1),
             nbytes(qt, kt, vt, ot, dt, lt) + nbytes(qt, kt, vt),
             10 * 8 * 12 * causal_pairs(1024) * 64),
+        "flash_fwd (Llama-3-8B widths, lse)": (
+            lambda: flash_attention_fwd(qa, ka, va, save_lse=True, **wide),
+            lambda: flash_attention_fwd_plain(qa, ka, va, save_lse=True,
+                                              **wide),
+            sdpa_fwd(qa, ka, va),
+            nbytes(qa, ka, va, qa, la),
+            4 * 2 * 32 * causal_pairs(2048) * 128),
+        "flash_bwd (Llama-3-8B widths)": (
+            lambda: flash_attention_bwd(qa, ka, va, oa, da, la, **wide),
+            lambda: flash_attention_bwd_plain(qa, ka, va, oa, da, la, **wide),
+            sdpa_bwd(qa, ka, va, da),
+            nbytes(qa, ka, va, oa, da, la) + nbytes(qa, ka, va),
+            10 * 2 * 32 * causal_pairs(2048) * 128),
         "paged_decode": (
             lambda: paged_decode_attention(qd, kp, vp, dl, tbl),
             lambda: paged_decode_attention_plain(qd, kp, vp, dl, tbl,
@@ -1003,20 +1138,35 @@ def kernel_timing(gen):
     specs.update(bs_timing_specs(gen))
     times = {}
     for name, (kern, plain, library, n_bytes, flops) in specs.items():
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                          cuda_ms(plain))
-        lib_ms = cuda_ms(library) if library is not None else None
+        p1, k1, k2, p2 = (busy_ms(plain), busy_ms(kern), busy_ms(kern),
+                          busy_ms(plain))
+        host = host_ms(kern)
+        lib_ms = backend = None
+        lib = "none"
+        if library is not None:
+            lib_ms, backend, each = sdpa_fastest(library)
+            lib = f"{lib_ms:.4f} ms ({backend}; " + ", ".join(
+                f"{b} {'refused' if t is None else f'{t:.4f}'}"
+                for b, t in each.items()) + ")"
         b_ms, b_by = bound(n_bytes, flops)
-        times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by)
-        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+        times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by, backend)
+        print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms (host {host:.4f} ms "
+              f"to issue a call), plain {p1:.4f} / "
               f"{p2:.4f} ms, library {lib}, bound {b_ms:.4f} ms "
               f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
               f"[{card}]")
     print("shapes: flash_fwd b=8 h=12 s=768 d=64 causal (the serving "
           "bucket), library = SDPA forward; flash_fwd (train step) and "
-          "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1, library = "
-          "SDPA forward / backward with dropout 0.1; paged_decode at "
+          "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1 (and the "
+          "forward at dropout 0), library = SDPA forward / backward with the "
+          "same dropout; the Llama-3-8B widths rows b=2 h=32/8 s=2048 d=128 "
+          "causal, not on a path, library = SDPA with enable_gqa; every "
+          "library time is the fastest of SDPA's flash, cuDNN and efficient "
+          "backends pinned in turn (graph built under the pin), named in "
+          "brackets; kernel, plain and library times are device busy time "
+          "in a profiler trace of 10 calls (dense_timing.busy_ms), host = "
+          "the host's time to issue one kernel call; "
+          "paged_decode at "
           "DECODE_SHAPES (GPT-2 decode b=8 h=12 d=64 page 128, lengths "
           "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020); "
           "append_token b=8 h=12; write_pages 768 tokens into 6 pages; "
@@ -1030,7 +1180,8 @@ def kernel_timing(gen):
           "dkv and dq rows' plain = the whole plain backward, library = SDPA "
           "with the element mask as attn_mask (forward; backward for k, v "
           "and for q), bound by operations over visible pairs (4d forward, "
-          "8d dK/dV, 6d dQ); dense K1/K2 on config 4's inputs; all bf16")
+          "8d dK/dV, 6d dQ); dense K1/K2 on config 4's inputs, library = "
+          "causal SDPA; all bf16")
     print_sparsity_pays(times)
     return times
 
@@ -1090,7 +1241,7 @@ def phase_train(n_steps=6):
 
 KERNEL_CLASSES = [  # (class, substrings of the kernel name), first match
     ("blocksparse (K8)", ("bs_fwd", "bs_dkv", "bs_dq")),
-    ("flash_bwd (K2)", ("flash_bwd", "bwd_di", "bwd_dq")),
+    ("flash_bwd (K2)", ("flash_bwd", "bwd_stats", "bwd_dq")),
     ("flash_fwd (K1)", ("flash_fwd",)),
     ("paged_decode (K5)", ("paged_decode",)),
     ("paged_chunk (K6)", ("paged_chunk",)),
@@ -1104,42 +1255,13 @@ KERNEL_CLASSES = [  # (class, substrings of the kernel name), first match
 ]
 
 
-def trace_call(fn, record_shapes=False):
-    """``fn()`` under torch.profiler: (host wall ms, the operator names, the
-    chrome-trace events)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=record_shapes) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    names = {e.key for e in prof.key_averages()}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return wall, names, events
-
-
-def device_events(events):
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    check(dev, "the trace holds no device events")
-    return dev
-
-
 def device_summary(wall, events):
     """GPU span, busy time (the union of the trace's kernel, memcpy and
     memset intervals), idle share and device time by kernel class."""
     dev = device_events(events)
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    span = spans[-1][1] - spans[0][0]
+    busy = union_us(dev)
+    span = (max(e["ts"] + e["dur"] for e in dev)
+            - min(e["ts"] for e in dev))
     by_class = {}
     for e in dev:
         name = (e.get("cat", "") + " " + e.get("name", "")).lower()
@@ -1166,8 +1288,12 @@ def phase_trace(step, batch, gen):
     sdpa = sorted(n for n in names if n.startswith(
         ("aten::_scaled_dot_product", "aten::_efficient_attention")))
     check(not sdpa, f"SDPA ops in the train step: {sdpa}")
-    print(f"train step trace: {device_summary(wall, events)}; no SDPA op "
-          f"[{card_line()}]")
+    dev = device_events(events)
+    per_step = [sum(key in e["name"] for e in dev)
+                for key in ("flash_fwd_wgmma", "flash_bwd_wgmma")]
+    check(per_step == [12, 12], f"K1, K2 kernels in a traced step: {per_step}")
+    print(f"train step trace: {device_summary(wall, events)}; K1 and K2 12 "
+          f"kernels each; no SDPA op [{card_line()}]")
 
     _, _, events = trace_call(lambda: step(batch, gen), record_shapes=True)
     ops = {e["args"]["External id"]: (e["name"], e["args"].get("Input Dims"))
@@ -1418,7 +1544,7 @@ def phase_blocksparse_train(n_steps=4):
         ("aten::_scaled_dot_product", "aten::_efficient_attention",
          "aten::_flash_attention")))
     dense = sorted({e["name"][:60] for e in device_events(events) if any(
-        key in e["name"] for key in ("flash_fwd", "flash_bwd", "bwd_di_",
+        key in e["name"] for key in ("flash_fwd", "flash_bwd", "bwd_stats",
                                      "bwd_dq_kernel", "fmha", "sdpa"))})
     check(not sdpa and not dense,
           f"dense attention in the blocksparse step: {sdpa} {dense}")
@@ -1506,9 +1632,6 @@ def bs_timing_specs(gen):
                          lay["rowmask"])
         kv_lists = nbytes(lay["kv_indices"], lay["kv_counts"],
                           lay["kv_full"], lay["rowmask"])
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                            dropout_p=p)
         bwd = (q, k, v, dout, lse, di, layout)
 
         def plain_bwd(a=bwd, kw=kw):
@@ -1519,20 +1642,17 @@ def bs_timing_specs(gen):
                 blocksparse_attention_fwd(*a, **kw),
             lambda a=(q, k, v, layout), kw=kw:
                 blocksparse_attention_fwd_plain(*a, **kw),
-            lambda a=(q, k, v), m=mask, p=p:
-                F.scaled_dot_product_attention(*a, attn_mask=m, dropout_p=p),
+            sdpa_fwd(q, k, v, p=p, mask=mask),
             nbytes(q, k, v, q, lse) + kv_lists, 4 * pairs * d)
         specs["blocksparse_dkv" + suffix] = (
             lambda a=bwd, kw=kw: blocksparse_attention_dkv(*a, **kw),
             plain_bwd,
-            lambda o=og, g=(kg, vg), t=dout:
-                torch.autograd.grad(o, g, t, retain_graph=True),
+            sdpa_bwd(q, k, v, dout, p=p, mask=mask, wrt="kv"),
             nbytes(q, k, v, dout, lse, di, k, v) + q_lists, 8 * pairs * d)
         specs["blocksparse_dq" + suffix] = (
             lambda a=bwd, kw=kw: blocksparse_attention_dq(*a, **kw),
             plain_bwd,
-            lambda o=og, g=(qg,), t=dout:
-                torch.autograd.grad(o, g, t, retain_graph=True),
+            sdpa_bwd(q, k, v, dout, p=p, mask=mask, wrt="q"),
             nbytes(q, k, v, dout, lse, di, q) + kv_lists, 6 * pairs * d)
     # Dense K1 and K2 on config 4's q, k, v: does the sparsity pay?
     dense = dict(causal=True, softmax_scale=d ** -0.5)
@@ -1540,12 +1660,14 @@ def bs_timing_specs(gen):
     specs["flash_fwd (config 4 shape, dense)"] = (
         lambda: flash_attention_fwd(q, k, v, save_lse=True, **dense),
         lambda: flash_attention_fwd_plain(q, k, v, save_lse=True, **dense),
-        None, nbytes(q, k, v, q, l_dense), 4 * b * h * causal_pairs(s) * d)
+        sdpa_fwd(q, k, v), nbytes(q, k, v, q, l_dense),
+        4 * b * h * causal_pairs(s) * d)
     specs["flash_bwd (config 4 shape, dense)"] = (
         lambda: flash_attention_bwd(q, k, v, o_dense, dout, l_dense, **dense),
         lambda: flash_attention_bwd_plain(q, k, v, o_dense, dout, l_dense,
                                           **dense),
-        None, nbytes(q, k, v, o_dense, dout, l_dense, q, k, v),
+        sdpa_bwd(q, k, v, dout), nbytes(q, k, v, o_dense, dout, l_dense, q, k,
+                                        v),
         10 * b * h * causal_pairs(s) * d)
     return specs
 
@@ -1569,6 +1691,7 @@ def print_sparsity_pays(times):
 
 def main():
     phase_device()
+    phase_build_report()
     gen = torch.Generator(device=DEV).manual_seed(0)
     rng = np.random.default_rng(0)
     errs = phase_kernels(gen)
@@ -1609,13 +1732,14 @@ def main():
 
     kernels = []
     for name, (_, src, tpu) in KERNELS.items():
-        ms, plain_ms, lib_ms, b_ms, b_by = times[name]
+        ms, plain_ms, lib_ms, b_ms, b_by, backend = times[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library_backend": backend})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

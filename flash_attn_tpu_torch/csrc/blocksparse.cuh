@@ -22,6 +22,7 @@
 
 #include <stdint.h>
 
+#include "common.cuh"
 #include "mask.cuh"
 #include "prng.cuh"
 
@@ -31,15 +32,9 @@ constexpr int kTileQ = 64;  // query rows per layout tile
 constexpr int kTileK = 64;  // keys per layout tile
 constexpr int kMmaThreads = 128;  // four warps: the bf16 / fp16 kernels' block
 
-// The (b, h, s, d) operands have a contiguous last dimension and any other
-// strides (in elements, multiples of 16 bytes), so the kernels read and
-// write the op's (b, s, h, d) tensors, and the packed qkv's q, k and v, in
-// place. lse and di are contiguous (b, h, sq).
-struct BsStrides {
-  long long b, h, s;
-};
-enum BsOperand { kOpQ, kOpK, kOpV, kOpO, kOpDO, kOpDK, kOpDV, kNumOps };
-
+// Operands are read and written through Strides (csrc/common.cuh), so
+// the kernels take the op's (b, s, h, d) tensors and the packed qkv's q, k
+// and v in place.
 struct BsParams {
   const void* q;
   const void* k;
@@ -64,7 +59,7 @@ struct BsParams {
   float scale;
   bool causal;
   Dropout drop;
-  BsStrides st[kNumOps];  // o: out (K8a) or dq (K8c)
+  Strides st[kNumOps];  // o: out (K8a) or dq (K8c); kOpDQ unused
 };
 
 // Operand `op`'s rows of (batch bb, head hh); row r starts r * st[op].s on.
@@ -76,13 +71,6 @@ __device__ __forceinline__ const E* bs_rows(const BsParams& p, const void* x, in
 template <typename E>
 __device__ __forceinline__ E* bs_rows(const BsParams& p, void* x, int op, int bb, int hh) {
   return static_cast<E*>(x) + bb * p.st[op].b + hh * p.st[op].h;
-}
-
-// The host side: strides[3 * op + {0, 1, 2}] for every BsOperand.
-inline void bs_set_strides(BsParams& p, const long long* strides) {
-  for (int op = 0; op < kNumOps; ++op) {
-    p.st[op] = BsStrides{strides[3 * op], strides[3 * op + 1], strides[3 * op + 2]};
-  }
 }
 
 // The row is a real, unpadded query.

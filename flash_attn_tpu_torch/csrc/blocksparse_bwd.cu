@@ -17,7 +17,8 @@
 //   dK = scale * dS^T Q,  dQ = scale * dS K.
 //
 // Layout: q, dout, dq (b, h, sq, d); k, v, dk, dv (b, h, sk, d), each with
-// its own strides (BsStrides); lse and di (b, h, sq) fp32 contiguous; MHA.
+// its own strides (csrc/common.cuh Strides); lse and di (b, h, sq) fp32
+// contiguous; MHA.
 //   - bf16 / fp16, mma.sync m16n8k16 (csrc/mma.cuh):
 //     K8b: K2's design without dQ: four warps own 16 keys each of the 64-key
 //     tile, S^T = K Q^T and dP^T = V dO^T feed dV += P^T dO and dK += dS^T Q
@@ -593,7 +594,7 @@ BsParams bwd_params(const void* q, const void* k, const void* v, const void* dou
   p.scale = scale;
   p.causal = causal != 0;
   p.drop = Dropout{seed, threshold, rp};
-  bs_set_strides(p, strides);
+  set_strides(p.st, strides);
   return p;
 }
 

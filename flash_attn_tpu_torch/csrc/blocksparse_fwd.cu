@@ -17,8 +17,8 @@
 // final scaling.
 //
 // Layout: q (b, h, sq, d), k and v (b, h, sk, d), out (b, h, sq, d), each
-// with its own strides (BsStrides), lse (b, h, sq) fp32 contiguous; MHA only
-// (the JAX blocksparse op is).
+// with its own strides (csrc/common.cuh Strides), lse (b, h, sq) fp32
+// contiguous; MHA only (the JAX blocksparse op is).
 //   - bf16 / fp16: four warps, 16 rows each, mma.sync m16n8k16 as in K1;
 //   - fp32: 256 threads, four per row, FMA (the tensor cores would round to
 //     tf32), each 64-key tile taken as two halves of 32.
@@ -353,7 +353,7 @@ extern "C" int fattn_blocksparse_fwd(
   p.scale = scale;
   p.causal = causal != 0;
   p.drop = Dropout{seed, threshold, rp};
-  bs_set_strides(p, strides);
+  set_strides(p.st, strides);
   const dim3 grid((sq + kTileQ - 1) / kTileQ, h, b);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(p, dtype, grid, st);

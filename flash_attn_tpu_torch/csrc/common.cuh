@@ -55,4 +55,30 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// The attention kernels (K1, K2, K8a-c) read and write their (b, h, s, d)
+// operands through strides: the last dimension is contiguous, the others
+// are any element strides whose byte sizes are multiples of 16 (checked by
+// flash_attn_tpu_torch/kernels/common.py rows_ok), so the ops hand over
+// transposed views of (b, s, h, d) tensors and of the packed qkv in place.
+// lse and di stay contiguous (b, h, sq) fp32.
+struct Strides {
+  long long b, h, s;
+};
+// The order of kernels/common.py OPERANDS; K8c writes dq through kOpO.
+enum Operand { kOpQ, kOpK, kOpV, kOpO, kOpDO, kOpDK, kOpDV, kOpDQ, kNumOps };
+
+// The host side: flat[3 * op + {0, 1, 2}] for every Operand.
+inline void set_strides(Strides (&st)[kNumOps], const long long* flat) {
+  for (int op = 0; op < kNumOps; ++op) {
+    st[op] = Strides{flat[3 * op], flat[3 * op + 1], flat[3 * op + 2]};
+  }
+}
+
+// Row 0 of (batch bb, head hh) of an operand; row r is r * st.s further on.
+template <typename E>
+__device__ __forceinline__ E* head_rows(E* x, const Strides& st, int bb,
+                                        int hh) {
+  return x + bb * st.b + hh * st.h;
+}
+
 }  // namespace fattn

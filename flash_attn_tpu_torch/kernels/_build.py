@@ -6,7 +6,9 @@ one shared library with a plain C interface, placed in
 ``flash_attn_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and flags, and loads it with ``ctypes``. Nothing includes PyTorch's
 headers, so a build takes seconds. Without ``nvcc`` the build raises: there
-is no fallback.
+is no fallback. ptxas reports each kernel's registers, shared memory and
+spills (``-Xptxas -v``); the report is kept beside the library
+(``build_log``).
 
 Each C entry point returns ``cudaGetLastError()`` after its launch, or a
 CUDA error code for arguments it refuses; ``check`` raises on any nonzero
@@ -28,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _P = ctypes.c_void_p
@@ -36,12 +39,12 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, b, h, h_kv, sq, sk, d, scale, causal,
+    # q, k, v, o, lse, strides, b, h, h_kv, sq, sk, d, scale, causal,
     # seed, threshold, rp, dtype, stream
-    "fattn_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
-    # q, k, v, o, dout, lse, dlse, di, dq_acc, dq, dk, dv, b, h, h_kv, sq,
-    # sk, d, scale, causal, seed, threshold, rp, dtype, stream
-    "fattn_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
+    "fattn_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
+    # q, k, v, o, dout, lse, dlse, stats, dq_acc, dq, dk, dv, strides, b, h,
+    # h_kv, sq, sk, d, scale, causal, seed, threshold, rp, dtype, stream
+    "fattn_flash_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
     # q, k_pages, v_pages, lengths, page_table, out, b, h_kv, group,
     # num_pages, page_size, pages_max, d, scale, dtype, stream
     "fattn_paged_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
@@ -72,6 +75,9 @@ _SIGNATURES = {
     # threshold, rp, dtype, stream
     "fattn_blocksparse_dq": [_P] * 14 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
                                                     _P],
+    # d: the dynamic shared memory of K1's / K2's bf16/fp16 kernel
+    "fattn_flash_fwd_smem": [_I],
+    "fattn_flash_bwd_smem": [_I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -120,9 +126,11 @@ def build() -> Path:
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
+        report = []
         for cmd, _, proc in jobs:
             output, _ = proc.communicate()
             _check_run(cmd, proc.returncode, output)
+            report.append(output)
         link = [nvcc, *ARCH, "-shared", "-o", str(tmp),
                 *(str(obj) for _, obj, _ in jobs)]
         done = subprocess.run(link, capture_output=True, text=True)
@@ -133,8 +141,16 @@ def build() -> Path:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(objs, ignore_errors=True)
+    so.with_suffix(".log").write_text("".join(report))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
+
+
+def build_log() -> str | None:
+    """ptxas's report (registers, shared memory, spills per kernel) of the
+    build of the current sources, if this checkout built them."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def _check_run(cmd, returncode, output) -> None:
@@ -168,15 +184,21 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one
-    device."""
+def require_device(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a CUDA tensor on one device."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}, need CUDA")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one
+    device."""
+    require_device(name, *tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} "
                              "is not contiguous")

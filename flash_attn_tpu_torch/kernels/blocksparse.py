@@ -30,7 +30,6 @@ on the CPU take the plain twins; CUDA tensors launch the kernels or raise.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 
@@ -38,6 +37,13 @@ import numpy as np
 import torch
 
 from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels.common import (  # noqa: F401
+    check_rows,
+    empty_rows,
+    kernel_operand,  # the op's copy rule, re-exported with rows_ok
+    rows_ok,
+    strides_arg,
+)
 from flash_attn_tpu_torch.kernels.flash_fwd import (
     compute_dtype,
     dropout_args,
@@ -53,8 +59,6 @@ DEFAULT_BLOCK_K = 1024
 TILE_Q = 64  # the port's tiles (csrc/blocksparse.cuh kTileQ, kTileK)
 TILE_K = 64
 HEAD_DIMS = (64, 128)
-# The kernels' operands, in the order of csrc/blocksparse.cuh BsOperand.
-OPERANDS = ("q", "k", "v", "o", "dout", "dk", "dv")
 
 
 def _cdiv(a, b):
@@ -319,38 +323,6 @@ def convert_blockmask(blockmask, causal, *, sq=None, sk=None,
 
 # ---------------------------------------------------------------- wrappers
 
-def rows_ok(x: torch.Tensor) -> bool:
-    """The kernels read or write a (b, h, s, d) operand in place: its last
-    dimension is contiguous and every row starts on a 16-byte boundary."""
-    size = x.element_size()
-    return x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
-        n == 1 or st * size % 16 == 0
-        for n, st in zip(x.shape[:-1], x.stride()[:-1]))
-
-
-def kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the kernels take it in place, else a copy."""
-    return x if rows_ok(x) else x.contiguous()
-
-
-def _empty_rows(b, h, s, like):
-    """A (b, h, s, d) output in (b, s, h, d) memory: the op transposes it
-    back to its own layout without a copy."""
-    return torch.empty((b, s, h, like.shape[-1]), dtype=like.dtype,
-                       device=like.device).transpose(1, 2)
-
-
-def _strides(**operands):
-    """The (batch, head, row) element strides of each of ``OPERANDS`` as
-    the C entry points take them; 0 for an operand the kernel does not
-    use."""
-    flat = []
-    for name in OPERANDS:
-        x = operands.get(name)
-        flat += [0, 0, 0] if x is None else list(x.stride()[:3])
-    return (ctypes.c_longlong * len(flat))(*flat)
-
-
 def _check(name, layout, q, k, v, tensors, valid, stats=()):
     """Dtype, head_dim, shape, layout, device, contiguity and alignment
     checks the three kernels share; ``tensors`` are further (b, h, sq, d)
@@ -388,10 +360,7 @@ def _check(name, layout, q, k, v, tensors, valid, stats=()):
         if x.device != q.device or x.device.type != "cuda":
             raise ValueError(f"{name}: q/k/v/dout on {x.device} and "
                              f"{q.device}, need one CUDA device")
-        if not rows_ok(x):
-            raise ValueError(f"{name}: a tensor of strides {x.stride()} needs "
-                             "a contiguous last dimension and 16-byte "
-                             "aligned rows (the kernels load 16-byte vectors)")
+    check_rows(name, *rows)
     flat = [*stats, *(x for x in valid if x is not None)]
     if flat:
         _build.require_cuda(name, *flat)
@@ -420,11 +389,11 @@ def blocksparse_attention_fwd(q, k, v, layout: BlockSparseLayout,
            (q_valid, k_valid))
     b, h, sq, d = q.shape
     lay = layout.on(q.device)
-    out = _empty_rows(b, h, sq, q)
+    out = empty_rows(b, h, sq, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     code = _build.lib().fattn_blocksparse_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _strides(q=q, k=k, v=v, o=out),
+        lse.data_ptr(), strides_arg(q=q, k=k, v=v, o=out),
         lay["kv_indices"].data_ptr(),
         lay["kv_counts"].data_ptr(), lay["kv_full"].data_ptr(),
         lay["rowmask"].data_ptr(), _ptr(q_valid), _ptr(k_valid),
@@ -456,11 +425,11 @@ def blocksparse_attention_dkv(q, k, v, dout, lse, di,
            (q_valid, k_valid), (lse, di))
     b, h, sq, d = q.shape
     lay = layout.on(q.device)
-    dk, dv = _empty_rows(b, h, layout.sk, k), _empty_rows(b, h, layout.sk, v)
+    dk, dv = empty_rows(b, h, layout.sk, k), empty_rows(b, h, layout.sk, v)
     code = _build.lib().fattn_blocksparse_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides(q=q, k=k, v=v, dout=dout, dk=dk, dv=dv),
+        strides_arg(q=q, k=k, v=v, dout=dout, dk=dk, dv=dv),
         lay["q_indices"].data_ptr(), lay["q_counts"].data_ptr(),
         lay["q_full"].data_ptr(), lay["rowmask"].data_ptr(), _ptr(q_valid),
         _ptr(k_valid), b, h, sq, layout.sk, d, layout.max_q, layout.ncells,
@@ -490,11 +459,11 @@ def blocksparse_attention_dq(q, k, v, dout, lse, di,
            (q_valid, k_valid), (lse, di))
     b, h, sq, d = q.shape
     lay = layout.on(q.device)
-    dq = _empty_rows(b, h, sq, q)
+    dq = empty_rows(b, h, sq, q)
     code = _build.lib().fattn_blocksparse_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        _strides(q=q, k=k, v=v, o=dq, dout=dout),
+        strides_arg(q=q, k=k, v=v, o=dq, dout=dout),
         lay["kv_indices"].data_ptr(), lay["kv_counts"].data_ptr(),
         lay["kv_full"].data_ptr(), lay["rowmask"].data_ptr(), _ptr(q_valid),
         _ptr(k_valid), b, h, sq, layout.sk, d, layout.max_kv, layout.ncells,

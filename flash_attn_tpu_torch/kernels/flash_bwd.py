@@ -11,8 +11,11 @@ cotangent of the lse output, folds into the ``di`` correction as
 ``di - dlse``: since dS uses the pre-dropout p, d(lse)/d(s) * g = g * p is
 exactly that term (flash_bwd.py:465-470 there).
 
-dQ accumulates by fp32 atomics on the card, so its low bits are not
-bitwise reproducible from run to run.
+Operands as the forward's: any 16-byte row strides; dq, dk and dv come
+back as (b, h, s, d) views of (b, s, h, d) memory on the card. dQ
+accumulates in fp32 by bulk reduce-adds on the card, in an order that
+depends on how the blocks run, so its low bits are not bitwise
+reproducible from run to run; dk and dv are.
 """
 
 from __future__ import annotations
@@ -20,6 +23,11 @@ from __future__ import annotations
 import torch
 
 from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels.common import (
+    check_rows,
+    empty_rows,
+    strides_arg,
+)
 from flash_attn_tpu_torch.kernels.flash_fwd import (
     check_kernel_inputs,
     compute_dtype,
@@ -35,7 +43,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     """Gradients of attention. A CPU tensor takes the plain twin; a CUDA
     tensor launches the kernel or raises. Layout as the forward kernel's:
     q, out, dout (b, h, sq, d); k, v (b, h_kv, sk, d); lse, dlse (b, h, sq)
-    fp32."""
+    fp32 contiguous."""
     seed_u32, threshold, rp = dropout_args(dropout_p, seed)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
@@ -43,7 +51,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
             softmax_scale=softmax_scale, dropout_p=dropout_p, seed=seed,
             dlse=dlse,
         )
-    check_kernel_inputs("flash_attention_bwd", q, k, v)
+    check_kernel_inputs("flash_attention_bwd", q, k, v, softmax_scale)
     b, h, sq, d = q.shape
     _, h_kv, sk, _ = k.shape
     if out.shape != q.shape or dout.shape != q.shape \
@@ -57,19 +65,24 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
         if x.shape != (b, h, sq) or x.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd: lse/dlse {x.dtype} "
                              f"{tuple(x.shape)}, need fp32 {(b, h, sq)}")
-    _build.require_cuda("flash_attention_bwd", q, out, dout, *stats)
-    if any(x.data_ptr() % 16 for x in (out, dout)):
-        raise ValueError("flash_attention_bwd: out/dout must be 16-byte "
-                         "aligned")
-    di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _build.require_device("flash_attention_bwd", q, out, dout, *stats)
+    _build.require_cuda("flash_attention_bwd", *stats)  # contiguous rows
+    check_rows("flash_attention_bwd", out, dout)
+    # Scratch: per query row {lse in the log2 domain, di, the dropout row
+    # hash, 0}, rows padded to a multiple of 64, and the fp32 dq sums.
+    stats = torch.empty((b, h, -(-sq // 64) * 64, 4), dtype=torch.float32,
+                        device=q.device)
     dq_acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq = empty_rows(b, h, sq, q)
+    dk, dv = empty_rows(b, h_kv, sk, k), empty_rows(b, h_kv, sk, v)
     code = _build.lib().fattn_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(),
         dlse.data_ptr() if dlse is not None else None,
-        di.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, h_kv, sq, sk, d, float(softmax_scale),
+        stats.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
+        strides_arg(q=q, k=k, v=v, o=out, dout=dout, dk=dk, dv=dv, dq=dq),
+        b, h, h_kv, sq, sk, d, float(softmax_scale),
         int(causal), seed_u32, threshold, rp,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device),
     )

@@ -3,12 +3,15 @@ plain-torch twin.
 
 Replaces the Pallas kernel ``flash_attn_tpu/kernels/flash_fwd.py``
 ``_fwd_kernel`` (launcher ``flash_attention_fwd``). Kernel layout: q
-(b, h, sq, d), k and v (b, h_kv, sk, d); returns out (b, h, sq, d) in the
-q dtype and, with ``save_lse``, the fp32 logsumexp (b, h, sq). Causal
-masking is top-left aligned; rows with no visible key give out = 0 and
-lse = -inf. With ``dropout_p > 0`` the attention weights are dropped by the
-coordinate hash of ``kernels/prng.py`` keyed on ``seed``; the lse stays that
-of the un-dropped scores.
+(b, h, sq, d), k and v (b, h_kv, sk, d), each with a contiguous last
+dimension and any 16-byte row strides (``kernels/common.py`` ``rows_ok``:
+transposed views of (b, s, h, d) tensors or of a packed qkv are read in
+place); returns out (b, h, sq, d) in the q dtype (on the card a view of
+(b, sq, h, d) memory) and, with ``save_lse``, the fp32 logsumexp
+(b, h, sq). Causal masking is top-left aligned; rows with no visible key
+give out = 0 and lse = -inf. With ``dropout_p > 0`` the attention weights
+are dropped by the coordinate hash of ``kernels/prng.py`` keyed on
+``seed``; the lse stays that of the un-dropped scores.
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ import math
 import torch
 
 from flash_attn_tpu_torch.kernels import _build, prng
+from flash_attn_tpu_torch.kernels.common import (
+    check_rows,
+    empty_rows,
+    strides_arg,
+)
 
 HEAD_DIMS = (64, 128)
 
@@ -34,8 +42,8 @@ def dropout_args(dropout_p: float, seed) -> tuple[int, int, float]:
             1.0 / (1.0 - dropout_p))
 
 
-def check_kernel_inputs(name, q, k, v):
-    """Dtype, head_dim, shape, device, contiguity and alignment checks the
+def check_kernel_inputs(name, q, k, v, softmax_scale):
+    """Dtype, head_dim, shape, scale, device and row-stride checks the
     attention kernels share."""
     b, h, _, d = q.shape
     _, h_kv, sk, _ = k.shape
@@ -48,10 +56,10 @@ def check_kernel_inputs(name, q, k, v):
     if k.shape != (b, h_kv, sk, d) or v.shape != k.shape or h % h_kv:
         raise ValueError(f"{name}: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    _build.require_cuda(name, q, k, v)
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError(f"{name}: q/k/v data must be 16-byte aligned (the "
-                         "kernel loads 16-byte vectors)")
+    if not softmax_scale > 0:
+        raise ValueError(f"{name}: softmax_scale {softmax_scale}, need > 0")
+    _build.require_device(name, q, k, v)
+    check_rows(name, q, k, v)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool, softmax_scale: float,
@@ -65,16 +73,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool, softmax_scale: float,
             q, k, v, causal=causal, softmax_scale=softmax_scale,
             save_lse=save_lse, dropout_p=dropout_p, seed=seed,
         )
-    check_kernel_inputs("flash_attention_fwd", q, k, v)
+    check_kernel_inputs("flash_attention_fwd", q, k, v, softmax_scale)
     b, h, sq, d = q.shape
     _, h_kv, sk, _ = k.shape
-    out = torch.empty_like(q)
+    out = empty_rows(b, h, sq, q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if save_lse else None)
     code = _build.lib().fattn_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        b, h, h_kv, sq, sk, d, float(softmax_scale), int(causal),
+        strides_arg(q=q, k=k, v=v, o=out), b, h, h_kv, sq, sk, d, float(softmax_scale), int(causal),
         seed_u32, threshold, rp,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device),
     )

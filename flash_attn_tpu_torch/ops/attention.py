@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from flash_attn_tpu_torch.kernels import prng
+from flash_attn_tpu_torch.kernels.common import kernel_operand
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
 
@@ -31,9 +32,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         causal, softmax_scale, dropout_p, seed = ctx.args
-        # dout may come from the bshd transpose, or be absent when only the
-        # lse was used.
-        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        # dout is a view of the caller's (b, s, h, d) gradient, taken in
+        # place, or absent when only the lse was used.
+        dout = torch.zeros_like(out) if dout is None else kernel_operand(dout)
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, dout, lse, causal=causal,
             softmax_scale=softmax_scale, dropout_p=dropout_p, seed=seed,
@@ -66,8 +67,9 @@ def flash_attention(
     """O = dropout(softmax(scale * Q K^T + mask)) V, exact, without
     materialising the scores.
 
-    ``layout``: "bshd" (default; transposed to the kernel layout here) or
-    "bhsd" (the kernel-native layout). GQA/MQA: k/v may carry fewer heads
+    ``layout``: "bshd" (default; passed to the kernels as transposed views)
+    or "bhsd" (the kernels' index order). On the card the output lies in
+    (b, s, h, d) memory whatever the layout. GQA/MQA: k/v may carry fewer heads
     than q (a multiple). ``causal`` is top-left aligned when sq != sk.
     ``return_lse`` also returns the fp32 (b, h, sq) logsumexp. Out is in the
     q dtype; rows with no visible key give out = 0 and lse = -inf.
@@ -121,9 +123,11 @@ def flash_attention(
     if softmax_scale is None:
         softmax_scale = d ** -0.5
 
+    # The kernels take (b, h, s, d) views with 16-byte row strides in place
+    # (views of a packed qkv included); only misaligned rows are copied.
     if layout == "bshd":
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = kernel_operand(q), kernel_operand(k), kernel_operand(v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v, causal, softmax_scale,
                                          dropout_p, seed)

@@ -35,3 +35,15 @@ def random_qkv(rng: np.random.Generator, b, sq, sk, h, d, dtype,
         return torch.from_numpy(rng.standard_normal(shape)).to(dtype)
 
     return make((b, sq, h, d)), make((b, sk, h_kv, d)), make((b, sk, h_kv, d))
+
+
+def packed_views(qkv, h, h_kv, d):
+    """q, k, v as the GPT-2 block makes them from its fused projection
+    (b, s, (h + 2 h_kv) d): (b, s, 3, h, d) unbound for MHA, column slices
+    for GQA (models/modules.py FlashMHA.forward)."""
+    b, s, _ = qkv.shape
+    if h == h_kv:
+        return qkv.reshape(b, s, 3, h, d).unbind(dim=2)
+    return (qkv[..., : h * d].reshape(b, s, h, d),
+            qkv[..., h * d: (h + h_kv) * d].reshape(b, s, h_kv, d),
+            qkv[..., (h + h_kv) * d:].reshape(b, s, h_kv, d))

@@ -4,8 +4,10 @@ The same numpy inputs go to both. On the CPU the port runs the kernel's
 plain-torch twin and JAX runs its Pallas kernel in interpret mode. fp32
 parity tolerance: atol = rtol = 1e-5 (the two sum in different orders; the
 observed gap is ~1e-6). bf16 is held to the repo's 2x rule against the
-port's fp32 oracle. The kernel itself is tested on the card in
-test_torch_kernels.py.
+port's fp32 oracle. Views of a packed qkv, as the GPT-2 block hands them
+over, give what contiguous copies give within atol = rtol = 1e-6 (the
+plain path's sums may take another order on strided operands). The kernel
+itself is tested on the card in test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -16,8 +18,17 @@ import torch
 from flash_attn_tpu.ops.attention import flash_attention as jax_flash_attention
 from flash_attn_tpu.reference import attention_ref as jax_attention_ref
 from flash_attn_tpu_torch import flash_attention
+from flash_attn_tpu_torch.kernels.common import (
+    check_rows,
+    kernel_operand,
+    rows_ok,
+)
 from flash_attn_tpu_torch.reference import attention_ref
-from flash_attn_tpu_torch.utils.testing import assert_two_x_bound, random_qkv
+from flash_attn_tpu_torch.utils.testing import (
+    assert_two_x_bound,
+    packed_views,
+    random_qkv,
+)
 
 ATOL = RTOL = 1e-5
 
@@ -110,3 +121,49 @@ def test_unported_arguments_raise(name, value):
     q = torch.zeros(1, 8, 1, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP port item"):
         flash_attention(q, q, q, **{name: value})
+
+
+# (h, h_kv): MHA and GQA; dropout 0 and 0.1
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+def test_packed_qkv_views_match_contiguous_and_jax(heads, dropout_p):
+    """The op hands the kernels transposed views of the packed projection
+    (no copies): out and lse equal the contiguous inputs' and JAX's."""
+    h, h_kv = heads
+    b, s, d = 2, 130, 64
+    rng = np.random.default_rng(11)
+    qkv = torch.from_numpy(
+        rng.standard_normal((b, s, (h + 2 * h_kv) * d)).astype(np.float32))
+    views = packed_views(qkv, h, h_kv, d)
+    assert not any(x.is_contiguous() for x in views)
+    assert all(rows_ok(x.transpose(1, 2)) for x in views)
+    kw = dict(causal=True, return_lse=True, dropout_p=dropout_p,
+              dropout_seed=7 if dropout_p else None)
+    out_v, lse_v = flash_attention(*views, **kw)
+    out_c, lse_c = flash_attention(*(x.contiguous() for x in views), **kw)
+    torch.testing.assert_close(out_v, out_c, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse_v, lse_c, atol=1e-6, rtol=1e-6)
+    out_j, lse_j = jax_flash_attention(
+        *(jnp.asarray(x.contiguous().numpy()) for x in views), **kw)
+    np.testing.assert_allclose(out_v.numpy(), np.asarray(out_j),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(lse_v.numpy(), np.asarray(lse_j),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_stride_check_rejects_misaligned_rows():
+    """The kernels take a (b, h, s, d) operand in place only when its last
+    dimension is contiguous and every row starts on a 16-byte boundary;
+    anything else is refused by the check and copied by kernel_operand."""
+    qkv = torch.zeros((2, 100, 3, 4, 64), dtype=torch.bfloat16)
+    views = [x.transpose(1, 2) for x in qkv.unbind(2)]
+    check_rows("views", *views)
+    assert all(kernel_operand(x) is x for x in views)
+    wide = torch.zeros((2, 100, 4, 65), dtype=torch.bfloat16)
+    odd = wide[..., :64].transpose(1, 2)  # rows 130 bytes apart
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        check_rows("odd", odd)
+    fixed = kernel_operand(odd)
+    assert fixed is not odd and rows_ok(fixed) and torch.equal(fixed, odd)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_rows("transposed", torch.zeros((2, 4, 64, 8)).transpose(2, 3))

@@ -7,8 +7,10 @@ tolerance: atol = rtol = 1e-4 on out, lse, dq, dk and dv (the two sum in
 different orders; the observed gap is about 2e-6). Dropout cases use the
 same seed on both sides, whose masks are bit-equal (test_torch_prng.py), so
 they are held to the same tolerance. ``gradcheck`` holds the plain path's
-analytic gradients to finite differences in float64. The kernels
-themselves are tested on the card in test_torch_kernels.py.
+analytic gradients to finite differences in float64. Gradients through
+views of a packed qkv equal those of contiguous inputs within atol = rtol
+= 1e-6 (the plain path may sum in another order). The kernels themselves
+are tested on the card in test_torch_kernels.py.
 """
 
 import jax
@@ -19,6 +21,7 @@ import torch
 
 from flash_attn_tpu.ops.attention import flash_attention as jax_flash_attention
 from flash_attn_tpu_torch import flash_attention
+from flash_attn_tpu_torch.utils.testing import packed_views
 
 ATOL = RTOL = 1e-4
 P_DROP, SEED = 0.17, 1234
@@ -141,3 +144,35 @@ def test_dropout_needs_seed_and_valid_p():
         flash_attention(q, q, q, dropout_p=0.1)
     with pytest.raises(ValueError, match="dropout_p"):
         flash_attention(q, q, q, dropout_p=1.0, dropout_seed=0)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, P_DROP])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+def test_packed_qkv_view_grads_match_contiguous_and_jax(heads, dropout_p):
+    """A loss through views of the fused projection (b, s, (h + 2 h_kv) d),
+    as the GPT-2 block makes them: the packed gradient equals the
+    contiguous inputs' gradients laid side by side, and JAX's."""
+    h, h_kv = heads
+    b, s, d = 2, 130, 64
+    rng = np.random.default_rng(12)
+    packed = rng.standard_normal((b, s, (h + 2 * h_kv) * d)).astype(
+        np.float32)
+    dout = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    kw = dict(causal=True, dropout_p=dropout_p,
+              dropout_seed=SEED if dropout_p else None)
+    qkv = torch.from_numpy(packed).requires_grad_()
+    out = flash_attention(*packed_views(qkv, h, h_kv, d), **kw)
+    out.backward(torch.from_numpy(dout))
+    got = packed_views(qkv.grad, h, h_kv, d)
+
+    leaves = _leaves(*(x.contiguous().detach().numpy()
+                       for x in packed_views(torch.from_numpy(packed), h,
+                                             h_kv, d)))
+    flash_attention(*leaves, **kw).backward(torch.from_numpy(dout))
+    for name, g, x in zip("qkv", got, leaves):
+        torch.testing.assert_close(g, x.grad, atol=1e-6, rtol=1e-6,
+                                   msg=f"d{name}")
+    want = _jax(*(x.detach().numpy() for x in leaves), dout,
+                np.zeros((b, h, s), np.float32), causal=True,
+                dropout_p=dropout_p)
+    _close([out, *got], [want[0], *want[2:]], ["out", "dq", "dk", "dv"])
