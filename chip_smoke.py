@@ -23,8 +23,13 @@ paths with random weights from torch.Generator seed 0:
     bf16 compute) on one b=8, s=1024 batch, with falling finite loss, K1
     and K2 launched 12 times per step and no SDPA op in a traced step; one
     step at dropout 0 held to the 2x rule against fp32 compute.
+A determinism phase requires 10 seeded reruns to agree bit for bit: K1 + K2
+at the train shape with dropout 0.1, K8a-c at BS_SHAPES (i), K5 and K6 at
+Llama-3-8B's decode and chunk shapes; each paged shape prints the split
+count the host chose for it.
 It prints ptxas's registers and spills, the dynamic shared memory and the
-HGMMA (wgmma) instructions of the dense kernels K1 and K2, and times both
+HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5 and K6, and
+times both
 paths and every kernel against its twin and, where one exists, a single
 PyTorch call computing the same function (SDPA under each of its flash,
 cuDNN and efficient backends pinned in turn, the fastest reported), all by
@@ -67,9 +72,11 @@ from flash_attn_tpu_torch.kernels.blocksparse import (
     visible_plain,
 )
 from flash_attn_tpu_torch.kernels.chunk import (
+    BLOCK_ROWS,
     paged_chunk_attention,
     paged_chunk_attention_plain,
 )
+from flash_attn_tpu_torch.kernels.common import paged_num_splits, sm_count
 from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -257,23 +264,34 @@ def phase_device():
           f"({_build.library_path().name})")
 
 
-def wgmma_label(mangled: str) -> str:
-    """'K1 bf16 d=64' for a mangled flash_{fwd,bwd}_wgmma_kernel name."""
-    kernel = "K1" if "flash_fwd_wgmma" in mangled else "K2"
-    dtype = "bf16" if "nv_bfloat16" in mangled else "fp16"
+# Mangled kernel names of the Hopper kernels the build report covers.
+REPORTED = {"flash_fwd_wgmma": "K1", "flash_bwd_wgmma": "K2",
+            "paged_decode_mma": "K5", "paged_decode_f32": "K5",
+            "paged_chunk_wgmma": "K6", "paged_merge_kernel": "K5/K6 merge"}
+
+
+def kernel_label(mangled: str) -> str | None:
+    """'K1 bf16 d=64' for a mangled name of a REPORTED kernel, else None."""
+    kernel = next((v for k, v in REPORTED.items() if k in mangled), None)
+    if kernel is None:
+        return None
+    dtype = ("bf16" if "nv_bfloat16" in mangled else
+             "fp16" if "half" in mangled else "fp32")
     d = re.search(r"Li(\d+)E", mangled).group(1)
     return f"{kernel} {dtype} d={d}"
 
 
 def phase_build_report():
-    """Evidence of what K1's and K2's bf16/fp16 kernels were built into:
-    ptxas's registers and spills (-Xptxas -v at build), their dynamic
-    shared memory, and, where cuobjdump exists, their HGMMA (wgmma)
-    instructions in the SASS."""
+    """Evidence of what the Hopper kernels K1, K2, K5 and K6 were built
+    into: ptxas's registers and spills (-Xptxas -v at build), their
+    dynamic shared memory, and, where cuobjdump exists, the HGMMA (wgmma)
+    instructions of K1's, K2's and K6's bf16/fp16 kernels in the SASS."""
     lib = _build.lib()
     print("dynamic shared memory: " + ", ".join(
         f"K1 d={d} {lib.fattn_flash_fwd_smem(d)} B, K2 d={d} "
-        f"{lib.fattn_flash_bwd_smem(d)} B" for d in (64, 128)))
+        f"{lib.fattn_flash_bwd_smem(d)} B, K5 d={d} "
+        f"{lib.fattn_paged_decode_smem(d)} B, K6 d={d} "
+        f"{lib.fattn_paged_chunk_smem(d)} B" for d in (64, 128)))
     log = _build.build_log()
     if log is None:
         print("ptxas report: not measured (the library was not built here)")
@@ -282,12 +300,12 @@ def phase_build_report():
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '(\S+)'", line)
             if entry:
-                name = entry.group(1) if "wgmma" in entry.group(1) else None
+                name = kernel_label(entry.group(1))
             elif name and "spill" in line:
                 spills = line.strip()
             elif name and "Used" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                print(f"ptxas {wgmma_label(name)}: {regs} registers; {spills}")
+                print(f"ptxas {name}: {regs} registers; {spills}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
         print("HGMMA count: not measured (no cuobjdump)")
@@ -299,11 +317,10 @@ def phase_build_report():
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            name = name if "wgmma" in name else None
+            name = kernel_label(name) if "wgmma" in name else None
         elif name and "HGMMA" in line:
-            label = wgmma_label(name)
-            counts[label] = counts.get(label, 0) + 1
-    check(len(counts) == 8 and all(counts.values()),
+            counts[name] = counts.get(name, 0) + 1
+    check(len(counts) == 12 and all(counts.values()),
           f"HGMMA instructions missing from the wgmma kernels: {counts}")
     print("HGMMA instructions in the SASS (cuobjdump): " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
@@ -350,7 +367,8 @@ def phase_kernels(gen):
         vs_twin = max_err(out, twin)
         errs["paged_decode"] = max(errs["paged_decode"], vs_twin)
         print(f"paged_decode {shape} h={q.shape[1]}/{kp.shape[0]} "
-              f"d={q.shape[-1]} lengths={lens.tolist()}: err vs fp32 "
+              f"d={q.shape[-1]} lengths={lens.tolist()}, "
+              f"{decode_splits(q, kp, table)} splits: err vs fp32 "
               f"{err:.3e} (bf16 baseline {base:.3e}), vs twin {vs_twin:.3e}")
         del q, kp, vp, out, twin, ref32, ref16
 
@@ -482,6 +500,8 @@ DECODE_SHAPES = {
     # contexts 300..4020 of its decode steps
     "Llama decode": ([300, 831, 1362, 1894, 2425, 2957, 3488, 4020], 32, 8,
                      128, 32),
+    # one long context at Llama-3-8B's widths: 8 blocks without split-KV
+    "Llama decode long": ([16384], 32, 8, 128, 128),
 }
 
 
@@ -489,6 +509,20 @@ def decode_inputs(gen, shape="GPT-2 decode"):
     lengths, h, h_kv, d, pages_max = DECODE_SHAPES[shape]
     kp, vp, table = random_pages(gen, lengths, h_kv, d, pages_max=pages_max)
     return randn(gen, (len(lengths), h, d)), kp, vp, int32(lengths), table
+
+
+def decode_splits(q, kp, table) -> int:
+    """The split count the K5 wrapper chooses for these inputs."""
+    return paged_num_splits(q.shape[0], kp.shape[0], table.shape[1],
+                            kp.shape[2], sm_count(q.device.index))
+
+
+def chunk_splits(q, kp, table) -> int:
+    """The split count the K6 wrapper chooses (bf16/fp16)."""
+    group = q.shape[2] // kp.shape[0]
+    tiles = -(-q.shape[1] // (BLOCK_ROWS // group))
+    return paged_num_splits(q.shape[0] * tiles, kp.shape[0], table.shape[1],
+                            kp.shape[2], sm_count(q.device.index))
 
 
 def decode_work(q, kp, lens, table):
@@ -559,8 +593,8 @@ def phase_chunk_kernels(gen, errs):
         vs_twin = max_err(out, twin)
         errs["paged_chunk"] = max(errs["paged_chunk"], vs_twin)
         print(f"paged_chunk {shape} b={len(lengths)} sq={sq} h={h}/{h_kv} "
-              f"d={d}: err vs fp32 {err:.3e} (bf16 baseline {base:.3e}), vs "
-              f"twin {vs_twin:.3e}")
+              f"d={d}, {chunk_splits(q, kp, table)} splits: err vs fp32 "
+              f"{err:.3e} (bf16 baseline {base:.3e}), vs twin {vs_twin:.3e}")
         del q, kp, vp, out, twin
 
     # sq = 1: decode through K6, against K5 on the same cache.
@@ -582,7 +616,8 @@ def phase_chunk_kernels(gen, errs):
             softmax_scale=q.shape[-1] ** -0.5)
         errs["paged_chunk"] = max(errs["paged_chunk"],
                                   max_err(k6, twin[:, 0]))
-        print(f"paged_chunk sq=1 {shape} lengths={lens.tolist()}: err vs "
+        print(f"paged_chunk sq=1 {shape} lengths={lens.tolist()}, "
+              f"{chunk_splits(q[:, None], kp, table)} splits: err vs "
               f"fp32 {err:.3e} (bf16 baseline {base:.3e}), vs K5 "
               f"{k6_k5:.3e}")
         del q, kp, vp, k6, k5, twin, ref32, ref16
@@ -617,6 +652,51 @@ def phase_chunk_kernels(gen, errs):
     errs["append_span"] = 0.0
     print("append_span: bitwise equal to its twin on every page; at sq=1 "
           "equal to append_token outside page 0")
+
+
+def phase_determinism(gen, n=10):
+    """Each kernel ``n`` times on the same inputs and seed: every rerun
+    bit for bit the first. K1 + K2 at the train shape with dropout 0.1 (out,
+    lse, dq, dk, dv), K8a-c at BS_SHAPES (i) (the same), K5 at "Llama
+    decode" and K6 at "Llama chunk" (out; split-KV merged in split order)."""
+    def same(label, fn):
+        first = [x.clone() for x in fn()]
+        for _ in range(n - 1):
+            again = fn()
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(first, again)):
+                check(torch.equal(a, b),
+                      f"determinism {label}: output {i} differs between runs")
+        print(f"determinism {label}: {n} seeded reruns bit for bit equal")
+
+    q, k, v, dout = packed_inputs(gen, 8, 12, 12, 1024, 64)
+    kw = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
+
+    def dense():
+        out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse, **kw))
+    same("flash_fwd + flash_bwd b=8 h=12 s=1024 d=64 p=0.1 (out, lse, dq, "
+         "dk, dv)", dense)
+    q, k, v, dout, layout, qv, kv, p = bs_inputs(gen, "(i) GPT-2 train")
+    kw = dict(softmax_scale=0.125, dropout_p=p, seed=SEED)
+
+    def sparse():
+        out, lse = blocksparse_attention_fwd(q, k, v, layout, qv, kv, **kw)
+        return (out, lse, *blocksparse_attention_bwd(
+            q, k, v, out, dout, lse, layout, qv, kv, **kw))
+    same("blocksparse_* BS_SHAPES (i) (out, lse, dq, dk, dv)", sparse)
+    q, kp, vp, lens, table = decode_inputs(gen, "Llama decode")
+    same(f"paged_decode Llama decode, {decode_splits(q, kp, table)} splits",
+         lambda: (paged_decode_attention(q, kp, vp, lens, table),))
+    q, kp, vp, lens, table, cl = chunk_inputs(gen, "Llama chunk")
+    same(f"paged_chunk Llama chunk, {chunk_splits(q, kp, table)} splits",
+         lambda: (paged_chunk_attention(q, kp, vp, lens, table,
+                                        chunk_lens=cl),))
+    q, kp, vp, lens, table, cl = chunk_inputs(gen, "verify")
+    same(f"paged_chunk verify, {chunk_splits(q, kp, table)} splits",
+         lambda: (paged_chunk_attention(q, kp, vp, lens, table,
+                                        chunk_lens=cl),))
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1035,6 +1115,7 @@ def kernel_timing(gen):
     oa, la = flash_attention_fwd(qa, ka, va, save_lse=True, **wide)
     qd, kp, vp, dl, tbl = decode_inputs(gen)
     ql, kl, vl, ll, tl = decode_inputs(gen, "Llama decode")
+    qg, kg, vg, lg, tg = decode_inputs(gen, "Llama decode long")
     pages = cache.init_cache(12, 65, 128, 64, dtype=BF16, device=DEV)
     kw, vw = randn(gen, (768, 12, 64)), randn(gen, (768, 12, 64))
     ids = torch.tensor([7, 3, 9, 11, 5, 13], dtype=torch.int32, device=DEV)
@@ -1098,6 +1179,11 @@ def kernel_timing(gen):
             lambda: paged_decode_attention_plain(ql, kl, vl, ll, tl,
                                                  softmax_scale=128 ** -0.5),
             None, *decode_work(ql, kl, ll, tl)),
+        "paged_decode (Llama decode long)": (
+            lambda: paged_decode_attention(qg, kg, vg, lg, tg),
+            lambda: paged_decode_attention_plain(qg, kg, vg, lg, tg,
+                                                 softmax_scale=128 ** -0.5),
+            None, *decode_work(qg, kg, lg, tg)),
         "append_token": (
             lambda: cache.append_token(pages, nk, nv, tbl8, l8),
             lambda: cache.append_token_plain(pages, nk, nv, tbl8, l8),
@@ -1168,7 +1254,8 @@ def kernel_timing(gen):
           "the host's time to issue one kernel call; "
           "paged_decode at "
           "DECODE_SHAPES (GPT-2 decode b=8 h=12 d=64 page 128, lengths "
-          "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020); "
+          "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020; "
+          "Llama decode long b=1 h=32/8 d=128, 16384 keys); "
           "append_token b=8 h=12; write_pages 768 tokens into 6 pages; "
           "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); "
           "paged_chunk at CHUNK_SHAPES (GPT-2 chunk b=8 sq=256 h=12 d=64, "
@@ -1697,6 +1784,7 @@ def main():
     errs = phase_kernels(gen)
     phase_chunk_kernels(gen, errs)
     phase_train_kernels(gen, errs)
+    phase_determinism(gen)
 
     # Serving GPT-2: full width, weights stored in bf16 (the serving dtype).
     cfg = GPT2Config(param_dtype=BF16)

@@ -23,9 +23,28 @@
 // afterwards, as the JAX package does at flash_bwd.py:481-487). dQ gets a
 // contribution from every key tile: it accumulates in fp32 into a (b, h,
 // sq, d) buffer that the entry point zeroes, and a last pass scales and
-// casts it into dq. The additions' order depends on the order blocks run,
-// so dQ's low bits are not bitwise reproducible from run to run; dK and dV
-// are.
+// casts it into dq.
+// Deterministic dQ: the additions into that buffer happen in a fixed
+// order, so dq is bitwise reproducible from run to run, as dk and dv are.
+// Each (b, query head, 16-row slice) has an int32 turn counter, zeroed with
+// the buffer; a contributor waits until the counter equals its rank among
+// the key tiles that touch the slice, adds, waits until its addition has
+// completed (not just read shared memory), publishes it and increments the
+// counter (csrc/hopper.cuh wait_turn / pass_turn). The bf16/fp16 kernel
+// takes turns per warpgroup and 64-row tile, on the counter of the tile's
+// first slice (a turn per warp measured 3-12% slower, PERF.md), and the
+// waits overlap the tensor cores: one thread polls the turn while the dQ
+// product runs, and the warpgroup completes the addition and passes the
+// turn on while the next step's first products run. Ranks follow blockIdx.x,
+// and the hardware dispatches blocks in blockIdx order, so a rank only ever
+// waits for blocks that are resident or done (FA3's deterministic backward
+// relies on the same fact). Every block walks its query tiles upwards from
+// its first visible row, heads innermost. Under causal masking key tile kt
+// starts at query tile kt, so the last key tiles reach a slice first:
+// blockIdx.x runs over the key tiles from the last one down (the lightest
+// blocks launch first) and a slice's ranks count from the first block that
+// reaches it, so the additions come in the order the walks arrive and a
+// rank rarely waits.
 // Bound: tensor-core math at training sizes (5 products per tile, 10 d
 // flops per visible pair).
 //   - bf16 / fp16 (flash_bwd_wgmma_kernel): two warpgroups. K and V are
@@ -34,19 +53,21 @@
 //     by bwd_stats_kernel) stream by TMA through a ring of 3 (d = 64) or 2
 //     (d = 128) stages in dynamic shared memory, refilled by the warpgroup that releases a stage second
 //     (csrc/hopper.cuh). Warpgroup w owns keys [64 w, 64 w + 64) of the
-//     tile: S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 from shared
+//     tile (rank 2 order + w): S^T = K Q^T and dP^T = V dO^T by wgmma
+//     m64n64k16 from shared
 //     memory, in two groups so p is computed while dP^T runs; dS in
 //     registers (only tiles crossing the causal diagonal or sk's edge test
 //     elements); dV += P^T dO and dK += dS^T Q by register-A wgmma reading
 //     dO and Q as stored (transpose bit); dS^T through shared memory once,
 //     swizzled, for its dQ contribution dS K by wgmma with both operands
 //     transposed; each warp stages its 16 rows of that fp32 tile in shared
-//     memory and adds them to dq_acc with one cp.reduce.async.bulk per row
-//     (no element atomics). Summing the two warpgroups' tiles in shared
-//     memory first halves that traffic but couples the warpgroups every
-//     step, and measured slower (PERF.md).
+//     memory and, on the warpgroup's turn, adds them to dq_acc with one
+//     cp.reduce.async.bulk per row (no element atomics). Summing the two
+//     warpgroups' tiles in shared memory first halves that traffic but
+//     couples the warpgroups every step, and measured slower (PERF.md).
 //   - fp32 (flash_bwd_f32_kernel): 16 keys x 16 queries per step, FMA on
-//     the CUDA cores; dQ by scalar fp32 atomicAdd.
+//     the CUDA cores; dQ by fp32 atomicAdd, one block at a time per slice
+//     (rank: the block's order).
 #include <algorithm>
 #include <type_traits>
 
@@ -68,10 +89,12 @@ struct BwdParams {
   // lse = -inf or past sq: p = 0), di, dropout row hash bits, 0}.
   const float4* stats;
   float* dq_acc;  // (b, h, sq, d) fp32 contiguous, zero on entry
+  int* dq_turn;   // (b, h, n16) turn counters of dq_acc's 16-row slices, 0
   void* dk;
   void* dv;
   int h, h_kv, sq, sk;
   int sq_pad;  // sq rounded up to kStatRows
+  int n16;     // 16-row slices of sq: (sq + 15) / 16
   float scale_log2;
   float scale;
   bool causal;
@@ -80,6 +103,22 @@ struct BwdParams {
 };
 
 constexpr int kStatRows = 64;  // the stats rows are padded to this
+
+// The key tile of this block: under causal masking the last (lightest)
+// key tiles launch first (see the header).
+__device__ __forceinline__ int key_tile(bool causal) {
+  return causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+}
+
+// This block's place among the blocks that add into dQ rows [m0, m0 + 16):
+// blocks count in launch order from the first one whose keys reach those
+// rows (under causal masking key tile kt reaches rows kt * keys_per_block
+// on).
+__device__ __forceinline__ int dq_order(int m0, int keys_per_block,
+                                        bool causal) {
+  const int last = gridDim.x - 1;
+  return blockIdx.x - (causal ? last - min(last, m0 / keys_per_block) : 0);
+}
 
 // The row stats, one warp per row of (b, h, sq_pad): di = rowsum(o * dout)
 // - dlse (flash_bwd.py:497-506), the lse in the log2 domain and the dropout
@@ -175,20 +214,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* kv_full = full + kStages;
   uint32_t* released = reinterpret_cast<uint32_t*>(kv_full + 1);
 
-  const int n0 = blockIdx.x * kBwdN;
+  const int n0 = key_tile(p.causal) * kBwdN;
   const int hk = blockIdx.y, bb = blockIdx.z;
   const int group = p.h / p.h_kv;
   const int m_begin = first_row_for_keys(n0, p.causal) / kBwdM * kBwdM;
-  // The walk: step it is query head hk * group + it / n_m, rows
-  // m_begin + (it % n_m) * kBwdM on.
+  // The walk, heads innermost: step it is query head hk * group + it %
+  // group, rows m_begin + (it / group) * kBwdM on.
   const int n_m = m_begin < p.sq ? (p.sq - m_begin + kBwdM - 1) / kBwdM : 0;
   const int n_steps = group * n_m;
 
   // Q, dO and the row stats of step `it` into ring stage it % kStages.
   auto load_step = [&](int it) {
     const int s = it % kStages;
-    const int hq = hk * group + it / n_m;
-    const int m0 = m_begin + (it % n_m) * kBwdM;
+    const int hq = hk * group + it % group;
+    const int m0 = m_begin + (it / group) * kBwdM;
     mbar_arrive_expect_tx(&full[s], 2 * 2 * L::kQ + 16 * kBwdM);
     for (int c = 0; c < D / 64; ++c) {
       const int off = s * L::kQ + c * kBwdM * 64;
@@ -235,173 +274,193 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(kv_full, 0);
+  // The warpgroup's dQ addition of the last step, until it has completed
+  // and its turn is passed on (nullptr: none).
+  int* pending = nullptr;
+  auto finish_pending = [&]() {
+    if (pending == nullptr) return;
+    if (lane < 16) {
+      bulk_wait();  // the addition is done in global memory
+      fence_proxy_async_global();
+    }
+    named_barrier(1 + wg, 128);
+    if (tid == 0) pass_turn(pending);
+    pending = nullptr;
+  };
 
-  int it = 0;
-  for (int hq = hk * group; hq < (hk + 1) * group; ++hq) {
+  for (int it = 0; it < n_steps; ++it) {
+    const int hq = hk * group + it % group;
+    const int m0 = m_begin + (it / group) * kBwdM;
     float* dq_acc = p.dq_acc + (size_t)(bb * p.h + hq) * p.sq * D;
-    for (int m0 = m_begin; m0 < p.sq; m0 += kBwdM, ++it) {
-      const int s = it % kStages;
-      const float4* st_t = stats_s + s * kBwdM;
-      const uint32_t qb = opaque(q_base) + s * L::kQ * 2;
-      const uint32_t dob = opaque(do_base) + s * L::kQ * 2;
-      mbar_wait(&full[s], (it / kStages) & 1);
+    const int s = it % kStages;
+    const float4* st_t = stats_s + s * kBwdM;
+    const uint32_t qb = opaque(q_base) + s * L::kQ * 2;
+    const uint32_t dob = opaque(do_base) + s * L::kQ * 2;
+    mbar_wait(&full[s], (it / kStages) & 1);
 
-      // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries, as two groups
-      // so p can start while dP^T runs. Element [4 nb + e] is key
-      // key0 + 8 (e >> 1), query nb * 8 + 2t + (e & 1) of the tile.
-      float st[kBwdM / 2], dpt[kBwdM / 2];
-      {
-        const uint32_t kb = opaque(k_base), vb = opaque(v_base);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int c = kk / 4, step = (kk % 4) * 32;
-          Wgmma<T, kBwdM>::template ss<0, 0>(
-              st, sw128_desc(kb + c * kBwdN * 128 + step, 16, 1024),
-              sw128_desc(qb + c * kBwdM * 128 + step, 16, 1024), kk > 0);
-        }
-        wgmma_commit();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int c = kk / 4, step = (kk % 4) * 32;
-          Wgmma<T, kBwdM>::template ss<0, 0>(
-              dpt, sw128_desc(vb + c * kBwdN * 128 + step, 16, 1024),
-              sw128_desc(dob + c * kBwdM * 128 + step, 16, 1024), kk > 0);
-        }
-        wgmma_commit();
-      }
-      wgmma_wait<1>();
-      fence_regs(st);
-
-      // st <- p (pre-dropout); only tiles crossing the causal diagonal or
-      // sk's edge test elements. Row stats come in pairs of queries.
-      const bool edge = kw0 + 64 > p.sk || (p.causal && kw0 + 63 > m0);
-#pragma unroll
-      for (int nb = 0; nb < kBwdM / 8; ++nb) {
-        const int ql = nb * 8 + 2 * t;
-        const float lse2[2] = {st_t[ql].x, st_t[ql + 1].x};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float l2 = lse2[e & 1];
-          float pv = fast_exp2(fmaf(st[4 * nb + e], p.scale_log2, -l2));
-          if (edge && !key_visible(m0 + ql + (e & 1), key0 + 8 * (e >> 1),
-                                   p.sk, p.causal)) {
-            pv = 0.f;
-          }
-          st[4 * nb + e] = pv;
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs(dpt);
-      // st <- dropped, rescaled p (for dV); dpt <- dS = p * (dP - di).
-#pragma unroll
-      for (int nb = 0; nb < kBwdM / 8; ++nb) {
-        const int ql = nb * 8 + 2 * t;
-        const float4 r0 = st_t[ql], r1 = st_t[ql + 1];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4& r = (e & 1) ? r1 : r0;
-          const float pv = st[4 * nb + e];
-          float pd = pv * p.drop.rp, dpd = dpt[4 * nb + e] * p.drop.rp;
-          if (p.drop.on() && !keep_elem(__float_as_uint(r.z),
-                                        key0 + 8 * (e >> 1),
-                                        p.drop.threshold)) {
-            pd = dpd = 0.f;
-          }
-          st[4 * nb + e] = pd;
-          dpt[4 * nb + e] = pv * (dpd - r.y);
-        }
-      }
-
-      // A fragments (keys x 16 queries) from two query n-blocks each.
-      uint32_t pa[kBwdM / 16][4], dsa[kBwdM / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBwdM / 16; ++kk) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          pa[kk][j] = Mma<T>::pack(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1]);
-          dsa[kk][j] =
-              Mma<T>::pack(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1]);
-        }
-      }
-      // dS^T to shared memory, [key][query] rows of 128 bytes with the
-      // 128-byte swizzle: the A operand of dQ = dS K, read transposed.
-#pragma unroll
-      for (int kk = 0; kk < kBwdM / 16; ++kk) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kl = warp * 16 + g + 8 * (j & 1);  // key within the 64
-          const int nb = 2 * kk + (j >> 1);           // query chunk
-          *reinterpret_cast<uint32_t*>(
-              ds_wg + kl * 128 + ((nb ^ (kl & 7)) << 4) + 4 * t) = dsa[kk][j];
-        }
-      }
-      fence_proxy_async();
-
-      // dV += P^T dO and dK += dS^T Q: A from registers, B read as stored.
-      fence_regs(dv);
-      fence_regs(dk);
+    // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries, as two groups
+    // so p can start while dP^T runs. Element [4 nb + e] is key
+    // key0 + 8 (e >> 1), query nb * 8 + 2t + (e & 1) of the tile.
+    float st[kBwdM / 2], dpt[kBwdM / 2];
+    {
+      const uint32_t kb = opaque(k_base), vb = opaque(v_base);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBwdM / 16; ++kk) {
-        Wgmma<T, D>::template rs<1>(
-            dv, pa[kk], sw128_desc(dob + kk * 16 * 128, kBwdM * 128, 1024), 1);
-        Wgmma<T, D>::template rs<1>(
-            dk, dsa[kk], sw128_desc(qb + kk * 16 * 128, kBwdM * 128, 1024), 1);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, step = (kk % 4) * 32;
+        Wgmma<T, kBwdM>::template ss<0, 0>(
+            st, sw128_desc(kb + c * kBwdN * 128 + step, 16, 1024),
+            sw128_desc(qb + c * kBwdM * 128 + step, 16, 1024), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(pa);
-      fence_regs(dsa);
-      fence_regs(dv);
-      fence_regs(dk);
-      // Every warp's dS^T rows are in place, and the warpgroup is done with
-      // the stage's Q, dO and row stats.
-      named_barrier(1 + wg, 128);
-      if (tid == 0 && stage_released_by_both(&released[s]) &&
-          it + kStages < n_steps) {
-        load_step(it + kStages);
-      }
-
-      // dQ (64 queries x d) = dS K over this warpgroup's 64 keys.
-      float dqa[D / 2];
-      {
-        const uint32_t dsb = opaque(ds_base), kb = opaque(k_base);
-        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 64 / 16; ++kk) {
-          Wgmma<T, D>::template ss<1, 1>(
-              dqa, sw128_desc(dsb + kk * 16 * 128, 64 * 128, 1024),
-              sw128_desc(kb + kk * 16 * 128, kBwdN * 128, 1024), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, step = (kk % 4) * 32;
+        Wgmma<T, kBwdM>::template ss<0, 0>(
+            dpt, sw128_desc(vb + c * kBwdN * 128 + step, 16, 1024),
+            sw128_desc(dob + c * kBwdM * 128 + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    }
+    // The last step's addition completes while the products run.
+    finish_pending();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // st <- p (pre-dropout); only tiles crossing the causal diagonal or
+    // sk's edge test elements. Row stats come in pairs of queries.
+    const bool edge = kw0 + 64 > p.sk || (p.causal && kw0 + 63 > m0);
+#pragma unroll
+    for (int nb = 0; nb < kBwdM / 8; ++nb) {
+      const int ql = nb * 8 + 2 * t;
+      const float lse2[2] = {st_t[ql].x, st_t[ql + 1].x};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l2 = lse2[e & 1];
+        float pv = fast_exp2(fmaf(st[4 * nb + e], p.scale_log2, -l2));
+        if (edge && !key_visible(m0 + ql + (e & 1), key0 + 8 * (e >> 1),
+                                 p.sk, p.causal)) {
+          pv = 0.f;
         }
-        wgmma_commit();
-      }
-      wgmma_wait<0>();
-      fence_regs(dqa);
-
-      // This warp's 16 rows through shared memory to dq_acc, one bulk
-      // reduce-add per row.
-      const bool issuer = lane < 16;
-      if (issuer) bulk_wait_read();  // the last tile's rows have been read
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < D / 2; i += 2) {
-        const int row = g + 8 * ((i >> 1) & 1);
-        const int col = (i / 4) * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dq_w + row * L::kDQStride + col) =
-            make_float2(dqa[i], dqa[i + 1]);
-      }
-      fence_proxy_async();
-      __syncwarp();
-      const int dq_row = m0 + warp * 16 + lane;
-      if (issuer && dq_row < p.sq) {
-        bulk_reduce_add_f32(dq_acc + (size_t)dq_row * D,
-                            dq_w + lane * L::kDQStride, D * 4);
-        bulk_commit();
+        st[4 * nb + e] = pv;
       }
     }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    // st <- dropped, rescaled p (for dV); dpt <- dS = p * (dP - di).
+#pragma unroll
+    for (int nb = 0; nb < kBwdM / 8; ++nb) {
+      const int ql = nb * 8 + 2 * t;
+      const float4 r0 = st_t[ql], r1 = st_t[ql + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4& r = (e & 1) ? r1 : r0;
+        const float pv = st[4 * nb + e];
+        float pd = pv * p.drop.rp, dpd = dpt[4 * nb + e] * p.drop.rp;
+        if (p.drop.on() && !keep_elem(__float_as_uint(r.z),
+                                      key0 + 8 * (e >> 1),
+                                      p.drop.threshold)) {
+          pd = dpd = 0.f;
+        }
+        st[4 * nb + e] = pd;
+        dpt[4 * nb + e] = pv * (dpd - r.y);
+      }
+    }
+
+    // A fragments (keys x 16 queries) from two query n-blocks each.
+    uint32_t pa[kBwdM / 16][4], dsa[kBwdM / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBwdM / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[kk][j] = Mma<T>::pack(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1]);
+        dsa[kk][j] =
+            Mma<T>::pack(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1]);
+      }
+    }
+    // dS^T to shared memory, [key][query] rows of 128 bytes with the
+    // 128-byte swizzle: the A operand of dQ = dS K, read transposed.
+#pragma unroll
+    for (int kk = 0; kk < kBwdM / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kl = warp * 16 + g + 8 * (j & 1);  // key within the 64
+        const int nb = 2 * kk + (j >> 1);           // query chunk
+        *reinterpret_cast<uint32_t*>(
+            ds_wg + kl * 128 + ((nb ^ (kl & 7)) << 4) + 4 * t) = dsa[kk][j];
+      }
+    }
+    fence_proxy_async();
+
+    // dV += P^T dO and dK += dS^T Q: A from registers, B read as stored.
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdM / 16; ++kk) {
+      Wgmma<T, D>::template rs<1>(
+          dv, pa[kk], sw128_desc(dob + kk * 16 * 128, kBwdM * 128, 1024), 1);
+      Wgmma<T, D>::template rs<1>(
+          dk, dsa[kk], sw128_desc(qb + kk * 16 * 128, kBwdM * 128, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pa);
+    fence_regs(dsa);
+    fence_regs(dv);
+    fence_regs(dk);
+    // Every warp's dS^T rows are in place, and the warpgroup is done with
+    // the stage's Q, dO and row stats.
+    named_barrier(1 + wg, 128);
+    if (tid == 0 && stage_released_by_both(&released[s]) &&
+        it + kStages < n_steps) {
+      load_step(it + kStages);
+    }
+
+    // dQ (64 queries x d) = dS K over this warpgroup's 64 keys; the
+    // warpgroup's turn for the tile (rank 2 order + wg) is awaited while
+    // the product runs.
+    float dqa[D / 2];
+    {
+      const uint32_t dsb = opaque(ds_base), kb = opaque(k_base);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 64 / 16; ++kk) {
+        Wgmma<T, D>::template ss<1, 1>(
+            dqa, sw128_desc(dsb + kk * 16 * 128, 64 * 128, 1024),
+            sw128_desc(kb + kk * 16 * 128, kBwdN * 128, 1024), kk > 0);
+      }
+      wgmma_commit();
+    }
+    int* turn = p.dq_turn + (size_t)(bb * p.h + hq) * p.n16 + m0 / 16;
+    if (tid == 0) wait_turn(turn, 2 * dq_order(m0, kBwdN, p.causal) + wg);
+    named_barrier(1 + wg, 128);
+    wgmma_wait<0>();
+    fence_regs(dqa);
+
+    // This warp's 16 rows through shared memory to dq_acc, one bulk
+    // reduce-add per row; the last step's addition has completed, so the
+    // staging rows are free. It completes, and the turn passes on, during
+    // the next step's first products.
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = g + 8 * ((i >> 1) & 1);
+      const int col = (i / 4) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dq_w + row * L::kDQStride + col) =
+          make_float2(dqa[i], dqa[i + 1]);
+    }
+    fence_proxy_async();
+    __syncwarp();
+    const int dq_row = m0 + warp * 16 + lane;
+    if (lane < 16 && dq_row < p.sq) {
+      fence_proxy_async_global();
+      bulk_reduce_add_f32(dq_acc + (size_t)dq_row * D,
+                          dq_w + lane * L::kDQStride, D * 4);
+      bulk_commit();
+    }
+    pending = turn;
   }
-  if (lane < 16) bulk_wait();
+  finish_pending();
 
   uint16_t* dk_out = head_rows(static_cast<uint16_t*>(p.dk), p.st[kOpDK], bb, hk);
   uint16_t* dv_out = head_rows(static_cast<uint16_t*>(p.dv), p.st[kOpDV], bb, hk);
@@ -439,7 +498,7 @@ __global__ void __launch_bounds__(256)
   __shared__ float p_s[kM * (kN + 1)];  // dropped, rescaled p (query, key)
   __shared__ float ds_s[kM * (kN + 1)];
 
-  const int n0 = blockIdx.x * kN;
+  const int n0 = key_tile(p.causal) * kN;
   const int hk = blockIdx.y, bb = blockIdx.z;
   const int group = p.h / p.h_kv;
   const int i16 = threadIdx.x >> 4, j16 = threadIdx.x & 15;
@@ -460,7 +519,11 @@ __global__ void __launch_bounds__(256)
 
   const int col = n0 + j16;  // this thread's key in the score grid
   const int m_begin = first_row_for_keys(n0, p.causal) / kM * kM;
-  for (int hq = hk * group; hq < (hk + 1) * group; ++hq) {
+  // Heads innermost, as the wgmma path.
+  const int n_m = m_begin < p.sq ? (p.sq - m_begin + kM - 1) / kM : 0;
+  for (int it = 0; it < group * n_m; ++it) {
+    const int hq = hk * group + it % group;
+    const int m0 = m_begin + (it / group) * kM;
     const uint32_t bh = bb * p.h + hq;
     const float* q =
         head_rows(static_cast<const float*>(p.q), p.st[kOpQ], bb, hq);
@@ -469,64 +532,73 @@ __global__ void __launch_bounds__(256)
     const long long qs = p.st[kOpQ].s, dos = p.st[kOpDO].s;
     const float4* stats = p.stats + (size_t)bh * p.sq_pad;
     float* dq = p.dq_acc + (size_t)bh * p.sq * D;
+    __syncthreads();
+    for (int i = threadIdx.x; i < kM * D; i += blockDim.x) {
+      const int r = i / D, c = i % D;
+      const bool in = m0 + r < p.sq;
+      q_s[r * kS + c] = in ? q[(m0 + r) * qs + c] : 0.f;
+      do_s[r * kS + c] = in ? dout[(m0 + r) * dos + c] : 0.f;
+    }
+    __syncthreads();
 
-    for (int m0 = m_begin; m0 < p.sq; m0 += kM) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kM * D; i += blockDim.x) {
-        const int r = i / D, c = i % D;
-        const bool in = m0 + r < p.sq;
-        q_s[r * kS + c] = in ? q[(m0 + r) * qs + c] : 0.f;
-        do_s[r * kS + c] = in ? dout[(m0 + r) * dos + c] : 0.f;
-      }
-      __syncthreads();
-
-      const int row = m0 + i16;
-      float sc = 0.f, dpv = 0.f;
+    const int row = m0 + i16;
+    float sc = 0.f, dpv = 0.f;
 #pragma unroll 8
-      for (int c = 0; c < D; ++c) {
-        sc += q_s[i16 * kS + c] * k_s[j16 * kS + c];
-        dpv += do_s[i16 * kS + c] * v_s[j16 * kS + c];
-      }
-      float pv = 0.f, di_row = 0.f;
-      if (row < p.sq) {
-        const float4 st4 = stats[row];  // lse2 = +inf where lse = -inf
-        di_row = st4.y;
-        if (key_visible(row, col, p.sk, p.causal)) {
-          pv = exp2f(sc * p.scale_log2 - st4.x);
-        }
-      }
-      float pd = pv * p.drop.rp, dpd = dpv * p.drop.rp;
-      if (p.drop.on() &&
-          !keep_elem(hash_row(p.drop.seed, bh, row), col, p.drop.threshold)) {
-        pd = dpd = 0.f;
-      }
-      p_s[i16 * (kN + 1) + j16] = pd;
-      ds_s[i16 * (kN + 1) + j16] = pv * (dpd - di_row);
-      __syncthreads();
-
-      // dV, dK for key i16; dQ for query i16.
-#pragma unroll 4
-      for (int r = 0; r < kM; ++r) {
-        const float a = p_s[r * (kN + 1) + i16];
-        const float b = ds_s[r * (kN + 1) + i16];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          dv[i] += a * do_s[r * kS + j16 + 16 * i];
-          dk[i] += b * q_s[r * kS + j16 + 16 * i];
-        }
-      }
-      if (m0 + i16 < p.sq) {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          float a = 0.f;
-#pragma unroll
-          for (int j = 0; j < kN; ++j) {
-            a += ds_s[i16 * (kN + 1) + j] * k_s[j * kS + j16 + 16 * i];
-          }
-          atomicAdd(dq + (size_t)(m0 + i16) * D + j16 + 16 * i, a);
-        }
+    for (int c = 0; c < D; ++c) {
+      sc += q_s[i16 * kS + c] * k_s[j16 * kS + c];
+      dpv += do_s[i16 * kS + c] * v_s[j16 * kS + c];
+    }
+    float pv = 0.f, di_row = 0.f;
+    if (row < p.sq) {
+      const float4 st4 = stats[row];  // lse2 = +inf where lse = -inf
+      di_row = st4.y;
+      if (key_visible(row, col, p.sk, p.causal)) {
+        pv = exp2f(sc * p.scale_log2 - st4.x);
       }
     }
+    float pd = pv * p.drop.rp, dpd = dpv * p.drop.rp;
+    if (p.drop.on() &&
+        !keep_elem(hash_row(p.drop.seed, bh, row), col, p.drop.threshold)) {
+      pd = dpd = 0.f;
+    }
+    p_s[i16 * (kN + 1) + j16] = pd;
+    ds_s[i16 * (kN + 1) + j16] = pv * (dpd - di_row);
+    __syncthreads();
+
+    // dV, dK for key i16; dQ for query i16.
+#pragma unroll 4
+    for (int r = 0; r < kM; ++r) {
+      const float a = p_s[r * (kN + 1) + i16];
+      const float b = ds_s[r * (kN + 1) + i16];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        dv[i] += a * do_s[r * kS + j16 + 16 * i];
+        dk[i] += b * q_s[r * kS + j16 + 16 * i];
+      }
+    }
+    float dqa[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        a += ds_s[i16 * (kN + 1) + j] * k_s[j * kS + j16 + 16 * i];
+      }
+      dqa[i] = a;
+    }
+    // dQ on this block's turn for the slice.
+    int* turn = p.dq_turn + (size_t)bh * p.n16 + m0 / 16;
+    if (threadIdx.x == 0) wait_turn(turn, dq_order(m0, kN, p.causal));
+    __syncthreads();
+    if (m0 + i16 < p.sq) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        atomicAdd(dq + (size_t)(m0 + i16) * D + j16 + 16 * i, dqa[i]);
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) pass_turn(turn);
   }
 
   const int key = n0 + i16;
@@ -613,9 +685,10 @@ cudaError_t launch(const BwdParams& p, const void* o, const float* lse,
 }  // namespace
 }  // namespace fattn
 
-// stats and dq_acc are fp32 scratch the wrapper allocates, contiguous:
-// (b, h, sq_pad, 4) with sq_pad = sq rounded up to 64, and (b, h, sq, d).
-// dq_acc is zeroed here, on the stream, every call. strides: (batch, head,
+// stats and dq_acc are scratch the wrapper allocates, contiguous: fp32
+// (b, h, sq_pad, 4) with sq_pad = sq rounded up to 64, and (b, h, sq, d)
+// fp32 followed by (b, h, (sq + 15) / 16) int32 turn counters. dq_acc is
+// zeroed here, counters included, on the stream, every call. strides: (batch, head,
 // row) element strides of every Operand (csrc/common.cuh).
 extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
@@ -631,8 +704,10 @@ extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t acc = (size_t)b * h * sq * d;
+  const int n16 = (sq + 15) / 16;
   const cudaError_t err = cudaMemsetAsync(
-      dq_acc, 0, (size_t)b * h * sq * d * sizeof(float), st);
+      dq_acc, 0, (acc + (size_t)b * h * n16) * sizeof(float), st);
   if (err != cudaSuccess) return err;
   BwdParams p{q,
               k,
@@ -640,6 +715,7 @@ extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
               dout,
               static_cast<const float4*>(stats),
               static_cast<float*>(dq_acc),
+              reinterpret_cast<int*>(static_cast<float*>(dq_acc) + acc),
               dk,
               dv,
               h,
@@ -647,6 +723,7 @@ extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
               sq,
               sk,
               (sq + kStatRows - 1) / kStatRows * kStatRows,
+              n16,
               scale * kLog2e,
               scale,
               causal != 0,

@@ -1,6 +1,8 @@
-// Hopper building blocks shared by the wgmma kernels (K1 csrc/flash_fwd.cu,
-// K2 csrc/flash_bwd.cu): mbarriers, TMA tile loads, bulk reduce-add, named
-// barriers, shared-memory matrix descriptors and the
+// Hopper building blocks shared by the wgmma and TMA kernels (K1
+// csrc/flash_fwd.cu, K2 csrc/flash_bwd.cu, K5 csrc/paged_decode.cu, K6
+// csrc/paged_chunk.cu): mbarriers, TMA tile loads, bulk copies and
+// reduce-adds, turn counters, named barriers, shared-memory matrix
+// descriptors and the
 // wgmma.mma_async instructions, all as inline PTX for sm_90a (no CUTLASS, so
 // a source builds in seconds).
 //
@@ -107,6 +109,25 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// 16 bytes from global into shared memory by cp.async (both 16-byte
+// aligned); zeros, and no read, when !valid. Completion is per thread, in
+// commit groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// All but the newest kPending commit groups of this thread have landed.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // gdst[i] += ssrc[i] for bytes / 4 floats, as one bulk operation.
 __device__ __forceinline__ void bulk_reduce_add_f32(float* gdst,
                                                     const float* ssrc,
@@ -120,10 +141,7 @@ __device__ __forceinline__ void bulk_reduce_add_f32(float* gdst,
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// This thread's bulk operations have finished reading shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
+// This thread's bulk operations have completed, their writes included.
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
@@ -132,6 +150,36 @@ __device__ __forceinline__ void bulk_wait() {
 // copies (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The same between the proxies' accesses to global memory.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ------------------------------------------------------- turn counters
+
+// A fixed order of additions into one fp32 buffer across blocks: each
+// contributor waits until the counter equals its rank, adds, and passes
+// the turn on. Spins (acquire) until *turn == rank; like mbar_wait, a wait
+// of ~2^34 cycles traps instead of hanging the card.
+__device__ __forceinline__ void wait_turn(const int* turn, int rank) {
+  int v;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(turn)
+                 : "memory");
+    if (v == rank) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+// Hands the turn to the next rank, after this thread's writes and those
+// ordered before them by a barrier: the release orders them, so no
+// separate fence (one before it cost K2 time, PERF.md).
+__device__ __forceinline__ void pass_turn(int* turn) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(turn)
+               : "memory");
 }
 
 // The two consumer warpgroups of a block share a ring of tile stages with

@@ -36,6 +36,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 _SIGNATURES = {
@@ -45,12 +46,15 @@ _SIGNATURES = {
     # q, k, v, o, dout, lse, dlse, stats, dq_acc, dq, dk, dv, strides, b, h,
     # h_kv, sq, sk, d, scale, causal, seed, threshold, rp, dtype, stream
     "fattn_flash_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
-    # q, k_pages, v_pages, lengths, page_table, out, b, h_kv, group,
-    # num_pages, page_size, pages_max, d, scale, dtype, stream
-    "fattn_paged_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-    # q, k_pages, v_pages, lengths, chunk_lens, page_table, out, b, sq,
-    # h_kv, group, num_pages, page_size, pages_max, d, scale, dtype, stream
-    "fattn_paged_chunk": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    # q, q_sb, q_sh, k_pages, v_pages, lengths, page_table, out, partials,
+    # b, h_kv, group, num_pages, page_size, pages_max, n_splits, split_keys,
+    # d, scale, dtype, stream
+    "fattn_paged_decode": [_P, _L, _L] + [_P] * 6 + [_I] * 9 + [_F, _I, _P],
+    # q, q_sb, q_st, q_sh, k_pages, v_pages, lengths, chunk_lens,
+    # page_table, out, partials, b, sq, h_kv, group, num_pages, page_size,
+    # pages_max, n_splits, split_keys, d, scale, dtype, stream
+    "fattn_paged_chunk": [_P, _L, _L, _L] + [_P] * 7 + [_I] * 10
+    + [_F, _I, _P],
     # new_k, new_v, k_pages, v_pages, page_table, lengths, new_lens, b, sq,
     # h, num_pages, page_size, pages_max, d, elem_bytes, stream
     "fattn_append_span": [_P] * 7 + [_I] * 8 + [_P],
@@ -78,6 +82,9 @@ _SIGNATURES = {
     # d: the dynamic shared memory of K1's / K2's bf16/fp16 kernel
     "fattn_flash_fwd_smem": [_I],
     "fattn_flash_bwd_smem": [_I],
+    # d: the dynamic shared memory of K5's / K6's bf16/fp16 kernel
+    "fattn_paged_decode_smem": [_I],
+    "fattn_paged_chunk_smem": [_I],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -17,7 +17,13 @@ chunk_lens[b] + t`` (tail-aligned: the chunk is the end of the cached
 sequence, whose K/V must already be written) and sees the keys at or before
 it. Rows t >= chunk_lens[b], and rows that see no key, give 0. Returns
 (batch, sq, n_q_heads, d) in the q dtype. GQA: each kv head serves its group
-of query heads.
+of query heads. q may be any view whose last dimension is contiguous and
+whose rows start on 16-byte boundaries (the models pass a slice of their
+fused projection); the pages must be contiguous and, for bf16/fp16, their
+page size a multiple of 64 or a divisor of 64 from 8 on (the kernel's TMA
+boxes). On the card a small grid has its keys split over
+``paged_num_splits`` blocks, merged in order by a second launch (bf16 and
+fp16; fp32 runs unsplit), so the result is bitwise reproducible.
 """
 
 from __future__ import annotations
@@ -27,14 +33,27 @@ import torch
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
+    SPLIT_TILE,
     check_ported,
+    kernel_operand,
     paged_block_live,
     paged_block_softmax,
+    paged_num_splits,
+    paged_split_keys,
     paged_visibility_mask,
+    sm_count,
 )
 
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 64  # query heads per kv head: one block holds 64 query rows
+MAX_GROUP = 64  # query heads per kv head a block holds
+BLOCK_ROWS = 128  # query rows per block of the bf16/fp16 kernel
+
+
+def page_size_ok(page_size: int) -> bool:
+    """The bf16/fp16 kernel's 64-key tiles are whole TMA boxes of one
+    page: page sizes that are multiples of 64 or divisors of 64 from 8 on."""
+    return page_size % SPLIT_TILE == 0 or (
+        SPLIT_TILE % page_size == 0 and page_size >= 8)
 
 
 def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
@@ -80,18 +99,39 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
             or page_table.shape[0] != batch:
         raise ValueError("paged_chunk_attention: page_table must be int32 "
                          "(batch, pages_max)")
-    _build.require_cuda("paged_chunk_attention", q, k_pages, v_pages,
-                        lengths, chunk_lens, page_table)
-    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
-        raise ValueError("paged_chunk_attention: q and the pages must be "
-                         "16-byte aligned (the kernel loads 16-byte vectors)")
-    out = torch.empty_like(q)
+    _build.require_device("paged_chunk_attention", q, k_pages, v_pages,
+                          lengths, chunk_lens, page_table)
+    _build.require_cuda("paged_chunk_attention", k_pages, v_pages, lengths,
+                        chunk_lens, page_table)
+    if any(x.data_ptr() % 16 for x in (k_pages, v_pages)):
+        raise ValueError("paged_chunk_attention: the pages must be 16-byte "
+                         "aligned (the kernel loads 16-byte vectors)")
+    f32 = q.dtype == torch.float32
+    if not f32 and not page_size_ok(page_size):
+        raise ValueError(f"paged_chunk_attention: page_size {page_size} (the "
+                         "bf16/fp16 kernel needs a multiple of 64 or a "
+                         "divisor of 64 from 8 on)")
+    q = kernel_operand(q)
+    pages_max = page_table.shape[1]
+    out = torch.empty((batch, sq, n_q_heads, d), dtype=q.dtype,
+                      device=q.device)
+    n_splits, partials = 1, None
+    if not f32:
+        row_tiles = -(-sq // (BLOCK_ROWS // group))
+        n_splits = paged_num_splits(batch * row_tiles, n_kv_heads, pages_max,
+                                    page_size, sm_count(q.device.index))
+    if n_splits > 1:
+        partials = torch.empty(n_splits * batch * sq * n_q_heads * (d + 1),
+                               dtype=torch.float32, device=q.device)
     code = _build.lib().fattn_paged_chunk(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), chunk_lens.data_ptr(), page_table.data_ptr(),
-        out.data_ptr(), batch, sq, n_kv_heads, group, num_pages, page_size,
-        page_table.shape[1], d, float(softmax_scale),
-        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device),
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+        chunk_lens.data_ptr(), page_table.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(), batch, sq,
+        n_kv_heads, group, num_pages, page_size, pages_max, n_splits,
+        paged_split_keys(pages_max, page_size, n_splits), d,
+        float(softmax_scale), _build.DTYPE_CODES[q.dtype],
+        _build.stream_ptr(q.device),
     )
     paged_chunk_attention.launches += 1
     _build.check(code, "fattn_paged_chunk")

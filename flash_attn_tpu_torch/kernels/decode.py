@@ -12,7 +12,13 @@ attends to a paged KV cache:
   page_table: (batch, pages_max) int32 physical page ids
 
 Returns (batch, n_q_heads, d) in the q dtype. GQA: n_q_heads is a multiple
-of n_kv_heads and each kv head serves its group of query heads.
+of n_kv_heads and each kv head serves its group of query heads. q may be
+any view whose last dimension is contiguous (the models pass a slice of
+their fused projection); the pages must be contiguous. On the card the
+keys are split over ``paged_num_splits`` blocks per (sequence, kv head),
+chosen from the shapes and the SM count (the lengths stay on the card),
+and a second launch merges the splits in order: at most two launches and
+one scratch allocation per call, and a bitwise reproducible result.
 """
 
 from __future__ import annotations
@@ -24,7 +30,10 @@ from flash_attn_tpu_torch.kernels.common import (
     DEFAULT_MASK_VALUE,
     check_ported,
     paged_block_softmax,
+    paged_num_splits,
+    paged_split_keys,
     paged_visibility_mask,
+    sm_count,
 )
 
 HEAD_DIMS = (64, 128)
@@ -68,14 +77,26 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
             or lengths.shape != (batch,) or page_table.shape[0] != batch:
         raise ValueError("paged_decode_attention: lengths (batch,) and "
                          "page_table (batch, pages_max) must be int32")
-    _build.require_cuda("paged_decode_attention", q, k_pages, v_pages,
-                        lengths, page_table)
-    out = torch.empty_like(q)
-    lib = _build.lib()
-    code = lib.fattn_paged_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), page_table.data_ptr(), out.data_ptr(),
-        batch, n_kv_heads, group, num_pages, page_size, pages_max, d,
+    _build.require_device("paged_decode_attention", q, k_pages, v_pages,
+                          lengths, page_table)
+    _build.require_cuda("paged_decode_attention", k_pages, v_pages, lengths,
+                        page_table)
+    if q.stride(-1) != 1 or q.stride(0) % 2 or q.stride(1) % 2 \
+            or q.data_ptr() % 4:
+        q = q.contiguous()  # the kernel reads q in pairs of elements
+    out = torch.empty((batch, n_q_heads, d), dtype=q.dtype, device=q.device)
+    n_splits = paged_num_splits(batch, n_kv_heads, pages_max, page_size,
+                                sm_count(q.device.index))
+    partials = None
+    if n_splits > 1:
+        partials = torch.empty(n_splits * batch * n_q_heads * (d + 1),
+                               dtype=torch.float32, device=q.device)
+    code = _build.lib().fattn_paged_decode(
+        q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
+        v_pages.data_ptr(), lengths.data_ptr(), page_table.data_ptr(),
+        out.data_ptr(), None if partials is None else partials.data_ptr(),
+        batch, n_kv_heads, group, num_pages, page_size, pages_max, n_splits,
+        paged_split_keys(pages_max, page_size, n_splits), d,
         float(softmax_scale), _build.DTYPE_CODES[q.dtype],
         _build.stream_ptr(q.device),
     )

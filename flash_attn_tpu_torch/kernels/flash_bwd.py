@@ -13,9 +13,9 @@ exactly that term (flash_bwd.py:465-470 there).
 
 Operands as the forward's: any 16-byte row strides; dq, dk and dv come
 back as (b, h, s, d) views of (b, s, h, d) memory on the card. dQ
-accumulates in fp32 by bulk reduce-adds on the card, in an order that
-depends on how the blocks run, so its low bits are not bitwise
-reproducible from run to run; dk and dv are.
+accumulates in fp32 across the key tiles' blocks in a fixed order (a turn
+counter per 16-row slice), so dq, like dk and dv, is bitwise reproducible
+from run to run.
 """
 
 from __future__ import annotations
@@ -69,10 +69,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     _build.require_cuda("flash_attention_bwd", *stats)  # contiguous rows
     check_rows("flash_attention_bwd", out, dout)
     # Scratch: per query row {lse in the log2 domain, di, the dropout row
-    # hash, 0}, rows padded to a multiple of 64, and the fp32 dq sums.
+    # hash, 0}, rows padded to a multiple of 64; the fp32 dq sums followed
+    # by an int32 turn counter per 16-row slice (the kernel zeroes both).
     stats = torch.empty((b, h, -(-sq // 64) * 64, 4), dtype=torch.float32,
                         device=q.device)
-    dq_acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(b * h * (sq * d + -(-sq // 16)),
+                         dtype=torch.float32, device=q.device)
     dq = empty_rows(b, h, sq, q)
     dk, dv = empty_rows(b, h_kv, sk, k), empty_rows(b, h_kv, sk, v)
     code = _build.lib().fattn_flash_bwd(

@@ -92,7 +92,7 @@ def chunk_prefill_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         k, v = k.contiguous(), v.contiguous()
         for r in range(b):
             write_prompt(cache, k[r], v[r], write_tbl[r])
-        ctx = paged_chunk_attention(q.contiguous(), cache.k_pages,
+        ctx = paged_chunk_attention(q, cache.k_pages,
                                     cache.v_pages, total, page_table,
                                     chunk_lens=chunk_lens)
         x = block.finish(x, ctx.reshape(b, C, cfg.n_embd))
@@ -119,7 +119,7 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         # Raw lengths: append_token redirects inactive slots itself.
         append_token(cache, k.contiguous(), v.contiguous(), page_table,
                      lengths)
-        ctx = paged_decode_attention(q.contiguous(), cache.k_pages,
+        ctx = paged_decode_attention(q, cache.k_pages,
                                      cache.v_pages, ctx_len, page_table)
         x = block.finish(x, ctx.reshape(b, cfg.n_embd))
     return model.lm_head(x), caches

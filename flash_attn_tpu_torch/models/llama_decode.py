@@ -80,7 +80,7 @@ def chunk_prefill_step(model: LlamaForCausalLM, cfg: LlamaConfig,
         k, v = k.contiguous(), v.contiguous()
         for r in range(b):
             write_prompt(cache, k[r], v[r], write_tbl[r])
-        ctx = paged_chunk_attention(q.contiguous(), cache.k_pages,
+        ctx = paged_chunk_attention(q, cache.k_pages,
                                     cache.v_pages, total, page_table,
                                     chunk_lens=chunk_lens)
         x = block.finish(x, ctx.flatten(2))
@@ -103,7 +103,7 @@ def decode_step(model: LlamaForCausalLM, cfg: LlamaConfig,
         # Raw lengths: append_token redirects inactive slots itself.
         append_token(cache, k[:, 0].contiguous(), v[:, 0].contiguous(),
                      page_table, lengths)
-        ctx = paged_decode_attention(q[:, 0].contiguous(), cache.k_pages,
+        ctx = paged_decode_attention(q[:, 0], cache.k_pages,
                                      cache.v_pages, ctx_len, page_table)
         x = block.finish(x, ctx.flatten(1)[:, None])
     return model.logits(x[:, 0]), caches
