@@ -28,14 +28,16 @@ at the train shape with dropout 0.1, K8a-c at BS_SHAPES (i), K5 and K6 at
 Llama-3-8B's decode and chunk shapes; each paged shape prints the split
 count the host chose for it.
 It prints ptxas's registers and spills, the dynamic shared memory and the
-HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5 and K6, and
-times both
-paths and every kernel against its twin and, where one exists, a single
-PyTorch call computing the same function (SDPA under each of its flash,
-cuDNN and efficient backends pinned in turn, the fastest reported), all by
-device busy time in a profiler trace (dense_timing.busy_ms), since this
-host issues a call more slowly than the card runs the shortest ones; the
-host's time to issue a kernel call is printed beside. Any failed check raises and
+HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5, K6 and K8b,
+and times both paths and every kernel against its twin and, where one
+exists, a PyTorch call computing the same function (SDPA under each of its
+flash, cuDNN and efficient backends pinned in turn, the fastest reported;
+index_copy_ or index_put_ for the cache writes), all by device busy time
+in a profiler trace (dense_timing.busy_ms), since the host can issue a call
+more slowly than the card runs the shortest ones; the host's time to
+issue a kernel call is printed beside. The step traces (train steps, the
+Llama admission and decode) take the same guard against dropped device
+events (dense_timing.trace_call). Any failed check raises and
 the exit code is nonzero. Without CUDA it exits nonzero
 and prints no result. Output, in order: the card and toolchain, per-phase
 lines, the kernels' JSON line, the card's name and power limit, and as the
@@ -45,6 +47,7 @@ last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -59,7 +62,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dense_timing import busy_ms, device_events, host_ms, trace_call, union_us
+from dense_timing import (
+    busy_ms,
+    device_events,
+    host_ms,
+    k7c_inputs,
+    k8b_inputs,
+    rotating,
+    trace_call,
+    union_us,
+)
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.blocksparse import (
     blocksparse_attention_bwd,
@@ -126,7 +138,7 @@ KERNELS = {
     "append_token": (cache.append_token,
                      "flash_attn_tpu_torch/csrc/cache_write.cu",
                      "flash_attn_tpu/serving/cache.py:94"),
-    "write_pages": (cache.write_prompt,
+    "write_pages": (cache._write_prompts,
                     "flash_attn_tpu_torch/csrc/cache_write.cu",
                     "flash_attn_tpu/serving/cache.py:460"),
     "paged_chunk": (paged_chunk_attention,
@@ -267,7 +279,8 @@ def phase_device():
 # Mangled kernel names of the Hopper kernels the build report covers.
 REPORTED = {"flash_fwd_wgmma": "K1", "flash_bwd_wgmma": "K2",
             "paged_decode_mma": "K5", "paged_decode_f32": "K5",
-            "paged_chunk_wgmma": "K6", "paged_merge_kernel": "K5/K6 merge"}
+            "paged_chunk_wgmma": "K6", "paged_merge_kernel": "K5/K6 merge",
+            "bs_dkv_wgmma": "K8b"}
 
 
 def kernel_label(mangled: str) -> str | None:
@@ -282,16 +295,18 @@ def kernel_label(mangled: str) -> str | None:
 
 
 def phase_build_report():
-    """Evidence of what the Hopper kernels K1, K2, K5 and K6 were built
-    into: ptxas's registers and spills (-Xptxas -v at build), their
+    """Evidence of what the Hopper kernels K1, K2, K5, K6 and K8b were
+    built into: ptxas's registers and spills (-Xptxas -v at build), their
     dynamic shared memory, and, where cuobjdump exists, the HGMMA (wgmma)
-    instructions of K1's, K2's and K6's bf16/fp16 kernels in the SASS."""
+    instructions of K1's, K2's, K6's and K8b's bf16/fp16 kernels in the
+    SASS."""
     lib = _build.lib()
     print("dynamic shared memory: " + ", ".join(
         f"K1 d={d} {lib.fattn_flash_fwd_smem(d)} B, K2 d={d} "
         f"{lib.fattn_flash_bwd_smem(d)} B, K5 d={d} "
         f"{lib.fattn_paged_decode_smem(d)} B, K6 d={d} "
-        f"{lib.fattn_paged_chunk_smem(d)} B" for d in (64, 128)))
+        f"{lib.fattn_paged_chunk_smem(d)} B, K8b d={d} "
+        f"{lib.fattn_blocksparse_dkv_smem(d)} B" for d in (64, 128)))
     log = _build.build_log()
     if log is None:
         print("ptxas report: not measured (the library was not built here)")
@@ -320,7 +335,7 @@ def phase_build_report():
             name = kernel_label(name) if "wgmma" in name else None
         elif name and "HGMMA" in line:
             counts[name] = counts.get(name, 0) + 1
-    check(len(counts) == 12 and all(counts.values()),
+    check(len(counts) == 16 and all(counts.values()),
           f"HGMMA instructions missing from the wgmma kernels: {counts}")
     print("HGMMA instructions in the SASS (cuobjdump): " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
@@ -380,6 +395,23 @@ def phase_kernels(gen):
                  randn(gen, (h, num_pages, ps, d)))
         on_card = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
         plain = cache.PagedKVCache(pages[0].clone(), pages[1].clone())
+        # A chunk of every row of a batch of 8 in one launch (GPT-2's 256
+        # tokens as views of the fused projection, Llama's 512 contiguous, as
+        # chunk_prefill_step passes them): shuffled pages, row 6's list
+        # padded with page 0, row 7 all padding.
+        chunk = 256 if h == 12 else 512
+        per_row = chunk // ps
+        tbl = torch.randperm(64, generator=torch.Generator().manual_seed(d))
+        tbl = (tbl[: 8 * per_row] + 1).reshape(8, per_row).to(torch.int32)
+        tbl[6, per_row // 2:] = 0
+        tbl[7] = 0
+        tbl = tbl.to(DEV)
+        if h == 12:
+            _, kb, vb = randn(gen, (8, chunk, 3, h, d)).unbind(2)
+        else:
+            kb, vb = randn(gen, (8, chunk, h, d)), randn(gen, (8, chunk, h, d))
+        cache._write_prompts(on_card, kb, vb, tbl)
+        cache._write_prompts_plain(plain, kb, vb, tbl)
         # A 700-token prompt: 6 pages (tail zero-filled) plus a scratch
         # entry.
         k, v = randn(gen, (700, h, d)), randn(gen, (700, h, d))
@@ -399,8 +431,9 @@ def phase_kernels(gen):
             check(torch.equal(a[:, 1:], b[:, 1:]),
                   f"cache writes (h_kv={h}, d={d}) differ from the twins in "
                   f"{name} pages")
-        print(f"write_pages + append_token h_kv={h} d={d}: bitwise equal to "
-              "the twins outside page 0")
+        print(f"write_pages (8 rows x {chunk} tokens in one launch, then "
+              f"one 700-token prompt) + append_token h_kv={h} d={d}: bitwise "
+              "equal to the twins outside page 0")
     errs["write_pages"] = errs["append_token"] = 0.0
     return errs
 
@@ -1020,11 +1053,22 @@ def phase_llama(rng):
     print(f"llama decode at batch 8 (contexts {lens.min()}.."
           f"{lens.max() + 20}): {tok_s:.1f} tokens/s, {ms_step:.2f} ms/step "
           f"[{card}]")
-    engine = ServingEngine(model, cfg, **kw)
-    for p in prompts:
-        engine.submit(p, max_new_tokens=1000)
+    held = {}  # the engine of the last admission trace: decoded below
+
+    def fresh():
+        held["engine"] = None  # free the last one's caches first
+        held["engine"] = ServingEngine(model, cfg, **kw)
+        for p in prompts:
+            held["engine"].submit(p, max_new_tokens=1000)
+        return held["engine"]
+
+    wall, _, events = trace_call(lambda eng: eng._admit(), setup=fresh)
+    k7c = [e["dur"] for e in device_events(events)
+           if "write_pages" in e["name"]]
     print(f"llama prefill trace, one admission of 8: "
-          f"{device_summary(*trace_call(engine._admit)[::2])} [{card}]")
+          f"{device_summary(wall, events)}; {len(k7c)} K7c launches, "
+          f"{sum(k7c) / max(len(k7c), 1) / 1e3:.4f} ms each [{card}]")
+    engine = held.pop("engine")
     wall, _, events = trace_call(lambda: [engine.step() for _ in range(4)])
     print(f"llama decode trace, 4 steps at batch 8: "
           f"{device_summary(wall, events)} [{card}]")
@@ -1091,6 +1135,72 @@ def sdpa_bwd(q, k, v, dout, p=0.0, mask=None, wrt="qkv"):
     return make
 
 
+@dataclasses.dataclass
+class TorchCall:
+    """A library yardstick that is a plain PyTorch call, not SDPA:
+    ``label`` names it in the output and ``fn`` runs it."""
+    label: str
+    fn: object
+
+
+def cache_library_calls(pages, prompt, chunks, token, span):
+    """The one PyTorch call per cache (K, then V) that writes what each
+    cache-write kernel writes, with its indices and its sources in the
+    cache's layout made here, outside the timed call: index_copy_ of whole
+    pages for write_pages (on the Llama chunk, each of ``chunks``' input
+    sets in turn, as the kernel is timed), index_put_ of token rows for
+    append_token and append_span. {kernel timing row: TorchCall}."""
+    ps = pages.page_size
+
+    def copy_pages(c, k, v, table):
+        """index_copy_ of row r's (zero-tailed) pages to table[r]."""
+        b, n_pages = table.shape
+        ids = table.reshape(-1).long()
+        src = []
+        for x in (k, v):
+            xp = x.new_zeros((b, n_pages * ps, *x.shape[2:]))
+            xp[:, : x.shape[1]] = x
+            src.append(xp.reshape(b * n_pages, ps, *x.shape[2:])
+                       .permute(2, 0, 1, 3).contiguous())
+        return lambda: (c.k_pages.index_copy_(1, ids, src[0]),
+                        c.v_pages.index_copy_(1, ids, src[1]))
+
+    def put_rows(page_ids, slots, k, v):
+        """index_put_ of (n, h, d) token rows at (page_ids, slots)."""
+        heads = torch.arange(k.shape[1], device=DEV)[:, None]
+        idx = (heads, page_ids, slots)
+        kt, vt = (x.transpose(0, 1).contiguous() for x in (k, v))
+        return TorchCall("index_put_ of token rows, K and V", lambda: (
+            pages.k_pages.index_put_(idx, kt),
+            pages.v_pages.index_put_(idx, vt)))
+
+    kw, vw, ids = prompt
+    nk, nv, tbl8, l8 = token
+    ok = (l8 >= 0) & (l8.long() // ps < tbl8.shape[1])
+    rows = torch.arange(tbl8.shape[0], device=DEV)
+    token_pages = torch.where(
+        ok, tbl8[rows, (l8.long().clamp(min=0) // ps).clamp(
+            max=tbl8.shape[1] - 1)].long(), 0)
+    sk, sv, _, span_lens, span_new = span
+    t = torch.arange(sk.shape[1], device=DEV)
+    pos = span_lens.long()[:, None] + t
+    live = (span_lens[:, None] >= 0) & (t < span_new[:, None]) \
+        & (pos // ps < tbl8.shape[1])
+    b_idx, t_idx = live.nonzero(as_tuple=True)
+    p = pos[b_idx, t_idx]
+    copy_label = "index_copy_ of pages, K and V"
+    return {
+        "write_pages": TorchCall(copy_label, copy_pages(
+            pages, kw[None], vw[None], ids[None])),
+        "write_pages (Llama chunk)": TorchCall(copy_label, rotating(
+            [copy_pages(*inputs) for inputs in chunks])),
+        "append_token": put_rows(token_pages, torch.where(
+            ok, l8.long() % ps, 0), nk, nv),
+        "append_span": put_rows(tbl8[b_idx, p // ps].long(), p % ps,
+                                sk[b_idx, t_idx], sv[b_idx, t_idx]),
+    }
+
+
 def kernel_timing(gen):
     """Each kernel against its twin and, where one exists, a single PyTorch
     call computing the same function, at the main paths' shapes, in turns
@@ -1116,9 +1226,10 @@ def kernel_timing(gen):
     qd, kp, vp, dl, tbl = decode_inputs(gen)
     ql, kl, vl, ll, tl = decode_inputs(gen, "Llama decode")
     qg, kg, vg, lg, tg = decode_inputs(gen, "Llama decode long")
-    pages = cache.init_cache(12, 65, 128, 64, dtype=BF16, device=DEV)
-    kw, vw = randn(gen, (768, 12, 64)), randn(gen, (768, 12, 64))
-    ids = torch.tensor([7, 3, 9, 11, 5, 13], dtype=torch.int32, device=DEV)
+    # K7c on dense_timing's inputs: GPT-2's prompt, and one layer of
+    # Llama-3-8B's chunk (8 rows x 512 tokens into 4 pages each) on four
+    # input sets in turn, 137 MB, so that the timed calls miss L2.
+    (pages, kw, vw, ids), chunks = k7c_inputs(DEV)
     nk, nv = randn(gen, (8, 12, 64)), randn(gen, (8, 12, 64))
     tbl8 = torch.arange(1, 65, dtype=torch.int32, device=DEV).reshape(8, 8)
     l8 = torch.tensor([5, 127, 128, 300, -1, 640, 999, 0], dtype=torch.int32,
@@ -1128,6 +1239,9 @@ def kernel_timing(gen):
     span_lens, span_new = int32(span[0]), int32(span[1])
     written = sum(1 for n, c in zip(*span) if n >= 0 for t in range(c)
                   if (n + t) // 128 < 8)  # tokens append_span stores
+    libs = cache_library_calls(pages, (kw, vw, ids), chunks,
+                               (nk, nv, tbl8, l8),
+                               (sk, sv, tbl8, span_lens, span_new))
 
     specs = {
         # name: (kernel, plain twin, library call or None, bytes, flops)
@@ -1187,17 +1301,24 @@ def kernel_timing(gen):
         "append_token": (
             lambda: cache.append_token(pages, nk, nv, tbl8, l8),
             lambda: cache.append_token_plain(pages, nk, nv, tbl8, l8),
-            None, 2 * nbytes(nk, nv) + nbytes(tbl8, l8), 0),
+            libs["append_token"], 2 * nbytes(nk, nv) + nbytes(tbl8, l8), 0),
         "write_pages": (
             lambda: cache.write_prompt(pages, kw, vw, ids),
             lambda: cache.write_prompt_plain(pages, kw, vw, ids),
-            None, 2 * nbytes(kw, vw) + nbytes(ids), 0),
+            libs["write_pages"], 2 * nbytes(kw, vw) + nbytes(ids), 0),
+        "write_pages (Llama chunk)": (
+            rotating([functools.partial(cache._write_prompts, *inputs)
+                      for inputs in chunks]),
+            rotating([functools.partial(cache._write_prompts_plain, *inputs)
+                      for inputs in chunks]),
+            libs["write_pages (Llama chunk)"],
+            2 * nbytes(*chunks[0][1:3]) + nbytes(chunks[0][3]), 0),
         "append_span": (
             lambda: cache.append_span(pages, sk, sv, tbl8, span_lens,
                                       span_new),
             lambda: cache.append_span_plain(pages, sk, sv, tbl8, span_lens,
                                             span_new),
-            None, 4 * written * 12 * 64 * sk.element_size()
+            libs["append_span"], 4 * written * 12 * 64 * sk.element_size()
             + nbytes(tbl8, span_lens, span_new), 0),
     }
     for shape in CHUNK_SHAPES:
@@ -1221,7 +1342,7 @@ def kernel_timing(gen):
             lambda a=a, one=one: paged_chunk_attention_plain(
                 *a, chunk_lens=one, softmax_scale=a[0].shape[-1] ** -0.5),
             None, *specs[k5][3:])
-    specs.update(bs_timing_specs(gen))
+    specs.update(bs_timing_specs())
     times = {}
     for name, (kern, plain, library, n_bytes, flops) in specs.items():
         p1, k1, k2, p2 = (busy_ms(plain), busy_ms(kern), busy_ms(kern),
@@ -1229,7 +1350,10 @@ def kernel_timing(gen):
         host = host_ms(kern)
         lib_ms = backend = None
         lib = "none"
-        if library is not None:
+        if isinstance(library, TorchCall):
+            lib_ms, backend = busy_ms(library.fn), library.label
+            lib = f"{lib_ms:.4f} ms ({backend})"
+        elif library is not None:
             lib_ms, backend, each = sdpa_fastest(library)
             lib = f"{lib_ms:.4f} ms ({backend}; " + ", ".join(
                 f"{b} {'refused' if t is None else f'{t:.4f}'}"
@@ -1256,8 +1380,14 @@ def kernel_timing(gen):
           "DECODE_SHAPES (GPT-2 decode b=8 h=12 d=64 page 128, lengths "
           "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020; "
           "Llama decode long b=1 h=32/8 d=128, 16384 keys); "
-          "append_token b=8 h=12; write_pages 768 tokens into 6 pages; "
-          "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); "
+          "append_token b=8 h=12; write_pages 768 tokens into 6 pages "
+          "(h=12 d=64) and, as on Llama-3-8B's chunked path, 8 rows x 512 "
+          "tokens into 4 pages each (h_kv=8 d=128) in one launch, each call "
+          "on the next of 4 input sets (137 MB, over the 50 MB L2); "
+          "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); the cache "
+          "writes' library = index_copy_ along the page axis from sources "
+          "already in page layout (write_pages) or index_put_ (append_*), "
+          "one call each for K and V, indices made outside the timed call; "
           "paged_chunk at CHUNK_SHAPES (GPT-2 chunk b=8 sq=256 h=12 d=64, "
           "Llama chunk b=8 sq=512 h=32/8 d=128, verify b=8 sq=5 h=12 d=64) "
           "and at sq=1 on paged_decode's inputs at both DECODE_SHAPES; "
@@ -1327,7 +1457,7 @@ def phase_train(n_steps=6):
 
 
 KERNEL_CLASSES = [  # (class, substrings of the kernel name), first match
-    ("blocksparse (K8)", ("bs_fwd", "bs_dkv", "bs_dq")),
+    ("blocksparse (K8)", ("bs_fwd", "bs_dkv", "bs_dq", "bs_stats")),
     ("flash_bwd (K2)", ("flash_bwd", "bwd_stats", "bwd_dq")),
     ("flash_fwd (K1)", ("flash_fwd",)),
     ("paged_decode (K5)", ("paged_decode",)),
@@ -1698,15 +1828,17 @@ def phase_blocksparse_train_check(batch):
           "from causal attention")
 
 
-def bs_timing_specs(gen):
+def bs_timing_specs():
     """kernel_timing rows of K8a, K8b and K8c at BS_SHAPES (i) and (ii),
-    and of dense K1 and K2 at shape (ii) (at shape (i) they are the train
-    step's rows). Library: SDPA with the element mask as attn_mask, its
-    forward, and its backward for (k, v) and for q."""
+    on dense_timing's inputs, and of dense K1 and K2 at shape (ii) (at
+    shape (i) they are the train step's rows). Library: SDPA with the
+    element mask as attn_mask, its forward, and its backward for (k, v)
+    and for q."""
     specs = {}
+    inputs = k8b_inputs(DEV)
     for shape, suffix in (("(i) GPT-2 train", ""),
                           ("(ii) config 4", " (config 4)")):
-        q, k, v, dout, layout, _, _, p = bs_inputs(gen, shape)
+        q, k, v, dout, layout, p = inputs[shape]
         b, h, s, d = q.shape
         kw = dict(softmax_scale=d ** -0.5, dropout_p=p,
                   seed=SEED if p else None)

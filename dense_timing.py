@@ -1,4 +1,4 @@
-"""Device time of a call on one CUDA card, and the dense kernels' rows.
+"""Device time of a call on one CUDA card, and the redesigned kernels' rows.
 
     python3 dense_timing.py [--repo DIR]
 
@@ -10,11 +10,15 @@ whose host issues a call more slowly than the shortest kernels run, CUDA
 events around back-to-back calls time the host, not the card.
 
 As a script it times the flash_attn_tpu_torch package of the checkout at
-DIR (default: the one holding this file): K1 (flash_attention_fwd) and K2
-(flash_attention_bwd) at the rows of PERF.md's table, each by busy_ms and
-host_ms, and one GPT-2 admission of 8 prompts (9..700 tokens, bucket 768)
-through ServingEngine, traced for K1's device time per launch on the
-serving path, with the median host time of three untraced admissions. To
+DIR (default: the one holding this file): K1 (flash_attention_fwd), K2
+(flash_attention_bwd), K7c (the paged page write, GPT-2's prompt and one
+layer of Llama-3-8B's chunk, the latter on four input sets in turn so that
+it cannot run from L2) and K8b (blocksparse dK, dV) at the rows of
+PERF.md's table, each by busy_ms and host_ms; one GPT-2 admission of 8
+prompts (9..700 tokens, bucket 768) through ServingEngine, traced for K1's
+and K7c's launches and device time, with the median host time of three
+untraced admissions; and one chunked admission of 8 prompts at Llama-3-8B's
+widths cut to 4 layers, traced for K7c's launches and device time. To
 compare two commits by the same method, unpack the other one with `git
 archive` into a git-ignored directory and run both in one session on the
 card (other, this, this, other). Needs a CUDA card; prints one JSON line.
@@ -23,6 +27,8 @@ card (other, this, this, other). Needs a CUDA card; prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import functools
+import itertools
 import json
 import math
 import os
@@ -38,36 +44,88 @@ import torch
 # Seconds of calls before busy_ms traces, to bring the card's clocks up
 # from idle.
 WARM_S = 0.2
-# The profiler range that holds the calls busy_ms measures, and the seconds
-# of calls traced before and after it.
-MEASURED = "busy_ms: measured calls"
+# The profiler range that holds a traced call, and the seconds of padding
+# calls traced before and after it.
+MEASURED = "trace_call: measured call"
 PAD_S = 0.025
+# Traces of one call that trace_call takes before it gives up.
+TRACE_TRIES = 3
+# Input sets that a timed row cycles through, one per call, where one set
+# fits in the card's 50 MB L2: four sets of one Llama chunk layer's write
+# (34 MB each: k, v and the cache) make every call miss L2.
+ROTATE = 4
+# Layers of the Llama-3-8B admission the script traces: K7c's launches and
+# time grow with the depth, so a cut depth shows the change at 1/8 the
+# cost of building the full model.
+LLAMA_LAYERS = 4
 # Host-side calls that put work on the card, by their names in the trace.
 LAUNCHES = ("Launch", "Memset", "Memcpy")
+# Trace event categories of work on the card.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def trace_call(fn, record_shapes=False):
-    """``fn()`` under torch.profiler: (host wall ms, the operator names, the
-    chrome-trace events)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=record_shapes) as prof:
-        t0 = time.perf_counter()
+def _repeat(fn, seconds):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
         fn()
+
+
+def trace_call(fn, record_shapes=False, setup=None, pad=None):
+    """``fn()`` (``fn(setup())`` when ``setup`` is given) under
+    torch.profiler: (host wall ms of the call, ending in a synchronize;
+    the operator names; the chrome-trace events, of which the device
+    events are those of the call's own launches).
+
+    The trace drops device events near its start and end, over a span that
+    grows the longer the process has run (whole calls, after a few minutes
+    of chip_smoke.py). So the call runs inside a profiler range with PAD_S
+    seconds of ``pad()`` calls (default: a one-element add) before and
+    after it in the same trace, its device events are found by the
+    correlation ids of the launches made inside the range, and every one
+    of those launches must have its device event: a trace that misses any
+    is taken again (``setup()`` builds the call's input afresh, outside the
+    trace), and after TRACE_TRIES incomplete traces this raises."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if pad is None:
+        one = torch.zeros(1, device="cuda")
+        pad = functools.partial(one.add_, 1)
+    for _ in range(TRACE_TRIES):
+        arg = setup() if setup is not None else None
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    names = {e.key for e in prof.key_averages()}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return wall, names, events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=record_shapes) as prof:
+            _repeat(pad, PAD_S)
+            with record_function(MEASURED):
+                t0 = time.perf_counter()
+                fn() if setup is None else fn(arg)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            _repeat(pad, PAD_S)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        span = next(e for e in events if e.get("name") == MEASURED
+                    and e.get("cat") == "user_annotation")
+        launched = {e["args"]["correlation"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and any(k in e["name"] for k in LAUNCHES)
+                    and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]}
+        dev = [e for e in events if e.get("cat") in DEVICE_CATS
+               and e["args"].get("correlation") in launched]
+        found = len({e["args"]["correlation"] for e in dev})
+        if launched and found == len(launched):
+            names = {e.key for e in prof.key_averages()}
+            host = [e for e in events if e.get("cat") not in DEVICE_CATS]
+            return wall, names, host + dev
+    raise RuntimeError(f"trace_call: {len(launched)} launches in the traced "
+                       f"call, device events for {found} of them")
 
 
 def device_events(events):
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     if not dev:
         raise RuntimeError("the trace holds no device events")
     return dev
@@ -84,49 +142,13 @@ def union_us(dev) -> float:
 
 def busy_ms(fn, n=10, warm_s=WARM_S) -> float:
     """Device busy time of one call of ``fn`` in ms: the union of the
-    kernel, memcpy and memset intervals of ``n`` calls, over n.
-
-    The calls run after ``warm_s`` seconds of calls, inside a profiler
-    range with PAD_S seconds of calls before and after it in the same
-    trace: the trace drops device events near its start and end, over a
-    span that grows the longer the process has run (over 0.5 ms after a
-    few minutes). The measured calls' device events are found by the
-    correlation ids of the launches made inside the range; every one of
-    those launches must have its device event, else the trace is taken
-    again, and after three incomplete traces this raises."""
-    from torch.profiler import record_function
-
-    def repeat(seconds):
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
-            fn()
-
-    repeat(warm_s)
+    kernel, memcpy and memset intervals of ``n`` calls, over n, after
+    ``warm_s`` seconds of calls, traced by ``trace_call`` padded with calls
+    of ``fn`` itself (every launch matched to its device event)."""
+    _repeat(fn, warm_s)
     torch.cuda.synchronize()
-
-    def calls():
-        repeat(PAD_S)
-        with record_function(MEASURED):
-            for _ in range(n):
-                fn()
-        repeat(PAD_S)
-
-    for _ in range(3):
-        _, _, events = trace_call(calls)
-        span = next(e for e in events if e.get("name") == MEASURED
-                    and e.get("cat") == "user_annotation")
-        launched = {e["args"]["correlation"] for e in events
-                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                    and any(k in e["name"] for k in LAUNCHES)
-                    and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]}
-        dev = [e for e in device_events(events)
-               if e["args"].get("correlation") in launched]
-        if launched and len({e["args"]["correlation"] for e in dev}) \
-                == len(launched):
-            return union_us(dev) / 1e3 / n
-    raise RuntimeError(
-        f"busy_ms: {len(launched)} launches in the measured range, device "
-        f"events for {len({e['args']['correlation'] for e in dev})} of them")
+    _, _, events = trace_call(lambda: [fn() for _ in range(n)], pad=fn)
+    return union_us(device_events(events)) / 1e3 / n
 
 
 def host_ms(fn, n=20, warmup=3) -> float:
@@ -144,14 +166,16 @@ def host_ms(fn, n=20, warmup=3) -> float:
     return dt / n * 1e3
 
 
+def bf16_randn(gen, *shape):
+    return torch.randn(shape, generator=gen, device=gen.device).to(
+        torch.bfloat16)
+
+
 def dense_rows(fwd, bwd, dev):
     """{row: call} for K1 and K2 at PERF.md's rows, on contiguous bf16
     (b, h, s, d) inputs from torch.Generator seed 0."""
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-
+    randn = functools.partial(bf16_randn, gen)
     rows = {}
     q, k, v = (randn(8, 12, 768, 64) for _ in range(3))
     rows["K1 serving bucket b8 h12 s768 d64"] = lambda: fwd(
@@ -177,10 +201,98 @@ def dense_rows(fwd, bwd, dev):
     return rows
 
 
+def rotating(calls):
+    """A call that runs the next of ``calls`` each time."""
+    turn = itertools.cycle(calls)
+    return lambda: next(turn)()
+
+
+def k7c_inputs(dev):
+    """K7c's inputs at PERF.md's rows, bf16 from torch.Generator seed 0:
+    GPT-2's prompt (cache, k, v, page ids: 768 tokens into 6 pages, h 12,
+    d 64), and ROTATE sets of one layer of Llama-3-8B's chunk (cache, k, v,
+    page table: 8 rows x 512 tokens into 4 pages each, h_kv 8, d 128)."""
+    from flash_attn_tpu_torch.serving import cache
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gpt2 = (cache.init_cache(12, 65, 128, 64, dtype=torch.bfloat16,
+                             device=dev),
+            bf16_randn(gen, 768, 12, 64), bf16_randn(gen, 768, 12, 64),
+            torch.tensor([7, 3, 9, 11, 5, 13], dtype=torch.int32, device=dev))
+    tbl = (torch.randperm(32, generator=torch.Generator().manual_seed(1))
+           + 1).reshape(8, 4).to(dev, torch.int32)
+    llama = [(cache.init_cache(8, 33, 128, 128, dtype=torch.bfloat16,
+                               device=dev),
+              bf16_randn(gen, 8, 512, 8, 128), bf16_randn(gen, 8, 512, 8, 128),
+              tbl) for _ in range(ROTATE)]
+    return gpt2, llama
+
+
+def k8b_inputs(dev):
+    """{shape: (q, k, v, dout, layout, dropout_p)} at chip_smoke.py's
+    BS_SHAPES (i) and (ii), bf16 (b, h, s, d): (i) from torch.Generator
+    seed 0, (ii) config 4's q, k, v and 25% cell mask from numpy's
+    default_rng(0), as the benchmark draws them."""
+    from flash_attn_tpu_torch.kernels.blocksparse import build_layout
+    from flash_attn_tpu_torch.models.blocksparse_modules import (
+        LocalGlobalSparsityConfig,
+    )
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    inputs = {}
+    for shape, b, h, s, p in (("(i) GPT-2 train", 8, 12, 1024, 0.1),
+                              ("(ii) config 4", 1, 8, 8192, 0.0)):
+        if p:
+            bm = LocalGlobalSparsityConfig(window=256).make_layout(s)
+            q, k, v = (bf16_randn(gen, b, h, s, 64) for _ in range(3))
+        else:
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (b, s, h, 64))).to(dev, torch.bfloat16).transpose(1, 2)
+                .contiguous() for _ in range(3))
+            bm = rng.random((s // 16, s // 256)) < 0.25
+        layout = build_layout(bm, sq=s, sk=s, causal=True)
+        inputs[shape] = (q, k, v, bf16_randn(gen, b, h, s, 64), layout, p)
+    return inputs
+
+
+def k7c_k8b_rows(dev):
+    """{row: call} for K7c (the paged page write) and K8b (blocksparse dK,
+    dV) on k7c_inputs and k8b_inputs. The Llama chunk row writes the 8 rows
+    of one layer's chunk as the checkout's chunked prefill does (one
+    batched launch, or one write_prompt per row where the checkout has no
+    batched write), on the next of its ROTATE input sets each call."""
+    from flash_attn_tpu_torch.kernels.blocksparse import (
+        blocksparse_attention_dkv,
+        blocksparse_attention_fwd,
+    )
+    from flash_attn_tpu_torch.serving import cache
+    gpt2, llama = k7c_inputs(dev)
+    rows = {"K7c GPT-2 prompt, 768 tokens into 6 pages, h12 d64":
+            functools.partial(cache.write_prompt, *gpt2)}
+
+    def per_row(pages, k, v, tbl):
+        for r in range(k.shape[0]):
+            cache.write_prompt(pages, k[r], v[r], tbl[r])
+    write = getattr(cache, "_write_prompts", per_row)
+    rows[f"K7c Llama chunk, 8 rows x 512 tokens, h_kv8 d128, one layer, "
+         f"{ROTATE} input sets in turn"] = rotating(
+        [functools.partial(write, *inputs) for inputs in llama])
+    for shape, (q, k, v, dout, layout, p) in k8b_inputs(dev).items():
+        b, h, s, d = q.shape
+        kw = dict(softmax_scale=d ** -0.5, dropout_p=p,
+                  seed=1234 if p else None)
+        out, lse = blocksparse_attention_fwd(q, k, v, layout, **kw)
+        di = (out.float() * dout.float()).sum(-1)
+        rows[f"K8b {shape} b{b} h{h} s{s} d{d}, dropout {p}"] = (
+            lambda a=(q, k, v, dout, lse, di, layout), kw=kw:
+                blocksparse_attention_dkv(*a, **kw))
+    return rows
+
+
 def serve_admission(dev):
-    """K1's launches and device ms per launch in one traced GPT-2 admission
-    of 8 prompts, the admission's device busy ms, and the median host ms
-    of three untraced admissions (time to first token)."""
+    """K1's launches and device ms per launch and K7c's launches and device
+    ms in one traced GPT-2 admission of 8 prompts, the admission's device
+    busy ms, and the median host ms of three untraced admissions (time to
+    first token)."""
     from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
     from flash_attn_tpu_torch.serving.engine import ServingEngine
     cfg = GPT2Config(param_dtype=torch.bfloat16)
@@ -206,16 +318,63 @@ def serve_admission(dev):
         eng._admit()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    _, _, events = trace_call(engine()._admit)
+    _, _, events = trace_call(lambda eng: eng._admit(), setup=engine)
     dev_events = device_events(events)
     k1 = [e["dur"] for e in dev_events if "flash_fwd" in e["name"]]
+    k7c = [e["dur"] for e in dev_events if "write_pages" in e["name"]]
     copies = sum(e["dur"] for e in dev_events
                  if "copy" in (e.get("cat", "") + e["name"]).lower())
     return {"k1_launches": len(k1),
             "k1_ms_per_launch": sum(k1) / max(len(k1), 1) / 1e3,
+            "k7c_launches": len(k7c), "k7c_ms": sum(k7c) / 1e3,
             "busy_ms": union_us(dev_events) / 1e3,
             "copies_ms": copies / 1e3,
             "ttft_ms_median": statistics.median(walls)}
+
+
+def llama_admission(dev):
+    """K7c's launches and device ms, and the device busy ms, of one traced
+    chunked admission of 8 prompts (300..4000 tokens, chunks of 512) at
+    Llama-3-8B's widths (meta-llama/Meta-Llama-3-8B config.json) cut to
+    LLAMA_LAYERS layers, bf16, random weights from seed 0."""
+    from flash_attn_tpu_torch.models import llama_decode
+    from flash_attn_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from flash_attn_tpu_torch.serving.engine import ServingEngine
+    cfg = LlamaConfig(
+        vocab_size=128256, n_layer=LLAMA_LAYERS, n_embd=4096, n_head=32,
+        n_kv_head=8, intermediate_size=14336, rope_theta=500000.0,
+        max_position_embeddings=8192, rms_norm_eps=1e-5,
+        dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = LlamaForCausalLM(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in np.linspace(300, 4000, 8).astype(int)]
+    held = {}
+
+    def engine():
+        held["engine"] = None  # free the last one's caches first
+        held["engine"] = ServingEngine(
+            model, cfg, model_fns=llama_decode, max_batch=8, page_size=128,
+            pages_per_seq=32, num_pages=8 * 32 + 1, prefill_chunk=512)
+        for p in prompts:
+            held["engine"].submit(p, max_new_tokens=1000)
+        torch.cuda.synchronize()
+        return held["engine"]
+
+    engine()._admit()  # cuBLAS handles, the allocator
+    _, _, events = trace_call(lambda eng: eng._admit(), setup=engine)
+    dev_events = device_events(events)
+    k7c = [e["dur"] for e in dev_events if "write_pages" in e["name"]]
+    busy = union_us(dev_events)
+    return {"n_layer": LLAMA_LAYERS, "k7c_launches": len(k7c),
+            "k7c_ms": sum(k7c) / 1e3,
+            "k7c_ms_per_launch": sum(k7c) / max(len(k7c), 1) / 1e3,
+            "k7c_share": sum(k7c) / sum(e["dur"] for e in dev_events),
+            "busy_ms": busy / 1e3}
 
 
 def main():
@@ -240,8 +399,8 @@ def main():
     _build.lib()
     build_s = time.perf_counter() - t0
     rows = {}
-    for name, fn in dense_rows(flash_attention_fwd, flash_attention_bwd,
-                               dev).items():
+    for name, fn in {**dense_rows(flash_attention_fwd, flash_attention_bwd,
+                                  dev), **k7c_k8b_rows(dev)}.items():
         rows[name] = {"busy_ms": [busy_ms(fn, warm_s=warm_s),
                                   busy_ms(fn, warm_s=warm_s)],
                       "host_ms": host_ms(fn)}
@@ -250,12 +409,16 @@ def main():
               f"{rows[name]['host_ms']:.4f} ms per call", flush=True)
     admission = serve_admission(dev)
     print(f"GPT-2 admission of 8: {admission}")
+    llama = llama_admission(dev)
+    print(f"Llama-3-8B widths, {llama['n_layer']} layers, chunked admission "
+          f"of 8: {llama}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"repo": repo, "card": card, "warm_s": warm_s,
                       "build_s": build_s,
-                      "rows": rows, "admission": admission}))
+                      "rows": rows, "admission": admission,
+                      "llama_admission": llama}))
 
 
 if __name__ == "__main__":

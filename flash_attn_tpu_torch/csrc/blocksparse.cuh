@@ -30,7 +30,7 @@ namespace fattn {
 
 constexpr int kTileQ = 64;  // query rows per layout tile
 constexpr int kTileK = 64;  // keys per layout tile
-constexpr int kMmaThreads = 128;  // four warps: the bf16 / fp16 kernels' block
+constexpr int kMmaThreads = 128;  // four warps: K8a and K8c's bf16 / fp16 block
 
 // Operands are read and written through Strides (csrc/common.cuh), so
 // the kernels take the op's (b, s, h, d) tensors and the packed qkv's q, k
@@ -52,6 +52,7 @@ struct BsParams {
   const int* cnt;
   const int* full;
   const uint8_t* rowmask;  // (sq_pad, ncells): 1 = the row's cell is live
+  const uint8_t* rowmask_t;  // K8b: the same, transposed (ncells, sq_pad)
   const uint8_t* q_valid;  // (b, sq) or nullptr
   const uint8_t* k_valid;  // (b, sk) or nullptr
   int h, sq, sk, max_n, ncells;

@@ -7,7 +7,8 @@
 // split in two kernels, so that neither needs atomics: K8b walks, for each kv
 // tile, the transposed list of its live q tiles and holds dK and dV in
 // registers; K8c walks, for each q tile, its list of live kv tiles and holds
-// dQ. So dQ, unlike K2's (csrc/flash_bwd.cu), is deterministic. Both rebuild
+// dQ. So neither needs K2's turn counters (csrc/flash_bwd.cu) to be
+// deterministic. Both rebuild
 // the probabilities p = exp(scale * q.k - lse) from the forward's lse, with
 // the visibility of csrc/blocksparse.cuh (full tiles skip the cell and causal
 // masks; key padding applies on every tile) and the dropout hash of K1/K2:
@@ -19,21 +20,33 @@
 // Layout: q, dout, dq (b, h, sq, d); k, v, dk, dv (b, h, sk, d), each with
 // its own strides (csrc/common.cuh Strides); lse and di (b, h, sq) fp32
 // contiguous; MHA.
-//   - bf16 / fp16, mma.sync m16n8k16 (csrc/mma.cuh):
-//     K8b: K2's design without dQ: four warps own 16 keys each of the 64-key
-//     tile, S^T = K Q^T and dP^T = V dO^T feed dV += P^T dO and dK += dS^T Q
-//     from registers. A 64-row q tile is taken whole at d = 64 and as two
-//     halves at d = 128 (48 KB of static shared memory).
-//     K8c: K1's design: four warps own 16 rows each with Q and dO as A
-//     fragments in registers; S = Q K^T and dP = dO V^T, then dQ += dS K with
-//     dS from the C fragments.
+//   - K8b, bf16 / fp16 (bs_dkv_wgmma_kernel): K2's K/V-stationary design
+//     (csrc/flash_bwd.cu) without dQ, one warpgroup per 64-key tile. K and V
+//     are loaded once by TMA; the Q and dO tiles of the kv tile's live q-tile
+//     list, with their row stats (bs_stats_kernel: lse in the log2 domain
+//     with the row's padding folded in, di, the dropout row hash; one 1 KB
+//     record per tile), stream by TMA through a ring of 3 (d = 64) or 2
+//     (d = 128) stages with mbarriers, the list entry as the box's row
+//     coordinate. S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 from
+//     shared memory, in two groups so p is computed while dP^T runs; dV +=
+//     P^T dO and dK += dS^T Q by register-A wgmma reading dO and Q as stored.
+//     Only partial tiles (or any tile under key padding) test elements,
+//     their rows' cell bits copied beside the stats (64 bytes of the
+//     transposed rowmask). A kv tile's list differs from its neighbour's,
+//     so a block holds one tile: 128 threads, three blocks to an SM at
+//     d = 64 (168 registers) and two at d = 128 (by shared memory).
+//   - K8c, bf16 / fp16, mma.sync m16n8k16 (csrc/mma.cuh): K1's design: four
+//     warps own 16 rows each with Q and dO as A fragments in registers;
+//     S = Q K^T and dP = dO V^T, then dQ += dS K with dS from the C
+//     fragments. Plain loads into one buffer (wgmma and a ring are later
+//     work, ROADMAP K-a3).
 //   - fp32: 16 keys (K8b) or 16 rows (K8c) per block, FMA on the CUDA cores.
 // Bound: tensor-core operations. Per visible (q, k) pair and head the
 // backward needs 5 products, 10 * d operations; split as here it takes 14
-// (K8b 8: S, dP, dV, dK; K8c 6: S, dP, dQ). Plain loads into one buffer, as
-// in K2; pipelining and wgmma are later work.
+// (K8b 8: S, dP, dV, dK; K8c 6: S, dP, dQ).
 #include "blocksparse.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace fattn {
@@ -41,148 +54,227 @@ namespace {
 
 // ------------------------------------------------------------- K8b: dK, dV
 
-// In the transposed tiles S^T and dP^T a thread's C element [nb][e] is key
-// (warp * 16 + g + 8 * (e >> 1)) and query (nb * 8 + 2 * t + (e & 1)).
-template <typename T, int D, int kBlockM>
-__global__ void __launch_bounds__(kMmaThreads) bs_dkv_mma_kernel(const BsParams p) {
-  constexpr int kStrideD = D + 8;
-  __shared__ __align__(16) uint16_t k_s[kTileK * kStrideD];
-  __shared__ __align__(16) uint16_t q_s[kBlockM * kStrideD];
-  __shared__ __align__(16) uint16_t do_s[kBlockM * kStrideD];
-  __shared__ float lse_s[kBlockM];  // log2 domain; +inf: the row sees nothing
-  __shared__ float di_s[kBlockM];
-  __shared__ uint32_t rh_s[kBlockM];  // row halves of the dropout hash
-  __shared__ bool rok_s[kBlockM];     // the row is real and unpadded
-  __shared__ bool cell_s[kBlockM];    // the row's cell at this kv tile
+// The row stats the wgmma kernel streams beside each Q tile: one float4 per
+// (b, h, row < sq_pad), {lse * log2(e), 0, di, the dropout row hash} (di and
+// the hash as one 8-byte load). The first is +inf (so p = exp2(s - inf) = 0) where the row sees nothing (lse =
+// -inf), is padded (q_valid) or lies past sq: the row terms of the
+// visibility, folded in once per row instead of tested per element.
+__global__ void __launch_bounds__(256)
+    bs_stats_kernel(const BsParams p, float4* stats, int sq_pad, int rows) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const int bh = i / sq_pad, row = i % sq_pad;
+  float4 out = make_float4(INFINITY, 0.f, 0.f, 0.f);
+  if (row < p.sq) {
+    const float l = p.lse[(size_t)bh * p.sq + row];
+    if (l != -INFINITY && bs_row_ok(p, bh / p.h, row)) out.x = l * kLog2e;
+    out.z = p.di[(size_t)bh * p.sq + row];
+    out.w = __uint_as_float(
+        p.drop.on() ? hash_row(p.drop.seed, (uint32_t)bh, row) : 0u);
+  }
+  stats[i] = out;
+}
 
+constexpr int kDkvThreads = 128;  // one warpgroup owns the kv tile's 64 keys
+
+template <int D>
+struct DkvLayout {
+  static constexpr int kStages = D == 64 ? 3 : 2;  // 69 KB / 100 KB
+  // Three blocks to an SM at d = 64 (168 registers a thread), one at 128.
+  static constexpr int kMinBlocks = D == 64 ? 3 : 1;
+  static constexpr int kKV = kTileK * D;            // elements of K or V
+  static constexpr int kQ = kTileQ * D;             // of a Q or dO tile
+  // K, V, the Q and dO rings (16-bit); the row stats and cell bits rings;
+  // kStages + 1 mbarriers; alignment.
+  static constexpr int kBytes = 2 * (2 * kKV + 2 * kStages * kQ) +
+                                17 * kStages * kTileQ + 8 * (kStages + 1) +
+                                1024;
+};
+
+// One block per (kv tile, head, batch). In the transposed tiles S^T and
+// dP^T a thread's accumulator element [4 nb + e] is key key0 + 8 (e >> 1)
+// and query nb * 8 + 2t + (e & 1) of the q tile (csrc/hopper.cuh).
+template <typename T, int D>
+__global__ void __launch_bounds__(kDkvThreads, DkvLayout<D>::kMinBlocks)
+    bs_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const BsParams p, const float4* stats, int sq_pad) {
+  using L = DkvLayout<D>;
+  constexpr int kStages = L::kStages;
   const int ik = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int n0 = ik * kTileK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int key0 = n0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-  const size_t bh = (size_t)bb * p.h + hh;
-  const uint16_t* k = bs_rows<uint16_t>(p, p.k, kOpK, bb, hh);
-  const uint16_t* v = bs_rows<uint16_t>(p, p.v, kOpV, bb, hh);
-  const uint16_t* q = bs_rows<uint16_t>(p, p.q, kOpQ, bb, hh);
-  const uint16_t* dout = bs_rows<uint16_t>(p, p.dout, kOpDO, bb, hh);
-  const long long ks = p.st[kOpK].s, vs = p.st[kOpV].s;
-  const long long qs = p.st[kOpQ].s, dos = p.st[kOpDO].s;
-  const float* lse = p.lse + bh * p.sq;
-  const float* di = p.di + bh * p.sq;
-
-  constexpr int kVecPerRow = D / 8;  // 16-byte vectors
-  #pragma unroll
-  for (int i = threadIdx.x; i < kTileK * kVecPerRow; i += kMmaThreads) {
-    const int r = i / kVecPerRow, c = (i % kVecPerRow) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (n0 + r < p.sk) x = *reinterpret_cast<const uint4*>(k + (n0 + r) * ks + c);
-    *reinterpret_cast<uint4*>(k_s + r * kStrideD + c) = x;
-  }
-  // V rows of this warp's keys as A fragments, for dP^T = V dO^T.
-  auto v_pair = [&](int key, int col) -> uint32_t {
-    return key < p.sk ? ld_pair(v + key * vs + col) : 0u;
-  };
-  uint32_t va[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    va[kk][0] = v_pair(key0, kk * 16 + 2 * t);
-    va[kk][1] = v_pair(key0 + 8, kk * 16 + 2 * t);
-    va[kk][2] = v_pair(key0, kk * 16 + 8 + 2 * t);
-    va[kk][3] = v_pair(key0 + 8, kk * 16 + 8 + 2 * t);
-  }
-  const bool kok[2] = {bs_key_ok(p, bb, key0), bs_key_ok(p, bb, key0 + 8)};
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-  }
-
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = n0 + warp * 16 + g;  // this thread's keys: +0, +8
   const int n = p.cnt[ik];
-  for (int j = 0; j < n; ++j) {
-    const int tile0 = p.idx[ik * p.max_n + j] * kTileQ;
-    const bool full = p.full[ik * p.max_n + j] != 0;
-    for (int m0 = tile0; m0 < tile0 + kTileQ && m0 < p.sq; m0 += kBlockM) {
-      __syncthreads();  // the previous rows' q_s, do_s are read
-      #pragma unroll
-      for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kMmaThreads) {
-        const int r = i / kVecPerRow, c = (i % kVecPerRow) * 8;
-        uint4 qv = make_uint4(0u, 0u, 0u, 0u), dv4 = qv;
-        if (m0 + r < p.sq) {
-          qv = *reinterpret_cast<const uint4*>(q + (m0 + r) * qs + c);
-          dv4 = *reinterpret_cast<const uint4*>(dout + (m0 + r) * dos + c);
-        }
-        *reinterpret_cast<uint4*>(q_s + r * kStrideD + c) = qv;
-        *reinterpret_cast<uint4*>(do_s + r * kStrideD + c) = dv4;
-      }
-      for (int i = threadIdx.x; i < kBlockM; i += blockDim.x) {
-        const int row = m0 + i;
-        const float l = row < p.sq ? lse[row] : -INFINITY;
-        lse_s[i] = l == -INFINITY ? INFINITY : l * kLog2e;
-        di_s[i] = row < p.sq ? di[row] : 0.f;
-        rh_s[i] = p.drop.on() ? hash_row(p.drop.seed, (uint32_t)bh, row) : 0u;
-        rok_s[i] = bs_row_ok(p, bb, row);
-        cell_s[i] = !full && bs_cell_on(p, row, n0);
-      }
-      __syncthreads();
 
-      float s[kBlockM / 8][4], dp[kBlockM / 8][4];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int nb = 0; nb < kBlockM / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (n > 0) {
+    extern __shared__ uint8_t smem_raw[];
+    uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_aligned(smem_raw));
+    uint16_t* v_s = k_s + L::kKV;
+    uint16_t* q_s = v_s + L::kKV;  // stage s at + s * L::kQ
+    uint16_t* do_s = q_s + kStages * L::kQ;
+    float4* stats_s = reinterpret_cast<float4*>(do_s + kStages * L::kQ);
+    uint8_t* cells_s = reinterpret_cast<uint8_t*>(stats_s + kStages * kTileQ);
+    uint64_t* full = reinterpret_cast<uint64_t*>(cells_s + kStages * kTileQ);
+    uint64_t* kv_full = full + kStages;
+    const int* tiles = p.idx + (size_t)ik * p.max_n;  // live q tiles
+    const int* fulls = p.full + (size_t)ik * p.max_n;
+    const float4* stats_bh = stats + (size_t)(bb * p.h + hh) * sq_pad;
+    // The rows' bits of this tile's cell column.
+    const uint8_t* cells_col = p.rowmask_t + (size_t)(n0 >> 8) * sq_pad;
+
+    // Q, dO, the row stats and the cell bits of list entry j into ring
+    // stage j % kStages: the entry is the TMA box's row coordinate.
+    auto load_step = [&](int j) {
+      const int s = j % kStages;
+      const int m0 = tiles[j] * kTileQ;
+      mbar_arrive_expect_tx(&full[s], 2 * 2 * L::kQ + 17 * kTileQ);
+      for (int c = 0; c < D / 64; ++c) {
+        const int off = s * L::kQ + c * kTileQ * 64;
+        tma_load_4d(q_s + off, &map_q, &full[s], c * 64, m0, hh, bb);
+        tma_load_4d(do_s + off, &map_do, &full[s], c * 64, m0, hh, bb);
+      }
+      bulk_load(stats_s + s * kTileQ, stats_bh + m0, 16 * kTileQ, &full[s]);
+      bulk_load(cells_s + s * kTileQ, cells_col + m0, kTileQ, &full[s]);
+    };
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+      mbar_init(kv_full, 1);
+      mbar_fence_init();
+      mbar_arrive_expect_tx(kv_full, 2 * 2 * L::kKV);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(k_s + c * kTileK * 64, &map_k, kv_full, c * 64, n0, hh, bb);
+        tma_load_4d(v_s + c * kTileK * 64, &map_v, kv_full, c * 64, n0, hh, bb);
+      }
+      for (int j = 0; j < kStages && j < n; ++j) load_step(j);
+    }
+    __syncthreads();
+
+    const bool kok[2] = {bs_key_ok(p, bb, key0), bs_key_ok(p, bb, key0 + 8)};
+    const bool pad_keys = p.k_valid != nullptr;  // tested on every tile (C9)
+    const uint32_t k_base = smem_u32(k_s), v_base = smem_u32(v_s);
+    const uint32_t q_base = smem_u32(q_s), do_base = smem_u32(do_s);
+    mbar_wait(kv_full, 0);
+
+    for (int j = 0; j < n; ++j) {
+      const int s = j % kStages;
+      const int m0 = tiles[j] * kTileQ;
+      const bool full_tile = fulls[j] != 0;
+      const float4* st_t = stats_s + s * kTileQ;
+      const uint8_t* cells_t = cells_s + s * kTileQ;
+      const uint32_t qb = opaque(q_base) + s * L::kQ * 2;
+      const uint32_t dob = opaque(do_base) + s * L::kQ * 2;
+      mbar_wait(&full[s], (j / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries, as two groups
+      // so p can start while dP^T runs.
+      float st[kTileQ / 2], dpt[kTileQ / 2];
+      {
+        const uint32_t kb = opaque(k_base), vb = opaque(v_base);
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint16_t* kr = k_s + (warp * 16 + g) * kStrideD + kk * 16 + 2 * t;
-          const uint32_t ka[4] = {ld_pair(kr), ld_pair(kr + 8 * kStrideD),
-                                  ld_pair(kr + 8), ld_pair(kr + 8 * kStrideD + 8)};
-          const uint16_t* qr = q_s + (nb * 8 + g) * kStrideD + kk * 16 + 2 * t;
-          Mma<T>::run(s[nb], ka, ld_pair(qr), ld_pair(qr + 8));
-          const uint16_t* dr = do_s + (nb * 8 + g) * kStrideD + kk * 16 + 2 * t;
-          Mma<T>::run(dp[nb], va[kk], ld_pair(dr), ld_pair(dr + 8));
+          const int c = kk / 4, step = (kk % 4) * 32;
+          Wgmma<T, kTileQ>::template ss<0, 0>(
+              st, sw128_desc(kb + c * kTileK * 128 + step, 16, 1024),
+              sw128_desc(qb + c * kTileQ * 128 + step, 16, 1024), kk > 0);
         }
-      }
-
-      // s <- dropped, rescaled p (for dV); dp <- dS = p * (dP - di).
+        wgmma_commit();
 #pragma unroll
-      for (int nb = 0; nb < kBlockM / 8; ++nb) {
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int c = kk / 4, step = (kk % 4) * 32;
+          Wgmma<T, kTileQ>::template ss<0, 0>(
+              dpt, sw128_desc(vb + c * kTileK * 128 + step, 16, 1024),
+              sw128_desc(dob + c * kTileQ * 128 + step, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      // st <- p (pre-dropout). The row terms are in the stats' lse; only
+      // partial tiles, or any tile under key padding, test elements.
+      const bool test = !full_tile || pad_keys;
+#pragma unroll
+      for (int nb = 0; nb < kTileQ / 8; ++nb) {
+        const int ql = nb * 8 + 2 * t;
+        const float lse2[2] = {st_t[ql].x, st_t[ql + 1].x};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int ql = nb * 8 + 2 * t + (e & 1);
-          const int col = key0 + 8 * (e >> 1);
-          const bool vis = bs_visible(p, full, cell_s[ql], rok_s[ql], kok[e >> 1], m0 + ql, col);
-          const float pv = vis ? exp2f(s[nb][e] * p.scale_log2 - lse_s[ql]) : 0.f;
-          float pd = pv * p.drop.rp, dpd = dp[nb][e] * p.drop.rp;
-          if (p.drop.on() && !keep_elem(rh_s[ql], col, p.drop.threshold)) pd = dpd = 0.f;
-          s[nb][e] = pd;
-          dp[nb][e] = pv * (dpd - di_s[ql]);
+          float pv = fast_exp2(fmaf(st[4 * nb + e], p.scale_log2, -lse2[e & 1]));
+          if (test) {
+            const bool vis =
+                kok[e >> 1] &&
+                (full_tile ||
+                 (cells_t[ql + (e & 1)] != 0 &&
+                  key_visible(m0 + ql + (e & 1), key0 + 8 * (e >> 1), p.sk,
+                              p.causal)));
+            if (!vis) pv = 0.f;
+          }
+          st[4 * nb + e] = pv;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // st <- dropped, rescaled p (for dV); dpt <- dS = p * (dP - di).
+#pragma unroll
+      for (int nb = 0; nb < kTileQ / 8; ++nb) {
+        const int ql = nb * 8 + 2 * t;
+        // {di, row hash} of rows ql and ql + 1.
+        const float2 r0 = reinterpret_cast<const float2*>(st_t + ql)[1];
+        const float2 r1 = reinterpret_cast<const float2*>(st_t + ql + 1)[1];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2& r = (e & 1) ? r1 : r0;
+          const float pv = st[4 * nb + e];
+          float pd = pv * p.drop.rp, dpd = dpt[4 * nb + e] * p.drop.rp;
+          if (p.drop.on() && !keep_elem(__float_as_uint(r.y),
+                                        key0 + 8 * (e >> 1),
+                                        p.drop.threshold)) {
+            pd = dpd = 0.f;
+          }
+          st[4 * nb + e] = pd;
+          dpt[4 * nb + e] = pv * (dpd - r.x);
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q, A operands straight from registers.
+      // dV += P^T dO and dK += dS^T Q: A from registers (keys x 16 queries,
+      // two query n-blocks each), B read as stored.
+      uint32_t pa[kTileQ / 16][4], dsa[kTileQ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBlockM / 16; ++kk) {
-        const uint32_t pa[4] = {
-            Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-            Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-            Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
-        const uint32_t dsa[4] = {
-            Mma<T>::pack(dp[2 * kk][0], dp[2 * kk][1]),
-            Mma<T>::pack(dp[2 * kk][2], dp[2 * kk][3]),
-            Mma<T>::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-            Mma<T>::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3]),
-        };
+      for (int kk = 0; kk < kTileQ / 16; ++kk) {
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          const int off = (kk * 16 + 2 * t) * kStrideD + dn * 8 + g;
-          Mma<T>::run(dv[dn], pa, ld_col_pair(do_s + off, kStrideD),
-                      ld_col_pair(do_s + off + 8 * kStrideD, kStrideD));
-          Mma<T>::run(dk[dn], dsa, ld_col_pair(q_s + off, kStrideD),
-                      ld_col_pair(q_s + off + 8 * kStrideD, kStrideD));
+        for (int i = 0; i < 4; ++i) {
+          pa[kk][i] = Mma<T>::pack(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+          dsa[kk][i] =
+              Mma<T>::pack(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
         }
       }
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileQ / 16; ++kk) {
+        Wgmma<T, D>::template rs<1>(
+            dv, pa[kk], sw128_desc(dob + kk * 16 * 128, kTileQ * 128, 1024), 1);
+        Wgmma<T, D>::template rs<1>(
+            dk, dsa[kk], sw128_desc(qb + kk * 16 * 128, kTileQ * 128, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pa);
+      fence_regs(dsa);
+      fence_regs(dv);
+      fence_regs(dk);
+      // Every thread is done with the stage's Q, dO and row stats.
+      __syncthreads();
+      if (tid == 0 && j + kStages < n) load_step(j + kStages);
     }
   }
 
@@ -193,12 +285,13 @@ __global__ void __launch_bounds__(kMmaThreads) bs_dkv_mma_kernel(const BsParams 
     const int key = key0 + 8 * r;
     if (key >= p.sk) continue;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const int c = dn * 8 + 2 * t;
+    for (int nb = 0; nb < D / 8; ++nb) {
+      const int c = nb * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dk_out + key * p.st[kOpDK].s + c) =
-          Mma<T>::pack(dk[dn][2 * r] * p.scale, dk[dn][2 * r + 1] * p.scale);
+          Mma<T>::pack(dk[nb * 4 + 2 * r] * p.scale,
+                       dk[nb * 4 + 2 * r + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(dv_out + key * p.st[kOpDV].s + c) =
-          Mma<T>::pack(dv[dn][2 * r], dv[dn][2 * r + 1]);
+          Mma<T>::pack(dv[nb * 4 + 2 * r], dv[nb * 4 + 2 * r + 1]);
     }
   }
 }
@@ -527,24 +620,52 @@ __global__ void __launch_bounds__(256) bs_dq_f32_kernel(const BsParams p) {
   for (int i = 0; i < kPer; ++i) dq[j16 + 16 * i] = acc[i] * p.scale;
 }
 
+template <typename T, int D>
+cudaError_t launch_dkv_wgmma(const BsParams& p, float4* stats, int b,
+                             cudaStream_t st) {
+  using L = DkvLayout<D>;
+  const int sq_pad = (p.sq + kTileQ - 1) / kTileQ * kTileQ;
+  const int rows = b * p.h * sq_pad;
+  bs_stats_kernel<<<(rows + 255) / 256, 256, 0, st>>>(p, stats, sq_pad, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  err = make_tile_map(&map_q, p.q, b, p.h, p.sq, D, p.st[kOpQ], kTileQ);
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_do, p.dout, b, p.h, p.sq, D, p.st[kOpDO], kTileQ);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_k, p.k, b, p.h, p.sk, D, p.st[kOpK], kTileK);
+  }
+  if (err == cudaSuccess) {
+    err = make_tile_map(&map_v, p.v, b, p.h, p.sk, D, p.st[kOpV], kTileK);
+  }
+  if (err != cudaSuccess) return err;
+  const auto kernel = bs_dkv_wgmma_kernel<T, D>;
+  // Once per kernel and process (the first launch, on the current device).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3((p.sk + kTileK - 1) / kTileK, p.h, b), kDkvThreads, L::kBytes,
+           st>>>(map_q, map_k, map_v, map_do, p, stats, sq_pad);
+  return cudaGetLastError();
+}
+
 template <int D>
-cudaError_t launch_dkv(const BsParams& p, int dtype, int b, cudaStream_t st) {
+cudaError_t launch_dkv(const BsParams& p, float4* stats, int dtype, int b,
+                       cudaStream_t st) {
   const int nk = (p.sk + kTileK - 1) / kTileK;
-  constexpr int kBlockM = D == 64 ? 64 : 32;
   switch (dtype) {
     case kBF16:
-      bs_dkv_mma_kernel<__nv_bfloat16, D, kBlockM><<<dim3(nk, p.h, b), kMmaThreads, 0, st>>>(p);
-      break;
+      return launch_dkv_wgmma<__nv_bfloat16, D>(p, stats, b, st);
     case kF16:
-      bs_dkv_mma_kernel<__half, D, kBlockM><<<dim3(nk, p.h, b), kMmaThreads, 0, st>>>(p);
-      break;
+      return launch_dkv_wgmma<__half, D>(p, stats, b, st);
     case kF32:
       bs_dkv_f32_kernel<D><<<dim3(nk * (kTileK / 16), p.h, b), 256, 0, st>>>(p);
-      break;
+      return cudaGetLastError();
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -606,25 +727,31 @@ bool bad_sizes(int b, int h, int sq, int sk, int max_n, int ncells) {
 }  // namespace fattn
 
 // K8b. q_idx, q_cnt, q_full: the layout's per-kv-tile lists of q tiles;
-// strides as in fattn_blocksparse_fwd (that of o unused).
+// rowmask_t: the rowmask transposed, (ncells, sq_pad); strides as in
+// fattn_blocksparse_fwd (that of o unused). stats: scratch
+// the wrapper allocates for bf16 / fp16, fp32 (b, h, sq_pad, 4) with sq_pad
+// = sq rounded up to 64 (unused for fp32).
 extern "C" int fattn_blocksparse_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* di, void* dk, void* dv,
+    const void* lse, const void* di, void* dk, void* dv, void* stats,
     const long long* strides, const void* q_idx,
     const void* q_cnt, const void* q_full, const void* rowmask,
-    const void* q_valid, const void* k_valid, int b, int h, int sq, int sk,
-    int d, int max_q, int ncells, float scale, int causal, unsigned seed,
-    unsigned threshold, float rp, int dtype, void* stream) {
+    const void* rowmask_t, const void* q_valid, const void* k_valid, int b,
+    int h, int sq, int sk, int d, int max_q, int ncells, float scale,
+    int causal, unsigned seed, unsigned threshold, float rp, int dtype,
+    void* stream) {
   using namespace fattn;
   if (bad_sizes(b, h, sq, sk, max_q, ncells)) return cudaErrorInvalidValue;
   BsParams p = bwd_params(q, k, v, dout, lse, di, strides, q_idx, q_cnt, q_full, rowmask,
                           q_valid, k_valid, h, sq, sk, max_q, ncells, scale,
                           causal, seed, threshold, rp);
+  p.rowmask_t = static_cast<const uint8_t*>(rowmask_t);
   p.dk = dk;
   p.dv = dv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_dkv<64>(p, dtype, b, st);
-  if (d == 128) return launch_dkv<128>(p, dtype, b, st);
+  float4* s4 = static_cast<float4*>(stats);
+  if (d == 64) return launch_dkv<64>(p, s4, dtype, b, st);
+  if (d == 128) return launch_dkv<128>(p, s4, dtype, b, st);
   return cudaErrorInvalidValue;
 }
 
@@ -648,4 +775,10 @@ extern "C" int fattn_blocksparse_dq(
   if (d == 64) return launch_dq<64>(p, dtype, b, st);
   if (d == 128) return launch_dq<128>(p, dtype, b, st);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of K8b's bf16/fp16 kernel at head dim d (0: none).
+extern "C" int fattn_blocksparse_dkv_smem(int d) {
+  using namespace fattn;
+  return d == 64 ? DkvLayout<64>::kBytes : d == 128 ? DkvLayout<128>::kBytes : 0;
 }

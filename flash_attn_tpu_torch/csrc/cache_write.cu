@@ -17,16 +17,24 @@
 //
 // write_pages replaces cache.py:_write_pages_kernel: a prompt's K/V
 // (prompt_len, h, d) is copied page by page to the given page ids, with the
-// tail of the last page zero-filled. The engine pads every page list with
-// page 0, so one launch may write page 0 from several blocks at once; the
-// TPU ran those writes in order, here they race. Page 0 is scratch that is
-// never read unmasked, so the race is harmless, and tests compare caches
-// outside page 0.
+// tail of the last page zero-filled. One launch writes a whole batch: row r
+// of k/v (b, prompt_len, h, d) goes to the pages of page_table[r], as the
+// JAX package's loop of write_prompt over the rows would (chunked and
+// single-shot prefill write every row of a layer at once). The engine pads
+// every page list with page 0, so one launch may write page 0 from several
+// blocks at once; the TPU ran those writes in order, here they race. Page 0
+// is scratch that is never read unmasked, so the race is harmless, and
+// tests compare caches outside page 0.
 //
-// Bound: device-memory bytes written (and read from the source). Both are a
-// few microseconds at serving sizes; the copy is elementwise with
-// consecutive threads on consecutive addresses. Payloads are copied as raw
-// bits (2- or 4-byte units), so every dtype of that width shares one kernel.
+// Bound: device-memory bytes, each source byte read once and each page
+// byte written once. append_token and append_span are a few microseconds at
+// serving sizes. write_pages moves megabytes per launch (Llama-3-8B's chunk
+// of 8 x 512 tokens: 33.6 MB), so it is built to reach the bandwidth: every
+// thread moves 16-byte vectors, two of K and two of V in flight, with one
+// index division per vector (not per element); the grid is (slab of a
+// page, page x kv head, row), so a launch fills the card. Payloads are
+// copied as raw bits, so every dtype whose rows are whole 16-byte vectors
+// shares one kernel.
 #include "common.cuh"
 
 namespace fattn {
@@ -54,24 +62,43 @@ __global__ void append_token_kernel(const U* new_k, const U* new_v,
   }
 }
 
-template <typename U>
-__global__ void write_pages_kernel(const U* k, const U* v, U* k_pages,
-                                   U* v_pages, const int* page_ids,
-                                   int prompt_len, int h, int num_pages,
-                                   int page_size, int d) {
-  const int j = blockIdx.x, hh = blockIdx.y;
-  const size_t base =
-      ((size_t)hh * num_pages + page_ids[j]) * page_size * d;
-  for (int i = threadIdx.x; i < page_size * d; i += blockDim.x) {
-    const int tok = j * page_size + i / d;
-    U kv = U(0), vv = U(0);
-    if (tok < prompt_len) {
-      const size_t src = ((size_t)tok * h + hh) * d + i % d;
-      kv = k[src];
-      vv = v[src];
+constexpr int kWriteThreads = 256;
+constexpr int kWriteUnroll = 2;  // vectors of K, and of V, per thread
+
+// Block (slab, j + n_pages * hh, bb) copies vectors [slab * 512, slab * 512
+// + 512) of page j of row bb, kv head hh: page row i / vecs, vector i % vecs.
+// Source strides sb, st, sh (row, token, head) are in 16-byte vectors.
+__global__ void __launch_bounds__(kWriteThreads)
+    write_pages_kernel(const uint4* k, const uint4* v, uint4* k_pages,
+                       uint4* v_pages, const int* page_table, long long sb,
+                       long long st, long long sh, int len, int n_pages,
+                       int num_pages, int page_size, int vecs) {
+  const int per_page = page_size * vecs;  // vectors of one (page, head)
+  const int j = blockIdx.y % n_pages, hh = blockIdx.y / n_pages;
+  const int bb = blockIdx.z;
+  const int page = page_table[(size_t)bb * n_pages + j];
+  const size_t dst = ((size_t)hh * num_pages + page) * per_page;
+  const size_t src = bb * sb + hh * sh;
+  int idx[kWriteUnroll];
+  uint4 kx[kWriteUnroll], vx[kWriteUnroll];
+#pragma unroll
+  for (int u = 0; u < kWriteUnroll; ++u) {
+    idx[u] = (blockIdx.x * kWriteUnroll + u) * kWriteThreads + threadIdx.x;
+    kx[u] = vx[u] = make_uint4(0u, 0u, 0u, 0u);  // past the prompt: zeros
+    const int row = idx[u] / vecs;
+    const int tok = j * page_size + row;
+    if (idx[u] < per_page && tok < len) {
+      const size_t at = src + tok * st + (idx[u] - row * vecs);
+      kx[u] = k[at];
+      vx[u] = v[at];
     }
-    k_pages[base + i] = kv;
-    v_pages[base + i] = vv;
+  }
+#pragma unroll
+  for (int u = 0; u < kWriteUnroll; ++u) {
+    if (idx[u] < per_page) {
+      k_pages[dst + idx[u]] = kx[u];
+      v_pages[dst + idx[u]] = vx[u];
+    }
   }
 }
 
@@ -157,31 +184,34 @@ extern "C" int fattn_append_token(const void* new_k, const void* new_v,
   return cudaGetLastError();
 }
 
+// Row r of k/v (b, len, h, d) into the n_pages pages page_table[r] of the
+// (h, num_pages, page_size, d) caches. k and v share their element strides
+// (sb, st, sh) of row, token and head; d is contiguous.
 extern "C" int fattn_write_pages(const void* k, const void* v, void* k_pages,
-                                 void* v_pages, const void* page_ids,
-                                 int prompt_len, int n_pages, int h,
-                                 int num_pages, int page_size, int d,
-                                 int elem_bytes, void* stream) {
+                                 void* v_pages, const void* page_table, int b,
+                                 int len, int n_pages, int h, int num_pages,
+                                 int page_size, int d, long long sb,
+                                 long long st, long long sh, int elem_bytes,
+                                 void* stream) {
   using namespace fattn;
-  if (n_pages <= 0 || h <= 0 || d <= 0 || page_size <= 0) {
+  const long long vec = 16 / (elem_bytes > 0 ? elem_bytes : 1);
+  if (b <= 0 || len < 0 || n_pages <= 0 || h <= 0 || d <= 0 ||
+      page_size <= 0 || elem_bytes <= 0 || 16 % elem_bytes != 0 ||
+      d % vec != 0 || sb % vec != 0 || st % vec != 0 || sh % vec != 0 ||
+      len > n_pages * page_size || (long long)n_pages * h > 65535 ||
+      b > 65535) {
     return cudaErrorInvalidValue;
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* ids = static_cast<const int*>(page_ids);
-  const dim3 grid(n_pages, h);
-  if (elem_bytes == 2) {
-    write_pages_kernel<uint16_t><<<grid, 256, 0, st>>>(
-        static_cast<const uint16_t*>(k), static_cast<const uint16_t*>(v),
-        static_cast<uint16_t*>(k_pages), static_cast<uint16_t*>(v_pages), ids,
-        prompt_len, h, num_pages, page_size, d);
-  } else if (elem_bytes == 4) {
-    write_pages_kernel<uint32_t><<<grid, 256, 0, st>>>(
-        static_cast<const uint32_t*>(k), static_cast<const uint32_t*>(v),
-        static_cast<uint32_t*>(k_pages), static_cast<uint32_t*>(v_pages), ids,
-        prompt_len, h, num_pages, page_size, d);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  const int vecs = (int)(d / vec);
+  const int per_block = kWriteThreads * kWriteUnroll;
+  const dim3 grid((page_size * vecs + per_block - 1) / per_block, n_pages * h,
+                  b);
+  write_pages_kernel<<<grid, kWriteThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(k), static_cast<const uint4*>(v),
+      static_cast<uint4*>(k_pages), static_cast<uint4*>(v_pages),
+      static_cast<const int*>(page_table), sb / vec, st / vec, sh / vec, len,
+      n_pages, num_pages, page_size, vecs);
   return cudaGetLastError();
 }
 

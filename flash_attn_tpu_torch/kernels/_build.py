@@ -61,18 +61,18 @@ _SIGNATURES = {
     # new_k, new_v, k_pages, v_pages, page_table, lengths, b, h,
     # num_pages, page_size, pages_max, d, elem_bytes, stream
     "fattn_append_token": [_P] * 6 + [_I] * 7 + [_P],
-    # k, v, k_pages, v_pages, page_ids, prompt_len, n_pages, h,
-    # num_pages, page_size, d, elem_bytes, stream
-    "fattn_write_pages": [_P] * 5 + [_I] * 7 + [_P],
+    # k, v, k_pages, v_pages, page_table, b, len, n_pages, h, num_pages,
+    # page_size, d, k/v strides of row, token and head, elem_bytes, stream
+    "fattn_write_pages": [_P] * 5 + [_I] * 7 + [_L] * 3 + [_I, _P],
     # q, k, v, o, lse, strides, kv_idx, kv_cnt, kv_full, rowmask, q_valid,
     # k_valid, b, h, sq, sk, d, max_kv, ncells, scale, causal, seed,
     # threshold, rp, dtype, stream
     "fattn_blocksparse_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
                                                      _P],
-    # q, k, v, dout, lse, di, dk, dv, strides, q_idx, q_cnt, q_full, rowmask,
-    # q_valid, k_valid, b, h, sq, sk, d, max_q, ncells, scale, causal, seed,
-    # threshold, rp, dtype, stream
-    "fattn_blocksparse_dkv": [_P] * 15 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
+    # q, k, v, dout, lse, di, dk, dv, stats, strides, q_idx, q_cnt, q_full,
+    # rowmask, rowmask_t, q_valid, k_valid, b, h, sq, sk, d, max_q, ncells,
+    # scale, causal, seed, threshold, rp, dtype, stream
+    "fattn_blocksparse_dkv": [_P] * 17 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
                                                      _P],
     # q, k, v, dout, lse, di, dq, strides, kv_idx, kv_cnt, kv_full, rowmask,
     # q_valid, k_valid, b, h, sq, sk, d, max_kv, ncells, scale, causal, seed,
@@ -85,6 +85,8 @@ _SIGNATURES = {
     # d: the dynamic shared memory of K5's / K6's bf16/fp16 kernel
     "fattn_paged_decode_smem": [_I],
     "fattn_paged_chunk_smem": [_I],
+    # d: the dynamic shared memory of K8b's bf16/fp16 kernel
+    "fattn_blocksparse_dkv_smem": [_I],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -228,6 +228,13 @@ class BlockSparseLayout:
     def ncells(self):
         return self.rowmask.shape[1]
 
+    @property
+    def rowmask_t(self):
+        """(ncells, sq_pad) uint8: the rowmask transposed, so a q tile's
+        bits in one cell column are 64 contiguous bytes (K8b copies them
+        into shared memory beside the tile)."""
+        return np.ascontiguousarray(self.rowmask.T)
+
     def on(self, device) -> dict:
         """The index arrays and the rowmask as tensors on ``device``, copied
         at the first call for that device."""
@@ -236,7 +243,8 @@ class BlockSparseLayout:
             self._on_device[device] = {
                 name: torch.from_numpy(getattr(self, name)).to(device)
                 for name in ("kv_indices", "kv_counts", "kv_full",
-                             "q_indices", "q_counts", "q_full", "rowmask")}
+                             "q_indices", "q_counts", "q_full", "rowmask",
+                             "rowmask_t")}
         return self._on_device[device]
 
     def visible(self, device) -> torch.Tensor:
@@ -426,12 +434,16 @@ def blocksparse_attention_dkv(q, k, v, dout, lse, di,
     b, h, sq, d = q.shape
     lay = layout.on(q.device)
     dk, dv = empty_rows(b, h, layout.sk, k), empty_rows(b, h, layout.sk, v)
+    # The bf16/fp16 kernel's per-row stats records (scratch).
+    stats = None if q.dtype == torch.float32 else torch.empty(
+        (b, h, layout.sq_pad, 4), dtype=torch.float32, device=q.device)
     code = _build.lib().fattn_blocksparse_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        strides_arg(q=q, k=k, v=v, dout=dout, dk=dk, dv=dv),
+        _ptr(stats), strides_arg(q=q, k=k, v=v, dout=dout, dk=dk, dv=dv),
         lay["q_indices"].data_ptr(), lay["q_counts"].data_ptr(),
-        lay["q_full"].data_ptr(), lay["rowmask"].data_ptr(), _ptr(q_valid),
+        lay["q_full"].data_ptr(), lay["rowmask"].data_ptr(),
+        lay["rowmask_t"].data_ptr(), _ptr(q_valid),
         _ptr(k_valid), b, h, sq, layout.sk, d, layout.max_q, layout.ncells,
         float(softmax_scale), int(layout.causal), seed_u32, threshold, rp,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))

@@ -34,8 +34,8 @@ from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
+    _write_prompts,
     append_token,
-    write_prompt,
 )
 
 
@@ -71,7 +71,7 @@ def chunk_prefill_step(model: GPT2LMHeadModel, cfg: GPT2Config,
                        caches: Sequence[PagedKVCache], input_ids, pos0,
                        chunk_lens, write_tbl, page_table):
     """One chunk of chunked prefill for every row: per layer, the chunk's
-    K/V go to its page span (K7c, one ``write_prompt`` per row), then the
+    K/V go to their page spans (K7c, one launch for every row), then the
     chunk attends to the cache, earlier chunks included (K6).
 
     ``input_ids`` (b, C) this chunk's tokens; ``pos0`` (b,) int32 tokens
@@ -89,9 +89,7 @@ def chunk_prefill_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     total = (pos0.clamp(min=0) + chunk_lens).to(torch.int32)
     for block, cache in zip(model.h, caches):
         q, k, v = block.qkv(x)  # (b, C, n_head, head_dim)
-        k, v = k.contiguous(), v.contiguous()
-        for r in range(b):
-            write_prompt(cache, k[r], v[r], write_tbl[r])
+        _write_prompts(cache, k, v, write_tbl)  # one K7c launch
         ctx = paged_chunk_attention(q, cache.k_pages,
                                     cache.v_pages, total, page_table,
                                     chunk_lens=chunk_lens)

@@ -23,8 +23,8 @@ from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
+    _write_prompts,
     append_token,
-    write_prompt,
 )
 
 
@@ -77,9 +77,7 @@ def chunk_prefill_step(model: LlamaForCausalLM, cfg: LlamaConfig,
     total = (pos0.clamp(min=0) + chunk_lens).to(torch.int32)
     for block, cache in zip(model.layers, caches):
         q, k, v = block.qkv(x, positions)
-        k, v = k.contiguous(), v.contiguous()
-        for r in range(b):
-            write_prompt(cache, k[r], v[r], write_tbl[r])
+        _write_prompts(cache, k, v, write_tbl)  # one K7c launch
         ctx = paged_chunk_attention(q, cache.k_pages,
                                     cache.v_pages, total, page_table,
                                     chunk_lens=chunk_lens)

@@ -178,43 +178,70 @@ def write_prompt(cache: PagedKVCache, k, v, page_ids) -> PagedKVCache:
 
     Several entries of ``page_ids`` may name the scratch page 0 (the engine
     pads page lists with it); on the card those writes race, which is
-    harmless because page 0 is never read unmasked."""
-    _check_dtype("write_prompt", cache, k, v)
-    prompt_len, h, d = k.shape
-    n_kv, num_pages, ps, dk = cache.k_pages.shape
-    n_pages = page_ids.shape[0]
-    if v.shape != k.shape or (h, d) != (n_kv, dk) \
-            or prompt_len > n_pages * ps:
-        raise ValueError(f"write_prompt: k {tuple(k.shape)} into "
-                         f"{n_pages} pages of {tuple(cache.k_pages.shape)}")
-    if k.device.type == "cpu":
-        return write_prompt_plain(cache, k, v, page_ids)
-    if page_ids.dtype != torch.int32:
-        raise ValueError("write_prompt: page_ids must be int32")
-    _build.require_cuda("write_prompt", k, v, cache.k_pages, cache.v_pages,
-                        page_ids)
-    code = _build.lib().fattn_write_pages(
-        k.data_ptr(), v.data_ptr(), cache.k_pages.data_ptr(),
-        cache.v_pages.data_ptr(), page_ids.data_ptr(), prompt_len, n_pages,
-        h, num_pages, ps, d, k.element_size(), _build.stream_ptr(k.device),
-    )
-    write_prompt.launches += 1
-    _build.check(code, "fattn_write_pages")
-    return cache
-
-
-write_prompt.launches = 0
+    harmless because page 0 is never read unmasked. One row of
+    ``_write_prompts``, which launches the kernel."""
+    return _write_prompts(cache, k[None], v[None], page_ids[None])
 
 
 def write_prompt_plain(cache: PagedKVCache, k, v, page_ids) -> PagedKVCache:
     """Plain-torch twin of ``write_prompt`` (in place)."""
-    prompt_len, h, d = k.shape
-    n_pages, ps = page_ids.shape[0], cache.page_size
+    return _write_prompts_plain(cache, k[None], v[None], page_ids[None])
+
+
+def _write_prompts(cache: PagedKVCache, k, v, page_table) -> PagedKVCache:
+    """``write_prompt`` for every row at once, IN PLACE and in one launch:
+    row r of k/v (b, prompt_len, n_kv_heads, d) goes to the pages
+    ``page_table[r]`` (b, n_pages) int32, tail zero-filled. The cache ends
+    as the JAX package's loop of ``write_prompt`` over the rows leaves it,
+    outside the scratch page 0. k and v may be strided views (the head
+    dimension contiguous, 16-byte aligned rows, the same strides)."""
+    _check_dtype("write_prompt", cache, k, v)
+    b, prompt_len, h, d = k.shape
+    n_kv, num_pages, ps, dk = cache.k_pages.shape
+    n_pages = page_table.shape[1]
+    if v.shape != k.shape or (h, d) != (n_kv, dk) \
+            or page_table.shape[0] != b or prompt_len > n_pages * ps:
+        raise ValueError(f"write_prompt: k {tuple(k.shape)} into "
+                         f"{tuple(page_table.shape)} pages of "
+                         f"{tuple(cache.k_pages.shape)}")
+    if k.device.type == "cpu":
+        return _write_prompts_plain(cache, k, v, page_table)
+    if page_table.dtype != torch.int32:
+        raise ValueError("write_prompt: page ids must be int32")
+    _build.require_cuda("write_prompt", cache.k_pages, cache.v_pages,
+                        page_table)
+    _build.require_device("write_prompt", k, v, cache.k_pages)
+    size = k.element_size()
+    if k.stride() != v.stride() or k.stride(-1) != 1 or any(
+            x * size % 16 for x in (d, *k.stride()[:3])) or any(
+            x.data_ptr() % 16 for x in (k, v, cache.k_pages, cache.v_pages)):
+        raise ValueError("write_prompt: k and v need the same strides, a "
+                         "contiguous head dimension and 16-byte aligned "
+                         "rows (the kernel moves 16-byte vectors)")
+    code = _build.lib().fattn_write_pages(
+        k.data_ptr(), v.data_ptr(), cache.k_pages.data_ptr(),
+        cache.v_pages.data_ptr(), page_table.data_ptr(), b, prompt_len,
+        n_pages, h, num_pages, ps, d, *k.stride()[:3], size,
+        _build.stream_ptr(k.device),
+    )
+    _write_prompts.launches += 1
+    _build.check(code, "fattn_write_pages")
+    return cache
+
+
+_write_prompts.launches = 0
+
+
+def _write_prompts_plain(cache: PagedKVCache, k, v, page_table
+                         ) -> PagedKVCache:
+    """Plain-torch twin of ``_write_prompts`` (in place)."""
+    b, prompt_len, h, d = k.shape
+    n_pages, ps = page_table.shape[1], cache.page_size
+    ids = page_table.reshape(-1).long()
     for x, pages in ((k, cache.k_pages), (v, cache.v_pages)):
-        xp = x.new_zeros((n_pages * ps, h, d))
-        xp[:prompt_len] = x
-        pages[:, page_ids.long()] = xp.transpose(0, 1).reshape(
-            h, n_pages, ps, d)
+        xp = x.new_zeros((b, n_pages * ps, h, d))
+        xp[:, :prompt_len] = x
+        pages[:, ids] = xp.reshape(b * n_pages, ps, h, d).permute(2, 0, 1, 3)
     return cache
 
 

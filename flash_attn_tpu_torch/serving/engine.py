@@ -9,7 +9,7 @@ the port's kernels:
   - prefill: every admissible pending request in one bucketed call
     (prompts padded to a shared 128-multiple bucket, batch padded to a
     power of two, as in the JAX engine), K/V then written into each
-    request's pages by the page-copy kernel (``write_prompt``); or, with
+    request's pages by the page-copy kernel (one launch per layer); or, with
     ``prefill_chunk``, in page-aligned chunks of that many tokens, each
     written to its pages and attended against the cache by the
     multi-token paged kernel (``chunk_prefill_step``)
@@ -40,8 +40,8 @@ import torch
 from flash_attn_tpu_torch.models import gpt2_decode
 from flash_attn_tpu_torch.serving.cache import (
     PageAllocator,
+    _write_prompts,
     init_cache,
-    write_prompt,
 )
 
 
@@ -259,15 +259,14 @@ class ServingEngine:
         # Every admitted row's pages for every layer; page-list entries
         # beyond a prompt's pages (and padding rows) name the reserved
         # scratch page 0. Ceil: the clamped bucket need not be a page_size
-        # multiple (write_prompt zero-pads the tail page).
+        # multiple (the page write zero-pads the tail page).
         pages_per_bucket = -(-bucket // self.page_size)
         tbl = np.zeros((rows, pages_per_bucket), np.int32)
         for i, (_, req, pages) in enumerate(batch):
             tbl[i, : len(pages[:pages_per_bucket])] = pages[:pages_per_bucket]
         tbl_d = self._to_device(tbl)
         for cache, k, v in zip(self.caches, ks, vs):
-            for i in range(rows):
-                write_prompt(cache, k[i], v[i], tbl_d[i])
+            _write_prompts(cache, k, v, tbl_d)  # one K7c launch per layer
         return first
 
     def _prefill_chunked(self, batch) -> np.ndarray:

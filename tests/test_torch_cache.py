@@ -55,6 +55,41 @@ def test_write_prompt_matches_jax(prompt_len, page_ids):
     _assert_equal_outside_page0(jc, tc)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prompt_len,table", [
+    # zero tail; a row padded with page 0; a row that is all padding
+    (37, [[5, 2, 7], [8, 0, 0], [0, 0, 0]]),
+    # whole pages, the last row's list padded with page 0
+    (48, [[1, 3, 4], [6, 9, 10], [11, 12, 0]]),
+])
+def test_batched_write_matches_jax_row_loop(dtype, prompt_len, table):
+    """The batched page write (one launch per layer on the card) against
+    the JAX package's loop of write_prompt over the rows, as chunked and
+    single-shot prefill called it: bitwise outside page 0."""
+    jc, tc = _caches(5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jc = jax_cache.PagedKVCache(jc.k_pages.astype(jdt),
+                                jc.v_pages.astype(jdt), None, None)
+    tc = torch_cache.PagedKVCache(tc.k_pages.to(tdt), tc.v_pages.to(tdt))
+    rng = np.random.default_rng(6)
+    b = len(table)
+    k = rng.standard_normal((b, prompt_len, H, D)).astype(np.float32)
+    v = rng.standard_normal((b, prompt_len, H, D)).astype(np.float32)
+    ids = np.asarray(table, np.int32)
+    for r in range(b):
+        jc = jax_cache.write_prompt(jc, jnp.asarray(k[r], jdt),
+                                    jnp.asarray(v[r], jdt),
+                                    jnp.asarray(ids[r]))
+    out = torch_cache._write_prompts(tc, torch.from_numpy(k).to(tdt),
+                                     torch.from_numpy(v).to(tdt),
+                                     torch.from_numpy(ids))
+    assert out is tc  # in place
+    for j, t in ((jc.k_pages, tc.k_pages), (jc.v_pages, tc.v_pages)):
+        np.testing.assert_array_equal(
+            t.float().numpy()[:, 1:],
+            np.asarray(j.astype(jnp.float32))[:, 1:])
+
+
 @pytest.mark.parametrize("lengths", [
     [0, 15, 16, 40],   # first slot, last slot of a page, next page, later
     [5, -1, 33, -1],   # inactive slots go to page 0

@@ -172,6 +172,31 @@ def test_append_span_matches_jax(lengths, new_lens):
     _assert_equal_outside_page0(jc, tc)
 
 
+def test_chunk_write_of_projection_views_matches_jax_row_loop():
+    """A chunk's K/V as GPT-2's chunked prefill hands them to the batched
+    page write, strided views of the fused (b, C, 3, h, d) projection,
+    against the JAX package's per-row write_prompt loop on the same values:
+    rows with a short chunk and an all-padding row (its page list is the
+    scratch page 0), bitwise outside page 0."""
+    rng = np.random.default_rng(12)
+    b, C, h, d, ps, num_pages = 4, 32, 2, 64, 16, 12
+    kp, vp, _ = _paged(rng, [0], h, d, ps, num_pages, 1)
+    qkv = rng.standard_normal((b, C, 3, h, d)).astype(np.float32)
+    wtbl = np.asarray([[3, 7], [5, 0], [0, 0], [9, 11]], np.int32)
+    jc = jax_cache.PagedKVCache(jnp.asarray(kp), jnp.asarray(vp), None, None)
+    for r in range(b):
+        jc = jax_cache.write_prompt(jc, jnp.asarray(qkv[r, :, 1]),
+                                    jnp.asarray(qkv[r, :, 2]),
+                                    jnp.asarray(wtbl[r]))
+    tc = torch_cache.PagedKVCache(torch.from_numpy(kp.copy()),
+                                  torch.from_numpy(vp.copy()))
+    _, k, v = torch.from_numpy(qkv).unbind(2)
+    assert not k.is_contiguous()
+    torch_cache._write_prompts(tc, k, v, torch.from_numpy(wtbl))
+    for j, t in ((jc.k_pages, tc.k_pages), (jc.v_pages, tc.v_pages)):
+        np.testing.assert_array_equal(t.numpy()[:, 1:], np.asarray(j)[:, 1:])
+
+
 @pytest.mark.parametrize("with_kv", [True, False])
 def test_flash_attn_with_kvcache_matches_jax(with_kv):
     """With k/v: append, then attend with total = cache_seqlens + new_lens.

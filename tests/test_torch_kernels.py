@@ -421,6 +421,69 @@ def test_cache_write_kernels_match_twins(cuda, dtype):
     assert torch.equal(on_card.v_pages[:, 1:].cpu(), on_cpu.v_pages[:, 1:])
 
 
+# (b, prompt_len, h_kv, d, page_size, pages per row): GPT-2's single-shot
+# prompt (6 pages and a scratch entry) and chunk of 256, Llama-3-8B's chunk
+# of 512, and an unaligned length on small pages at Llama's widths.
+WRITE_CASES = [
+    (1, 700, 12, 64, 128, 7),
+    (8, 256, 12, 64, 128, 2),
+    (8, 512, 8, 128, 128, 4),
+    (3, 37, 8, 128, 16, 3),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", WRITE_CASES, ids=str)
+def test_write_pages_kernel_matches_twin(cuda, case, dtype):
+    """K7c, single (b = 1, through write_prompt) and batched: bitwise equal
+    to the twin outside the scratch page 0, with page lists padded with
+    page 0 (duplicates in one launch) and a row that is all padding."""
+    b, prompt_len, h, d, ps, n_pages = case
+    rng = np.random.default_rng(prompt_len)
+    num_pages = 1 + b * n_pages
+    pages = [_randn(rng, (h, num_pages, ps, d), dtype, cuda) for _ in "kv"]
+    on_card = torch_cache.PagedKVCache(*(x.clone() for x in pages))
+    plain = torch_cache.PagedKVCache(*(x.clone() for x in pages))
+    table = rng.permutation(np.arange(1, num_pages)).reshape(b, n_pages)
+    need = -(-prompt_len // ps)
+    table[:, need:] = 0
+    if b > 1:
+        table[1, need - 1:] = 0
+        table[-1] = 0
+    table = torch.from_numpy(table.astype(np.int32)).to(cuda)
+    k, v = (_randn(rng, (b, prompt_len, h, d), dtype, cuda) for _ in "kv")
+    if b == 1:
+        torch_cache.write_prompt(on_card, k[0], v[0], table[0])
+        torch_cache.write_prompt_plain(plain, k[0], v[0], table[0])
+    else:
+        torch_cache._write_prompts(on_card, k, v, table)
+        torch_cache._write_prompts_plain(plain, k, v, table)
+    torch.cuda.synchronize()
+    assert torch.equal(on_card.k_pages[:, 1:], plain.k_pages[:, 1:])
+    assert torch.equal(on_card.v_pages[:, 1:], plain.v_pages[:, 1:])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_write_pages_kernel_takes_projection_views(cuda, dtype):
+    """K7c reads k and v in place as views of GPT-2's fused (b, C, 3, h, d)
+    projection, as chunked prefill hands them over, and writes what it
+    writes from contiguous copies."""
+    rng = np.random.default_rng(4)
+    b, C, h, d, ps = 4, 256, 12, 64, 128
+    qkv = _randn(rng, (b, C, 3, h, d), dtype, cuda)
+    _, k, v = qkv.unbind(2)
+    table = torch.arange(1, 1 + 2 * b, dtype=torch.int32,
+                         device=cuda).reshape(b, 2)
+    caches = [torch_cache.init_cache(h, 1 + 2 * b, ps, d, dtype=dtype,
+                                     device=cuda) for _ in range(2)]
+    torch_cache._write_prompts(caches[0], k, v, table)
+    torch_cache._write_prompts(caches[1], k.contiguous(), v.contiguous(),
+                               table)
+    torch.cuda.synchronize()
+    assert torch.equal(caches[0].k_pages, caches[1].k_pages)
+    assert torch.equal(caches[0].v_pages, caches[1].v_pages)
+
+
 def test_engine_on_card_matches_cpu(cuda):
     """A tiny fp32 GPT-2 (head_dim 64, as the kernels need): the engine on
     the card (all four kernels) gives the CPU plain path's greedy tokens."""
@@ -708,6 +771,73 @@ def test_blocksparse_bwd_kernels_match_twin(cuda, case, dtype, dropout_p):
                            label=f"d{name} {case} {dtype} p={dropout_p}")
         assert_two_x_bound(g, tw.float(), n, atol=1e-4,
                            label=f"d{name} vs twin {case} {dtype}")
+
+
+# chip_smoke.py's BS_SHAPES: (b, h, s, d, cell mask, causal, dropout_p,
+# valid keys of batch row 0 or None): (i) the GPT-2 training step's
+# attention, (ii) config 4's size and density, (iii) every tile FULL with
+# key padding (C9), (iv) ragged s at d = 128.
+BS_SHAPES = [
+    (8, 12, 1024, 64, "local-global", True, 0.1, None),
+    (1, 8, 8192, 64, "random 0.25", True, 0.0, None),
+    (2, 4, 512, 64, "ones", False, 0.0, 300),
+    (2, 4, 600, 128, "random 0.35", False, 0.1, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", BS_SHAPES, ids=str)
+def test_blocksparse_dkv_kernel_at_bs_shapes(cuda, shape, dtype):
+    """K8b alone at BS_SHAPES: dk and dv against the twin and, by the 2x
+    rule, fp32 autograd through attention_ref with the element mask; 10
+    seeded reruns bit for bit."""
+    b, h, s, d, cells, causal, p, valid = shape
+    rng = np.random.default_rng(s)
+    n = (-(-s // 16), -(-s // 256))
+    if cells == "local-global":
+        bm = LocalGlobalSparsityConfig(window=256).make_layout(s)
+    elif cells == "ones":
+        bm = np.ones(n, bool)
+    else:
+        bm = rng.random(n) < float(cells.split()[1])
+    layout = build_layout(bm, sq=s, sk=s, causal=causal)
+    q, k, v, dout = (_randn(rng, (b, h, s, d), dtype, cuda) for _ in range(4))
+    q_valid = k_valid = None
+    if valid is not None:
+        k_valid = torch.ones((b, s), dtype=torch.uint8, device=cuda)
+        k_valid[0, valid:] = 0
+        q_valid = k_valid.clone()
+        assert layout.kv_full.all()
+    kw = dict(softmax_scale=d ** -0.5, dropout_p=p, seed=7 if p else None)
+    out, lse = blocksparse_attention_fwd(q, k, v, layout, q_valid, k_valid,
+                                         **kw)
+    di = (out.float() * dout.float()).sum(-1)
+
+    def run():
+        return blocksparse_attention_dkv(q, k, v, dout, lse, di, layout,
+                                         q_valid, k_valid, **kw)
+    dk, dv = run()
+    torch.cuda.synchronize()
+    _, twin_dk, twin_dv = blocksparse_attention_bwd_plain(
+        q, k, v, dout, lse, di, layout, q_valid, k_valid, **kw)
+    mask = visible_plain(layout, q_valid, k_valid, cuda)
+    keep = dropout_mask_dense(7, b, h, s, s, p, device=cuda) if p else None
+
+    def ref_grads(upcast):
+        leaves = [(x.float() if upcast else x).detach().requires_grad_()
+                  for x in (q, k, v)]
+        o = attention_ref(*leaves, mask=mask, upcast=upcast,
+                          dropout_mask=keep, dropout_p=p)
+        o.backward(dout.to(o.dtype))
+        return [x.grad for x in leaves[1:]]
+
+    for name, g, tw, o, nat in zip("kv", (dk, dv), (twin_dk, twin_dv),
+                                   ref_grads(True), ref_grads(False)):
+        assert_two_x_bound(g, o, nat, atol=1e-4,
+                           label=f"d{name} {shape} {dtype}")
+        assert_two_x_bound(g, tw.float(), nat, atol=1e-4,
+                           label=f"d{name} vs twin {shape} {dtype}")
+    _reruns_equal(run)
 
 
 @pytest.mark.parametrize("d", [64, 128])
