@@ -28,7 +28,7 @@ at the train shape with dropout 0.1, K8a-c at BS_SHAPES (i), K5 and K6 at
 Llama-3-8B's decode and chunk shapes; each paged shape prints the split
 count the host chose for it.
 It prints ptxas's registers and spills, the dynamic shared memory and the
-HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5, K6 and K8b,
+HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5, K6 and K8a-c,
 and times both paths and every kernel against its twin and, where one
 exists, a PyTorch call computing the same function (SDPA under each of its
 flash, cuDNN and efficient backends pinned in turn, the fastest reported;
@@ -280,7 +280,8 @@ def phase_device():
 REPORTED = {"flash_fwd_wgmma": "K1", "flash_bwd_wgmma": "K2",
             "paged_decode_mma": "K5", "paged_decode_f32": "K5",
             "paged_chunk_wgmma": "K6", "paged_merge_kernel": "K5/K6 merge",
-            "bs_dkv_wgmma": "K8b"}
+            "bs_fwd_wgmma": "K8a", "bs_dkv_wgmma": "K8b",
+            "bs_dq_wgmma": "K8c"}
 
 
 def kernel_label(mangled: str) -> str | None:
@@ -295,18 +296,20 @@ def kernel_label(mangled: str) -> str | None:
 
 
 def phase_build_report():
-    """Evidence of what the Hopper kernels K1, K2, K5, K6 and K8b were
+    """Evidence of what the Hopper kernels K1, K2, K5, K6 and K8a-c were
     built into: ptxas's registers and spills (-Xptxas -v at build), their
     dynamic shared memory, and, where cuobjdump exists, the HGMMA (wgmma)
-    instructions of K1's, K2's, K6's and K8b's bf16/fp16 kernels in the
+    instructions of K1's, K2's, K6's and K8a-c's bf16/fp16 kernels in the
     SASS."""
     lib = _build.lib()
     print("dynamic shared memory: " + ", ".join(
         f"K1 d={d} {lib.fattn_flash_fwd_smem(d)} B, K2 d={d} "
         f"{lib.fattn_flash_bwd_smem(d)} B, K5 d={d} "
         f"{lib.fattn_paged_decode_smem(d)} B, K6 d={d} "
-        f"{lib.fattn_paged_chunk_smem(d)} B, K8b d={d} "
-        f"{lib.fattn_blocksparse_dkv_smem(d)} B" for d in (64, 128)))
+        f"{lib.fattn_paged_chunk_smem(d)} B, K8a d={d} "
+        f"{lib.fattn_blocksparse_fwd_smem(d)} B, K8b d={d} "
+        f"{lib.fattn_blocksparse_dkv_smem(d)} B, K8c d={d} "
+        f"{lib.fattn_blocksparse_dq_smem(d)} B" for d in (64, 128)))
     log = _build.build_log()
     if log is None:
         print("ptxas report: not measured (the library was not built here)")
@@ -335,7 +338,7 @@ def phase_build_report():
             name = kernel_label(name) if "wgmma" in name else None
         elif name and "HGMMA" in line:
             counts[name] = counts.get(name, 0) + 1
-    check(len(counts) == 16 and all(counts.values()),
+    check(len(counts) == 24 and all(counts.values()),
           f"HGMMA instructions missing from the wgmma kernels: {counts}")
     print("HGMMA instructions in the SASS (cuobjdump): " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
@@ -1344,7 +1347,7 @@ def kernel_timing(gen):
             None, *specs[k5][3:])
     specs.update(bs_timing_specs())
     times = {}
-    for name, (kern, plain, library, n_bytes, flops) in specs.items():
+    for name, (kern, plain, library, n_bytes, flops, *tiles) in specs.items():
         p1, k1, k2, p2 = (busy_ms(plain), busy_ms(kern), busy_ms(kern),
                           busy_ms(plain))
         host = host_ms(kern)
@@ -1360,11 +1363,17 @@ def kernel_timing(gen):
                 for b, t in each.items()) + ")"
         b_ms, b_by = bound(n_bytes, flops)
         times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by, backend)
+        live = ""
+        if tiles:  # K8: (live 64x64 tiles, their products' operations)
+            n_tiles, tile_flops = tiles[0]
+            live = (f"; {n_tiles} live 64x64 tiles, {tile_flops / 1e9:.2f} "
+                    f"GFLOP on them, {tile_flops / min(k1, k2) / 1e9:.1f} "
+                    f"TFLOP/s on live tiles")
         print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms (host {host:.4f} ms "
               f"to issue a call), plain {p1:.4f} / "
               f"{p2:.4f} ms, library {lib}, bound {b_ms:.4f} ms "
-              f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
-              f"[{card}]")
+              f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)"
+              f"{live} [{card}]")
     print("shapes: flash_fwd b=8 h=12 s=768 d=64 causal (the serving "
           "bucket), library = SDPA forward; flash_fwd (train step) and "
           "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1 (and the "
@@ -1833,7 +1842,10 @@ def bs_timing_specs():
     on dense_timing's inputs, and of dense K1 and K2 at shape (ii) (at
     shape (i) they are the train step's rows). Library: SDPA with the
     element mask as attn_mask, its forward, and its backward for (k, v)
-    and for q."""
+    and for q. Each K8 row also carries its live 64x64 tiles and their
+    products' operations (4d, 8d, 6d per pair of a whole tile): the bound
+    stays on visible pairs, and the rate on live tiles shows how far the
+    tile granularity sits from it."""
     specs = {}
     inputs = k8b_inputs(DEV)
     for shape, suffix in (("(i) GPT-2 train", ""),
@@ -1846,6 +1858,8 @@ def bs_timing_specs():
         di = (out.float() * dout.float()).sum(-1)
         mask = layout.visible(DEV)
         pairs = int(mask.sum()) * b * h
+        tiles = int(layout.kv_counts.sum()) * b * h
+        tile_pairs = tiles * 64 * 64
         lay = layout.on(DEV)
         q_lists = nbytes(lay["q_indices"], lay["q_counts"], lay["q_full"],
                          lay["rowmask"])
@@ -1862,17 +1876,20 @@ def bs_timing_specs():
             lambda a=(q, k, v, layout), kw=kw:
                 blocksparse_attention_fwd_plain(*a, **kw),
             sdpa_fwd(q, k, v, p=p, mask=mask),
-            nbytes(q, k, v, q, lse) + kv_lists, 4 * pairs * d)
+            nbytes(q, k, v, q, lse) + kv_lists, 4 * pairs * d,
+            (tiles, 4 * tile_pairs * d))
         specs["blocksparse_dkv" + suffix] = (
             lambda a=bwd, kw=kw: blocksparse_attention_dkv(*a, **kw),
             plain_bwd,
             sdpa_bwd(q, k, v, dout, p=p, mask=mask, wrt="kv"),
-            nbytes(q, k, v, dout, lse, di, k, v) + q_lists, 8 * pairs * d)
+            nbytes(q, k, v, dout, lse, di, k, v) + q_lists, 8 * pairs * d,
+            (tiles, 8 * tile_pairs * d))
         specs["blocksparse_dq" + suffix] = (
             lambda a=bwd, kw=kw: blocksparse_attention_dq(*a, **kw),
             plain_bwd,
             sdpa_bwd(q, k, v, dout, p=p, mask=mask, wrt="q"),
-            nbytes(q, k, v, dout, lse, di, q) + kv_lists, 6 * pairs * d)
+            nbytes(q, k, v, dout, lse, di, q) + kv_lists, 6 * pairs * d,
+            (tiles, 6 * tile_pairs * d))
     # Dense K1 and K2 on config 4's q, k, v: does the sparsity pay?
     dense = dict(causal=True, softmax_scale=d ** -0.5)
     o_dense, l_dense = flash_attention_fwd(q, k, v, save_lse=True, **dense)

@@ -1,6 +1,6 @@
 """Device time of a call on one CUDA card, and the redesigned kernels' rows.
 
-    python3 dense_timing.py [--repo DIR]
+    python3 dense_timing.py [--repo DIR] [--rows PREFIX]
 
 As a module it holds how chip_smoke.py times a call: ``busy_ms``, the
 device busy time of one call in a profiler trace (the union of its kernel,
@@ -13,12 +13,15 @@ As a script it times the flash_attn_tpu_torch package of the checkout at
 DIR (default: the one holding this file): K1 (flash_attention_fwd), K2
 (flash_attention_bwd), K7c (the paged page write, GPT-2's prompt and one
 layer of Llama-3-8B's chunk, the latter on four input sets in turn so that
-it cannot run from L2) and K8b (blocksparse dK, dV) at the rows of
-PERF.md's table, each by busy_ms and host_ms; one GPT-2 admission of 8
-prompts (9..700 tokens, bucket 768) through ServingEngine, traced for K1's
-and K7c's launches and device time, with the median host time of three
-untraced admissions; and one chunked admission of 8 prompts at Llama-3-8B's
-widths cut to 4 layers, traced for K7c's launches and device time. To
+it cannot run from L2) and K8a, K8b and K8c (blocksparse forward, dK/dV
+and dQ) at the rows of PERF.md's table, each by busy_ms and host_ms; one
+GPT-2 admission of 8 prompts (9..700 tokens, bucket 768) through
+ServingEngine, traced for K1's and K7c's launches and device time, with the
+median host time of three untraced admissions; one chunked admission of 8
+prompts at Llama-3-8B's widths cut to 4 layers, traced for K7c's launches
+and device time; and two traced GPT-2 train steps through blocksparse
+attention (full width, b=8, s=1024, the LocalGlobal(256) mask), for their
+device busy time and K8a-c's share of it. To
 compare two commits by the same method, unpack the other one with `git
 archive` into a git-ignored directory and run both in one session on the
 card (other, this, this, other). Needs a CUDA card; prints one JSON line.
@@ -254,14 +257,16 @@ def k8b_inputs(dev):
     return inputs
 
 
-def k7c_k8b_rows(dev):
-    """{row: call} for K7c (the paged page write) and K8b (blocksparse dK,
-    dV) on k7c_inputs and k8b_inputs. The Llama chunk row writes the 8 rows
-    of one layer's chunk as the checkout's chunked prefill does (one
-    batched launch, or one write_prompt per row where the checkout has no
-    batched write), on the next of its ROTATE input sets each call."""
+def k7c_k8_rows(dev):
+    """{row: call} for K7c (the paged page write) on k7c_inputs, and for
+    K8a, K8b and K8c (blocksparse forward, dK/dV and dQ) on k8b_inputs. The
+    Llama chunk row writes the 8 rows of one layer's chunk as the
+    checkout's chunked prefill does (one batched launch, or one
+    write_prompt per row where the checkout has no batched write), on the
+    next of its ROTATE input sets each call."""
     from flash_attn_tpu_torch.kernels.blocksparse import (
         blocksparse_attention_dkv,
+        blocksparse_attention_dq,
         blocksparse_attention_fwd,
     )
     from flash_attn_tpu_torch.serving import cache
@@ -282,10 +287,72 @@ def k7c_k8b_rows(dev):
                   seed=1234 if p else None)
         out, lse = blocksparse_attention_fwd(q, k, v, layout, **kw)
         di = (out.float() * dout.float()).sum(-1)
-        rows[f"K8b {shape} b{b} h{h} s{s} d{d}, dropout {p}"] = (
-            lambda a=(q, k, v, dout, lse, di, layout), kw=kw:
-                blocksparse_attention_dkv(*a, **kw))
+        label = f"{shape} b{b} h{h} s{s} d{d}, dropout {p}"
+        rows[f"K8a {label}"] = (
+            lambda a=(q, k, v, layout), kw=kw:
+                blocksparse_attention_fwd(*a, **kw))
+        bwd = (q, k, v, dout, lse, di, layout)
+        rows[f"K8b {label}"] = (
+            lambda a=bwd, kw=kw: blocksparse_attention_dkv(*a, **kw))
+        rows[f"K8c {label}"] = (
+            lambda a=bwd, kw=kw: blocksparse_attention_dq(*a, **kw))
     return rows
+
+
+# Substrings of the blocksparse kernels' names in a trace (K8b's stats
+# launch counts with K8b).
+K8_KERNELS = {"K8a": ("bs_fwd",), "K8b": ("bs_dkv", "bs_stats"),
+              "K8c": ("bs_dq",)}
+
+
+def bs_train_step(dev, n_traced=2):
+    """Device busy ms and K8a-c's device ms and share of ``n_traced``
+    traced GPT-2 train steps through blocksparse attention: full
+    GPT2Config(dropout=0.1) width, fp32 weights, bf16 compute, AdamW, one
+    b=8 x s=1024 batch from numpy's default_rng(0), attn_impl = causal
+    blocksparse_attention over LocalGlobalSparsityConfig(window=256) (the
+    chip_smoke.py path); two untraced steps first."""
+    from flash_attn_tpu_torch.kernels.blocksparse import build_layout
+    from flash_attn_tpu_torch.models.blocksparse_modules import (
+        LocalGlobalSparsityConfig,
+    )
+    from flash_attn_tpu_torch.models.gpt2 import (
+        GPT2Config,
+        GPT2LMHeadModel,
+        make_train_step,
+    )
+    from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
+    cfg = GPT2Config(dropout=0.1)
+    layout = build_layout(
+        LocalGlobalSparsityConfig(window=256).make_layout(1024), sq=1024,
+        sk=1024, causal=True)
+
+    def attn(q, k, v, dropout_seed=None):
+        return blocksparse_attention(
+            q, k, v, layout, causal=True, dropout_seed=dropout_seed,
+            dropout_p=0.0 if dropout_seed is None else cfg.dropout)
+    model = GPT2LMHeadModel(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0),
+        attn_impl=attn)
+    step = make_train_step(model, torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 1024))).to(dev)
+    batch = {"input_ids": ids, "labels": ids}
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        step(batch, gen)
+    steps = []
+    for _ in range(n_traced):
+        _, _, events = trace_call(lambda: step(batch, gen))
+        dev_events = device_events(events)
+        total = sum(e["dur"] for e in dev_events)
+        k8 = {name: sum(e["dur"] for e in dev_events
+                        if any(key in e["name"] for key in keys)) / 1e3
+              for name, keys in K8_KERNELS.items()}
+        steps.append({"busy_ms": union_us(dev_events) / 1e3,
+                      "k8_ms": k8, "k8_share": sum(k8.values()) * 1e3 / total})
+    return steps
 
 
 def serve_admission(dev):
@@ -383,6 +450,10 @@ def main():
         os.path.abspath(__file__)), help="checkout whose kernels are timed")
     parser.add_argument("--warm-s", type=float, default=WARM_S,
                         help="seconds of calls before each trace")
+    parser.add_argument("--rows", default="", metavar="PREFIX",
+                        help="time only the rows whose names start with "
+                        "PREFIX (e.g. K8), and skip the admissions and the "
+                        "train step")
     args = parser.parse_args()
     repo, warm_s = os.path.abspath(args.repo), args.warm_s
     if not torch.cuda.is_available():
@@ -400,25 +471,32 @@ def main():
     build_s = time.perf_counter() - t0
     rows = {}
     for name, fn in {**dense_rows(flash_attention_fwd, flash_attention_bwd,
-                                  dev), **k7c_k8b_rows(dev)}.items():
+                                  dev), **k7c_k8_rows(dev)}.items():
+        if not name.startswith(args.rows):
+            continue
         rows[name] = {"busy_ms": [busy_ms(fn, warm_s=warm_s),
                                   busy_ms(fn, warm_s=warm_s)],
                       "host_ms": host_ms(fn)}
         print(f"{name}: device busy {rows[name]['busy_ms'][0]:.4f} / "
               f"{rows[name]['busy_ms'][1]:.4f} ms, host "
               f"{rows[name]['host_ms']:.4f} ms per call", flush=True)
-    admission = serve_admission(dev)
-    print(f"GPT-2 admission of 8: {admission}")
-    llama = llama_admission(dev)
-    print(f"Llama-3-8B widths, {llama['n_layer']} layers, chunked admission "
-          f"of 8: {llama}")
+    admission = llama = bs_steps = None
+    if not args.rows:
+        admission = serve_admission(dev)
+        print(f"GPT-2 admission of 8: {admission}")
+        llama = llama_admission(dev)
+        print(f"Llama-3-8B widths, {llama['n_layer']} layers, chunked "
+              f"admission of 8: {llama}")
+        bs_steps = bs_train_step(dev)
+        print(f"GPT-2 blocksparse train step, traced: {bs_steps}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"repo": repo, "card": card, "warm_s": warm_s,
                       "build_s": build_s,
                       "rows": rows, "admission": admission,
-                      "llama_admission": llama}))
+                      "llama_admission": llama,
+                      "blocksparse_train_step": bs_steps}))
 
 
 if __name__ == "__main__":

@@ -18,11 +18,18 @@
 // The JAX kernels apply the padding (their segment mask) only on partial
 // tiles, so padded keys of a full tile are attended there; the port follows
 // the oracle (ROADMAP C9).
+//
+// The bf16 / fp16 kernels are wgmma kernels of one warpgroup per 64-row q
+// tile (K8a, K8c) or 64-key kv tile (K8b): neighbouring tiles have
+// different lists, so a block of two tiles would walk the union with one
+// warpgroup idle on the other's dead tiles. K8a and K8c share the K/V ring
+// below and the per-tile key-validity bits.
 #pragma once
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mask.cuh"
 #include "prng.cuh"
 
@@ -30,7 +37,7 @@ namespace fattn {
 
 constexpr int kTileQ = 64;  // query rows per layout tile
 constexpr int kTileK = 64;  // keys per layout tile
-constexpr int kMmaThreads = 128;  // four warps: K8a and K8c's bf16 / fp16 block
+constexpr int kBsThreads = 128;  // one warpgroup: K8a-c's bf16 / fp16 block
 
 // Operands are read and written through Strides (csrc/common.cuh), so
 // the kernels take the op's (b, s, h, d) tensors and the packed qkv's q, k
@@ -55,6 +62,9 @@ struct BsParams {
   const uint8_t* rowmask_t;  // K8b: the same, transposed (ncells, sq_pad)
   const uint8_t* q_valid;  // (b, sq) or nullptr
   const uint8_t* k_valid;  // (b, sk) or nullptr
+  // K8a, K8c: (b, ceil(sk / 64)) words, bit i of word t = key 64 t + i is
+  // valid and inside sk; nullptr without key padding.
+  const uint64_t* key_bits;
   int h, sq, sk, max_n, ncells;
   float scale_log2;  // softmax scale * log2(e)
   float scale;
@@ -97,6 +107,115 @@ __device__ __forceinline__ bool bs_visible(const BsParams& p, bool full,
                                            bool key_ok, int row, int col) {
   return row_ok && key_ok &&
          (full || (cell_on && key_visible(row, col, p.sk, p.causal)));
+}
+
+// ------------------------------------------------- K8a and K8c: the walk
+
+// The q tile of this block. Under causal masking a q tile's list grows
+// with its index, so block 0 takes the last tile: the longest lists start
+// first and the short ones fill the tail.
+__device__ __forceinline__ int bs_q_tile(const BsParams& p) {
+  return p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+}
+
+// Whether a warp whose 16 rows start at warp_row0 tests the elements of
+// the kv tile at k0 one by one (its cell bit is tested per warp): under key
+// padding, or on a partial tile that crosses sk or the warp's causal
+// diagonal. Elsewhere the cell bit alone decides.
+__device__ __forceinline__ bool bs_test_elements(const BsParams& p, bool full,
+                                                 int k0, int warp_row0) {
+  return p.key_bits != nullptr ||
+         (!full && (k0 + kTileK > p.sk ||
+                    (p.causal && k0 + kTileK - 1 > warp_row0)));
+}
+
+// The validity bits of kv tile `tile`'s 64 keys under key padding (the
+// wrapper's key_bits; padding and keys past sk are 0). Without padding a
+// full tile tests nothing and a partial one tests col < sk itself.
+__device__ __forceinline__ uint64_t bs_key_bits(const BsParams& p, int bb,
+                                                int tile) {
+  return p.key_bits[(size_t)bb * ((p.sk + kTileK - 1) / kTileK) + tile];
+}
+
+// Shared memory of K8a and K8c: kResident tiles of 64 rows that stay for
+// the whole walk (Q; Q and dO), then a ring of kStages stages, each the K
+// and the V tile of one entry of the q tile's live kv list. One thread
+// loads them by TMA; the entry is the box's row coordinate (list entry j
+// -> stage j % kStages, mbarrier phase (j / kStages) & 1), so dead tiles
+// are never read. Tiles are 64-column blocks with the 128-byte swizzle of
+// csrc/hopper.cuh.
+template <int D, int kResident, int kStages_>
+struct KvRing {
+  static constexpr int kStages = kStages_;
+  static constexpr int kRes = kTileQ * D;  // elements of a resident tile
+  static constexpr int kKV = kTileK * D;   // of a K or a V tile
+  // The tiles (16-bit), kStages + 1 mbarriers, alignment slack.
+  static constexpr int kBytes =
+      2 * (kResident * kRes + 2 * kStages * kKV) + 8 * (kStages + 1) + 1024;
+
+  uint16_t* res;       // resident tile i at + i * kRes
+  uint16_t* k;         // stage s at + s * kKV
+  uint16_t* v;
+  uint64_t* full;      // one mbarrier per stage
+  uint64_t* res_full;  // the resident tiles'
+
+  __device__ explicit KvRing(uint8_t* raw) {
+    res = reinterpret_cast<uint16_t*>(smem_aligned(raw));
+    k = res + kResident * kRes;
+    v = k + kStages * kKV;
+    full = reinterpret_cast<uint64_t*>(v + kStages * kKV);
+    res_full = full + kStages;
+  }
+
+  // One thread, first: the barriers, and the resident tiles' byte count.
+  __device__ void init() {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_init(res_full, 1);
+    mbar_fence_init();
+    mbar_arrive_expect_tx(res_full, 2 * kResident * kRes);
+  }
+  // Resident tile i: rows q0 .. q0 + 63 of (head hh, batch bb) of `map`.
+  __device__ void load_resident(int i, const CUtensorMap* map, int q0, int hh,
+                                int bb) {
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_4d(res + i * kRes + c * kTileQ * 64, map, res_full, c * 64, q0,
+                  hh, bb);
+    }
+  }
+  // The K and V tiles of list entry j, kv tile `tile`.
+  __device__ void load(int j, int tile, const CUtensorMap* map_k,
+                       const CUtensorMap* map_v, int hh, int bb) {
+    const int s = j % kStages;
+    mbar_arrive_expect_tx(&full[s], 2 * 2 * kKV);
+    for (int c = 0; c < D / 64; ++c) {
+      const int off = s * kKV + c * kTileK * 64;
+      tma_load_4d(k + off, map_k, &full[s], c * 64, tile * kTileK, hh, bb);
+      tma_load_4d(v + off, map_v, &full[s], c * 64, tile * kTileK, hh, bb);
+    }
+  }
+  __device__ void wait_resident() const { mbar_wait(res_full, 0); }
+  __device__ void wait(int j) const {
+    mbar_wait(&full[j % kStages], (j / kStages) & 1);
+  }
+  // Shared byte addresses of resident tile i and of entry j's K and V.
+  __device__ uint32_t res_addr(int i) const { return smem_u32(res + i * kRes); }
+  __device__ uint32_t k_addr(int j) const {
+    return smem_u32(k + (j % kStages) * kKV);
+  }
+  __device__ uint32_t v_addr(int j) const {
+    return smem_u32(v + (j % kStages) * kKV);
+  }
+};
+
+// The TMA map of operand `op` (q, dout: sq rows; k, v: sk rows) with boxes
+// of 64 rows, over its strides.
+inline cudaError_t bs_map(CUtensorMap* map, const BsParams& p, int op, int b,
+                          int d) {
+  const void* base = op == kOpQ ? p.q : op == kOpK ? p.k
+                   : op == kOpV ? p.v : p.dout;
+  const bool rows_q = op == kOpQ || op == kOpDO;
+  return make_tile_map(map, base, b, p.h, rows_q ? p.sq : p.sk, d, p.st[op],
+                       rows_q ? kTileQ : kTileK);
 }
 
 }  // namespace fattn

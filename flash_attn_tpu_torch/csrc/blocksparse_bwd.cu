@@ -35,11 +35,19 @@
 //     transposed rowmask). A kv tile's list differs from its neighbour's,
 //     so a block holds one tile: 128 threads, three blocks to an SM at
 //     d = 64 (168 registers) and two at d = 128 (by shared memory).
-//   - K8c, bf16 / fp16, mma.sync m16n8k16 (csrc/mma.cuh): K1's design: four
-//     warps own 16 rows each with Q and dO as A fragments in registers;
-//     S = Q K^T and dP = dO V^T, then dQ += dS K with dS from the C
-//     fragments. Plain loads into one buffer (wgmma and a ring are later
-//     work, ROADMAP K-a3).
+//   - K8c, bf16 / fp16 (bs_dq_wgmma_kernel): q-stationary, one warpgroup
+//     per 64-row q tile, over the K/V ring K8a uses (csrc/blocksparse.cuh
+//     KvRing: 2 stages, four blocks to an SM at d = 64, two at d = 128).
+//     Q and dO are loaded once by TMA; the K and V tiles of the
+//     live kv list stream by TMA. The row terms (lse in the log2 domain,
+//     +inf where the row sees nothing, is padded or lies past sq; di; the
+//     row hash) are read once per row, so K8c needs no stats launch. S = Q
+//     K^T and dP = dO V^T by wgmma m64n64k16 from shared memory in two
+//     groups, p computed while dP runs; dQ += dS K by register-A wgmma
+//     reading K as stored; the scale applies at the store. The cell bit is
+//     one test per warp, as in K8a. No atomics, no
+//     turns: bitwise reproducible. Under causal masking the longest lists
+//     launch first.
 //   - fp32: 16 keys (K8b) or 16 rows (K8c) per block, FMA on the CUDA cores.
 // Bound: tensor-core operations. Per visible (q, k) pair and head the
 // backward needs 5 products, 10 * d operations; split as here it takes 14
@@ -75,8 +83,6 @@ __global__ void __launch_bounds__(256)
   stats[i] = out;
 }
 
-constexpr int kDkvThreads = 128;  // one warpgroup owns the kv tile's 64 keys
-
 template <int D>
 struct DkvLayout {
   static constexpr int kStages = D == 64 ? 3 : 2;  // 69 KB / 100 KB
@@ -95,7 +101,7 @@ struct DkvLayout {
 // dP^T a thread's accumulator element [4 nb + e] is key key0 + 8 (e >> 1)
 // and query nb * 8 + 2t + (e & 1) of the q tile (csrc/hopper.cuh).
 template <typename T, int D>
-__global__ void __launch_bounds__(kDkvThreads, DkvLayout<D>::kMinBlocks)
+__global__ void __launch_bounds__(kBsThreads, DkvLayout<D>::kMinBlocks)
     bs_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
@@ -400,135 +406,178 @@ __global__ void __launch_bounds__(256) bs_dkv_f32_kernel(const BsParams p) {
 
 // ------------------------------------------------------------------ K8c: dQ
 
-// Thread (warp, g, t) owns rows row0 and row0 + 8 of the q tile, as in K1.
+template <int D>
+using DqRing = KvRing<D, 2, 2>;  // 50,200 / 99,352 B  // 66,592 / 99,352 B
+
+// One block per (q tile, head, batch), one warpgroup. Thread (warp w, lane
+// 4g + t) owns rows row0 = q0 + 16w + g and row0 + 8; its accumulator
+// element [4 nb + e] of S and dP is row + 8 (e >> 1), key 8 nb + 2t + (e & 1)
+// of the tile, of dQ row + 8 (e >> 1), dim 8 nb + 2t + (e & 1).
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads) bs_dq_mma_kernel(const BsParams p) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) uint16_t k_s[kTileK * kStride];
-  __shared__ __align__(16) uint16_t v_s[kTileK * kStride];
-  __shared__ bool kok_s[kTileK];
-
-  const int iq = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = iq * kTileQ + warp * 16 + g;
-  const size_t bh = (size_t)bb * p.h + hh;
-  const uint16_t* q = bs_rows<uint16_t>(p, p.q, kOpQ, bb, hh);
-  const uint16_t* dout = bs_rows<uint16_t>(p, p.dout, kOpDO, bb, hh);
-  const uint16_t* k = bs_rows<uint16_t>(p, p.k, kOpK, bb, hh);
-  const uint16_t* v = bs_rows<uint16_t>(p, p.v, kOpV, bb, hh);
-  const long long qs = p.st[kOpQ].s, dos = p.st[kOpDO].s;
-  const long long ks = p.st[kOpK].s, vs = p.st[kOpV].s;
-
-  // Q and dO rows of this warp as A fragments.
-  auto pair = [&](const uint16_t* x, long long xs, int row, int col) -> uint32_t {
-    return row < p.sq ? ld_pair(x + row * xs + col) : 0u;
-  };
-  uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = pair(q, qs, row0, kk * 16 + 2 * t);
-    qa[kk][1] = pair(q, qs, row0 + 8, kk * 16 + 2 * t);
-    qa[kk][2] = pair(q, qs, row0, kk * 16 + 8 + 2 * t);
-    qa[kk][3] = pair(q, qs, row0 + 8, kk * 16 + 8 + 2 * t);
-    da[kk][0] = pair(dout, dos, row0, kk * 16 + 2 * t);
-    da[kk][1] = pair(dout, dos, row0 + 8, kk * 16 + 2 * t);
-    da[kk][2] = pair(dout, dos, row0, kk * 16 + 8 + 2 * t);
-    da[kk][3] = pair(dout, dos, row0 + 8, kk * 16 + 8 + 2 * t);
-  }
-  float lse2[2], di_r[2];
-  bool rok[2];
-  uint32_t rh[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const float l = row < p.sq ? p.lse[bh * p.sq + row] : -INFINITY;
-    lse2[r] = l == -INFINITY ? INFINITY : l * kLog2e;  // exp2(x - inf) = 0
-    di_r[r] = row < p.sq ? p.di[bh * p.sq + row] : 0.f;
-    rok[r] = bs_row_ok(p, bb, row);
-    rh[r] = p.drop.on() ? hash_row(p.drop.seed, (uint32_t)bh, row) : 0u;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
+__global__ void __launch_bounds__(kBsThreads, D == 64 ? 4 : 2)
+    bs_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const BsParams p) {
+  using R = DqRing<D>;
+  const int iq = bs_q_tile(p), hh = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int warp_row0 = iq * kTileQ + warp * 16;
+  const int row0 = warp_row0 + g;  // this thread's rows: row0, row0 + 8
   const int n = p.cnt[iq];
-  for (int j = 0; j < n; ++j) {
-    const int k0 = p.idx[iq * p.max_n + j] * kTileK;
-    const bool full = p.full[iq * p.max_n + j] != 0;
+  const int* tiles = p.idx + (size_t)iq * p.max_n;  // live kv tiles
+  const int* fulls = p.full + (size_t)iq * p.max_n;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  if (n > 0) {
+    extern __shared__ uint8_t smem_raw[];
+    R ring(smem_raw);
+    if (tid == 0) {
+      ring.init();
+      ring.load_resident(0, &map_q, iq * kTileQ, hh, bb);
+      ring.load_resident(1, &map_do, iq * kTileQ, hh, bb);
+      for (int j = 0; j < R::kStages && j < n; ++j) {
+        ring.load(j, tiles[j], &map_k, &map_v, hh, bb);
+      }
+    }
     __syncthreads();
-    constexpr int kVecPerRow = D / 8;
-    #pragma unroll
-    for (int i = threadIdx.x; i < kTileK * kVecPerRow; i += kMmaThreads) {
-      const int r = i / kVecPerRow, c = (i % kVecPerRow) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < p.sk) {
-        kv = *reinterpret_cast<const uint4*>(k + (k0 + r) * ks + c);
-        vv = *reinterpret_cast<const uint4*>(v + (k0 + r) * vs + c);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
-      *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
-    }
-    if (threadIdx.x < kTileK) kok_s[threadIdx.x] = bs_key_ok(p, bb, k0 + threadIdx.x);
-    __syncthreads();
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows and the 64 keys.
-    float s[kTileK / 8][4], dp[kTileK / 8][4];
+    // The row terms, once per row: lse in the log2 domain, +inf where the
+    // row sees nothing, is padded or lies past sq (so p = exp2(s - inf) =
+    // 0), di and the dropout row hash.
+    const size_t bh = (size_t)bb * p.h + hh;
+    float lse2[2], di_r[2];
+    uint32_t rh[2];
 #pragma unroll
-    for (int nb = 0; nb < kTileK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (nb * 8 + g) * kStride + kk * 16 + 2 * t;
-        Mma<T>::run(s[nb], qa[kk], ld_pair(k_s + off), ld_pair(k_s + off + 8));
-        Mma<T>::run(dp[nb], da[kk], ld_pair(v_s + off), ld_pair(v_s + off + 8));
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const float l = row < p.sq ? p.lse[bh * p.sq + row] : -INFINITY;
+      lse2[r] = l == -INFINITY || !bs_row_ok(p, bb, row) ? INFINITY
+                                                         : l * kLog2e;
+      di_r[r] = row < p.sq ? p.di[bh * p.sq + row] : 0.f;
+      rh[r] = p.drop.on() ? hash_row(p.drop.seed, (uint32_t)bh, row) : 0u;
     }
+    const bool pad = p.key_bits != nullptr;  // tested on every tile (C9)
+    const uint32_t q_base = ring.res_addr(0), do_base = ring.res_addr(1);
+    ring.wait_resident();
 
-    // s <- dS = p * (dP - di), dP dropped and rescaled.
-    const bool cell = !full && bs_cell_on(p, row0, k0);
+    for (int j = 0; j < n; ++j) {
+      const int k0 = tiles[j] * kTileK;
+      const bool full = fulls[j] != 0;
+      ring.wait(j);
+      const uint32_t kb = opaque(ring.k_addr(j));
+
+      // S = Q K^T and dP = dO V^T, 64 rows x 64 keys, as two groups so p
+      // can start while dP runs.
+      float s[kTileK / 2], dp[kTileK / 2];
+      {
+        const uint32_t qb = opaque(q_base), dob = opaque(do_base);
+        const uint32_t vb = opaque(ring.v_addr(j));
+        wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < kTileK / 8; ++nb) {
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int c = kk / 4, step = (kk % 4) * 32;
+          Wgmma<T, kTileK>::template ss<0, 0>(
+              s, sw128_desc(qb + c * kTileQ * 128 + step, 16, 1024),
+              sw128_desc(kb + c * kTileK * 128 + step, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = nb * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const bool vis = bs_visible(p, full, cell, rok[r], kok_s[cl], row0 + 8 * r, k0 + cl);
-        const float pv = vis ? exp2f(s[nb][e] * p.scale_log2 - lse2[r]) : 0.f;
-        float dpd = dp[nb][e] * p.drop.rp;
-        if (p.drop.on() && !keep_elem(rh[r], k0 + cl, p.drop.threshold)) dpd = 0.f;
-        s[nb][e] = pv * (dpd - di_r[r]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int c = kk / 4, step = (kk % 4) * 32;
+          Wgmma<T, kTileK>::template ss<0, 0>(
+              dp, sw128_desc(dob + c * kTileQ * 128 + step, 16, 1024),
+              sw128_desc(vb + c * kTileK * 128 + step, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
       }
-    }
+      wgmma_wait<1>();
+      fence_regs(s);
 
-    // dQ += dS K: the C fragments of two key n-blocks form one A fragment.
+      // s <- p (pre-dropout). A warp's 16 rows are one cell row: a dead
+      // cell zeroes the tile for the whole warp, a live one leaves only the
+      // per-element tests (bs_test_elements).
+      const bool cell = full || bs_cell_on(p, row0, k0);
+      const bool test = bs_test_elements(p, full, k0, warp_row0);
+      const uint64_t kbits = pad ? bs_key_bits(p, bb, tiles[j]) : ~0ull;
 #pragma unroll
-    for (int kk = 0; kk < kTileK / 16; ++kk) {
-      const uint32_t dsa[4] = {
-          Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-          Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-          Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
+      for (int nb = 0; nb < kTileK / 8; ++nb) {
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const uint16_t* kr = k_s + (kk * 16 + 2 * t) * kStride + dn * 8 + g;
-        Mma<T>::run(acc[dn], dsa, ld_col_pair(kr, kStride),
-                    ld_col_pair(kr + 8 * kStride, kStride));
+        for (int e = 0; e < 4; ++e) {
+          float pv = fast_exp2(fmaf(s[4 * nb + e], p.scale_log2, -lse2[e >> 1]));
+          if (test) {
+            const int cl = nb * 8 + 2 * t + (e & 1);
+            const bool vis = ((kbits >> cl) & 1ull) &&
+                             key_visible(row0 + 8 * (e >> 1), k0 + cl, p.sk,
+                                         p.causal);
+            if (!vis) pv = 0.f;
+          }
+          s[4 * nb + e] = cell ? pv : 0.f;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // s <- dS = p * (dP - di), dP dropped and rescaled.
+#pragma unroll
+      for (int nb = 0; nb < kTileK / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float dpd = dp[4 * nb + e] * p.drop.rp;
+          if (p.drop.on() &&
+              !keep_elem(rh[e >> 1], k0 + nb * 8 + 2 * t + (e & 1),
+                         p.drop.threshold)) {
+            dpd = 0.f;
+          }
+          s[4 * nb + e] *= dpd - di_r[e >> 1];
+        }
+      }
+
+      // dQ += dS K: A from registers (the C fragments of two key n-blocks
+      // form one A fragment), K read as stored.
+      uint32_t dsa[kTileK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTileK / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dsa[kk][i] = Mma<T>::pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        }
+      }
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileK / 16; ++kk) {
+        Wgmma<T, D>::template rs<1>(
+            dq, dsa[kk], sw128_desc(kb + kk * 16 * 128, kTileK * 128, 1024),
+            1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dsa);
+      fence_regs(dq);
+      // Every thread's products on entry j's stage are done: refill it.
+      __syncthreads();
+      if (tid == 0 && j + R::kStages < n) {
+        ring.load(j + R::kStages, tiles[j + R::kStages], &map_k, &map_v, hh,
+                  bb);
       }
     }
   }
 
-  uint16_t* dq = bs_rows<uint16_t>(p, p.o, kOpO, bb, hh);
+  uint16_t* dq_out = bs_rows<uint16_t>(p, p.o, kOpO, bb, hh);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= p.sq) continue;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      *reinterpret_cast<uint32_t*>(dq + row * p.st[kOpO].s + dn * 8 + 2 * t) =
-          Mma<T>::pack(acc[dn][2 * r] * p.scale, acc[dn][2 * r + 1] * p.scale);
+    for (int nb = 0; nb < D / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(dq_out + row * p.st[kOpO].s + nb * 8 +
+                                   2 * t) =
+          Mma<T>::pack(dq[nb * 4 + 2 * r] * p.scale,
+                       dq[nb * 4 + 2 * r + 1] * p.scale);
     }
   }
 }
@@ -630,23 +679,17 @@ cudaError_t launch_dkv_wgmma(const BsParams& p, float4* stats, int b,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   CUtensorMap map_q, map_k, map_v, map_do;
-  err = make_tile_map(&map_q, p.q, b, p.h, p.sq, D, p.st[kOpQ], kTileQ);
-  if (err == cudaSuccess) {
-    err = make_tile_map(&map_do, p.dout, b, p.h, p.sq, D, p.st[kOpDO], kTileQ);
-  }
-  if (err == cudaSuccess) {
-    err = make_tile_map(&map_k, p.k, b, p.h, p.sk, D, p.st[kOpK], kTileK);
-  }
-  if (err == cudaSuccess) {
-    err = make_tile_map(&map_v, p.v, b, p.h, p.sk, D, p.st[kOpV], kTileK);
-  }
+  err = bs_map(&map_q, p, kOpQ, b, D);
+  if (err == cudaSuccess) err = bs_map(&map_do, p, kOpDO, b, D);
+  if (err == cudaSuccess) err = bs_map(&map_k, p, kOpK, b, D);
+  if (err == cudaSuccess) err = bs_map(&map_v, p, kOpV, b, D);
   if (err != cudaSuccess) return err;
   const auto kernel = bs_dkv_wgmma_kernel<T, D>;
   // Once per kernel and process (the first launch, on the current device).
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3((p.sk + kTileK - 1) / kTileK, p.h, b), kDkvThreads, L::kBytes,
+  kernel<<<dim3((p.sk + kTileK - 1) / kTileK, p.h, b), kBsThreads, L::kBytes,
            st>>>(map_q, map_k, map_v, map_do, p, stats, sq_pad);
   return cudaGetLastError();
 }
@@ -668,23 +711,39 @@ cudaError_t launch_dkv(const BsParams& p, float4* stats, int dtype, int b,
   }
 }
 
+template <typename T, int D>
+cudaError_t launch_dq_wgmma(const BsParams& p, int b, cudaStream_t st) {
+  using R = DqRing<D>;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t err = bs_map(&map_q, p, kOpQ, b, D);
+  if (err == cudaSuccess) err = bs_map(&map_do, p, kOpDO, b, D);
+  if (err == cudaSuccess) err = bs_map(&map_k, p, kOpK, b, D);
+  if (err == cudaSuccess) err = bs_map(&map_v, p, kOpV, b, D);
+  if (err != cudaSuccess) return err;
+  const auto kernel = bs_dq_wgmma_kernel<T, D>;
+  // Once per kernel and process (the first launch, on the current device).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3((p.sq + kTileQ - 1) / kTileQ, p.h, b), kBsThreads, R::kBytes,
+           st>>>(map_q, map_k, map_v, map_do, p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq(const BsParams& p, int dtype, int b, cudaStream_t st) {
   const int nq = (p.sq + kTileQ - 1) / kTileQ;
   switch (dtype) {
     case kBF16:
-      bs_dq_mma_kernel<__nv_bfloat16, D><<<dim3(nq, p.h, b), kMmaThreads, 0, st>>>(p);
-      break;
+      return launch_dq_wgmma<__nv_bfloat16, D>(p, b, st);
     case kF16:
-      bs_dq_mma_kernel<__half, D><<<dim3(nq, p.h, b), kMmaThreads, 0, st>>>(p);
-      break;
+      return launch_dq_wgmma<__half, D>(p, b, st);
     case kF32:
       bs_dq_f32_kernel<D><<<dim3(nq * (kTileQ / 16), p.h, b), 256, 0, st>>>(p);
-      break;
+      return cudaGetLastError();
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 BsParams bwd_params(const void* q, const void* k, const void* v, const void* dout,
@@ -756,21 +815,24 @@ extern "C" int fattn_blocksparse_dkv(
 }
 
 // K8c. kv_idx, kv_cnt, kv_full: the layout's per-q-tile lists of kv tiles;
-// strides as in fattn_blocksparse_fwd (o: dq; those of dk, dv unused).
+// key_bits and strides as in fattn_blocksparse_fwd (o: dq; those of dk, dv
+// unused).
 extern "C" int fattn_blocksparse_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dq, const long long* strides,
     const void* kv_idx,
     const void* kv_cnt, const void* kv_full, const void* rowmask,
-    const void* q_valid, const void* k_valid, int b, int h, int sq, int sk,
-    int d, int max_kv, int ncells, float scale, int causal, unsigned seed,
-    unsigned threshold, float rp, int dtype, void* stream) {
+    const void* q_valid, const void* k_valid, const void* key_bits, int b,
+    int h, int sq, int sk, int d, int max_kv, int ncells, float scale,
+    int causal, unsigned seed, unsigned threshold, float rp, int dtype,
+    void* stream) {
   using namespace fattn;
   if (bad_sizes(b, h, sq, sk, max_kv, ncells)) return cudaErrorInvalidValue;
   BsParams p = bwd_params(q, k, v, dout, lse, di, strides, kv_idx, kv_cnt, kv_full,
                           rowmask, q_valid, k_valid, h, sq, sk, max_kv, ncells,
                           scale, causal, seed, threshold, rp);
   p.o = dq;
+  p.key_bits = static_cast<const uint64_t*>(key_bits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_dq<64>(p, dtype, b, st);
   if (d == 128) return launch_dq<128>(p, dtype, b, st);
@@ -781,4 +843,10 @@ extern "C" int fattn_blocksparse_dq(
 extern "C" int fattn_blocksparse_dkv_smem(int d) {
   using namespace fattn;
   return d == 64 ? DkvLayout<64>::kBytes : d == 128 ? DkvLayout<128>::kBytes : 0;
+}
+
+// Dynamic shared memory of K8c's bf16/fp16 kernel at head dim d (0: none).
+extern "C" int fattn_blocksparse_dq_smem(int d) {
+  using namespace fattn;
+  return d == 64 ? DqRing<64>::kBytes : d == 128 ? DqRing<128>::kBytes : 0;
 }

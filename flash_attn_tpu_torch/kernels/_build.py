@@ -65,9 +65,9 @@ _SIGNATURES = {
     # page_size, d, k/v strides of row, token and head, elem_bytes, stream
     "fattn_write_pages": [_P] * 5 + [_I] * 7 + [_L] * 3 + [_I, _P],
     # q, k, v, o, lse, strides, kv_idx, kv_cnt, kv_full, rowmask, q_valid,
-    # k_valid, b, h, sq, sk, d, max_kv, ncells, scale, causal, seed,
-    # threshold, rp, dtype, stream
-    "fattn_blocksparse_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
+    # k_valid, key_bits, b, h, sq, sk, d, max_kv, ncells, scale, causal,
+    # seed, threshold, rp, dtype, stream
+    "fattn_blocksparse_fwd": [_P] * 13 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
                                                      _P],
     # q, k, v, dout, lse, di, dk, dv, stats, strides, q_idx, q_cnt, q_full,
     # rowmask, rowmask_t, q_valid, k_valid, b, h, sq, sk, d, max_q, ncells,
@@ -75,9 +75,9 @@ _SIGNATURES = {
     "fattn_blocksparse_dkv": [_P] * 17 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
                                                      _P],
     # q, k, v, dout, lse, di, dq, strides, kv_idx, kv_cnt, kv_full, rowmask,
-    # q_valid, k_valid, b, h, sq, sk, d, max_kv, ncells, scale, causal, seed,
-    # threshold, rp, dtype, stream
-    "fattn_blocksparse_dq": [_P] * 14 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
+    # q_valid, k_valid, key_bits, b, h, sq, sk, d, max_kv, ncells, scale,
+    # causal, seed, threshold, rp, dtype, stream
+    "fattn_blocksparse_dq": [_P] * 15 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
                                                     _P],
     # d: the dynamic shared memory of K1's / K2's bf16/fp16 kernel
     "fattn_flash_fwd_smem": [_I],
@@ -85,8 +85,11 @@ _SIGNATURES = {
     # d: the dynamic shared memory of K5's / K6's bf16/fp16 kernel
     "fattn_paged_decode_smem": [_I],
     "fattn_paged_chunk_smem": [_I],
-    # d: the dynamic shared memory of K8b's bf16/fp16 kernel
+    # d: the dynamic shared memory of K8a's, K8b's and K8c's bf16/fp16
+    # kernels
+    "fattn_blocksparse_fwd_smem": [_I],
     "fattn_blocksparse_dkv_smem": [_I],
+    "fattn_blocksparse_dq_smem": [_I],
 }
 
 _lib: ctypes.CDLL | None = None

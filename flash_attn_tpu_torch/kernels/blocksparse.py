@@ -381,6 +381,20 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def key_bits(k_valid, sk_pad: int):
+    """K8a's and K8c's key validity, one 64-bit word per kv tile: (b,
+    sk_pad // 64) int64 whose bit i of word t is set iff key 64 t + i is
+    inside sk and ``k_valid`` marks it valid. None without key padding."""
+    if k_valid is None:
+        return None
+    b, sk = k_valid.shape
+    bits = torch.zeros((b, sk_pad), dtype=torch.int64, device=k_valid.device)
+    bits[:, :sk] = k_valid != 0
+    shifts = torch.arange(TILE_K, dtype=torch.int64, device=k_valid.device)
+    # Distinct powers of two: the sum is the OR, and stays in int64's range.
+    return (bits.view(b, -1, TILE_K) << shifts).sum(-1)
+
+
 def blocksparse_attention_fwd(q, k, v, layout: BlockSparseLayout,
                               q_valid=None, k_valid=None, *,
                               softmax_scale: float, dropout_p: float = 0.0,
@@ -399,13 +413,14 @@ def blocksparse_attention_fwd(q, k, v, layout: BlockSparseLayout,
     lay = layout.on(q.device)
     out = empty_rows(b, h, sq, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    kbits = key_bits(k_valid, layout.sk_pad)
     code = _build.lib().fattn_blocksparse_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), strides_arg(q=q, k=k, v=v, o=out),
         lay["kv_indices"].data_ptr(),
         lay["kv_counts"].data_ptr(), lay["kv_full"].data_ptr(),
         lay["rowmask"].data_ptr(), _ptr(q_valid), _ptr(k_valid),
-        b, h, sq, layout.sk, d, layout.max_kv, layout.ncells,
+        _ptr(kbits), b, h, sq, layout.sk, d, layout.max_kv, layout.ncells,
         float(softmax_scale), int(layout.causal), seed_u32, threshold, rp,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     blocksparse_attention_fwd.launches += 1
@@ -472,13 +487,15 @@ def blocksparse_attention_dq(q, k, v, dout, lse, di,
     b, h, sq, d = q.shape
     lay = layout.on(q.device)
     dq = empty_rows(b, h, sq, q)
+    kbits = key_bits(k_valid, layout.sk_pad)
     code = _build.lib().fattn_blocksparse_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         strides_arg(q=q, k=k, v=v, o=dq, dout=dout),
         lay["kv_indices"].data_ptr(), lay["kv_counts"].data_ptr(),
         lay["kv_full"].data_ptr(), lay["rowmask"].data_ptr(), _ptr(q_valid),
-        _ptr(k_valid), b, h, sq, layout.sk, d, layout.max_kv, layout.ncells,
+        _ptr(k_valid), _ptr(kbits), b, h, sq, layout.sk, d, layout.max_kv,
+        layout.ncells,
         float(softmax_scale), int(layout.causal), seed_u32, threshold, rp,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     blocksparse_attention_dq.launches += 1

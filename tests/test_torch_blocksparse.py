@@ -294,6 +294,27 @@ def test_layout_lists_and_full_flags(causal, sq, sk):
     assert full.any()
 
 
+@pytest.mark.parametrize("sk", [64, 130, 600])
+def test_key_bits_pack_each_kv_tiles_valid_keys(sk):
+    """K8a and K8c read key padding as one 64-bit word per (batch row, kv
+    tile): bit i of word t is key 64 t + i, set iff it is inside sk and
+    k_valid marks it; the words past sk are 0. None without padding."""
+    rng = np.random.default_rng(sk)
+    k_valid = torch.from_numpy(rng.random((3, sk)) < 0.7).to(torch.uint8)
+    k_valid[1] = 0
+    k_valid[2] = 1
+    sk_pad = bs.build_layout(np.ones((1, -(-sk // 256)), bool), sq=16,
+                             sk=sk).sk_pad
+    words = bs.key_bits(k_valid, sk_pad)
+    assert words.dtype == torch.int64 and words.shape == (3, sk_pad // 64)
+    got = (words.numpy()[..., None].view(np.uint64)
+           >> np.arange(64, dtype=np.uint64)) & np.uint64(1)
+    want = np.zeros((3, sk_pad), bool)
+    want[:, :sk] = k_valid.numpy() != 0
+    assert np.array_equal(got.reshape(3, sk_pad).astype(bool), want)
+    assert bs.key_bits(None, sk_pad) is None
+
+
 def test_band_mask_runs_the_blocksparse_kernels_and_convert_blockmask():
     """A band-shaped cell mask (which JAX routes to its window kernel) runs
     the port's blocksparse path and agrees with the oracle and with JAX's

@@ -791,24 +791,9 @@ def test_blocksparse_dkv_kernel_at_bs_shapes(cuda, shape, dtype):
     """K8b alone at BS_SHAPES: dk and dv against the twin and, by the 2x
     rule, fp32 autograd through attention_ref with the element mask; 10
     seeded reruns bit for bit."""
-    b, h, s, d, cells, causal, p, valid = shape
-    rng = np.random.default_rng(s)
-    n = (-(-s // 16), -(-s // 256))
-    if cells == "local-global":
-        bm = LocalGlobalSparsityConfig(window=256).make_layout(s)
-    elif cells == "ones":
-        bm = np.ones(n, bool)
-    else:
-        bm = rng.random(n) < float(cells.split()[1])
-    layout = build_layout(bm, sq=s, sk=s, causal=causal)
-    q, k, v, dout = (_randn(rng, (b, h, s, d), dtype, cuda) for _ in range(4))
-    q_valid = k_valid = None
-    if valid is not None:
-        k_valid = torch.ones((b, s), dtype=torch.uint8, device=cuda)
-        k_valid[0, valid:] = 0
-        q_valid = k_valid.clone()
-        assert layout.kv_full.all()
-    kw = dict(softmax_scale=d ** -0.5, dropout_p=p, seed=7 if p else None)
+    b, h, s, d, _, _, p, _ = shape
+    q, k, v, dout, layout, q_valid, k_valid, kw = _bs_shape_inputs(
+        shape, dtype, cuda)
     out, lse = blocksparse_attention_fwd(q, k, v, layout, q_valid, k_valid,
                                          **kw)
     di = (out.float() * dout.float()).sum(-1)
@@ -838,6 +823,147 @@ def test_blocksparse_dkv_kernel_at_bs_shapes(cuda, shape, dtype):
         assert_two_x_bound(g, tw.float(), nat, atol=1e-4,
                            label=f"d{name} vs twin {shape} {dtype}")
     _reruns_equal(run)
+
+
+def _ref_dq(q, k, v, dout, ref, upcast):
+    """dq of attention_ref(**ref) by autograd, in fp32 (``upcast``) or in
+    the inputs' dtype."""
+    leaves = [(x.float() if upcast else x).detach().requires_grad_()
+              for x in (q, k, v)]
+    o = attention_ref(*leaves, upcast=upcast, **ref)
+    o.backward(dout.to(o.dtype))
+    return leaves[0].grad
+
+
+def _bs_shape_inputs(shape, dtype, device):
+    """q, k, v, dout, the layout, q_valid, k_valid and the kernels' keyword
+    arguments of one BS_SHAPES entry, from numpy's default_rng(s)."""
+    b, h, s, d, cells, causal, p, valid = shape
+    rng = np.random.default_rng(s)
+    n = (-(-s // 16), -(-s // 256))
+    if cells == "local-global":
+        bm = LocalGlobalSparsityConfig(window=256).make_layout(s)
+    elif cells == "ones":
+        bm = np.ones(n, bool)
+    else:
+        bm = rng.random(n) < float(cells.split()[1])
+    layout = build_layout(bm, sq=s, sk=s, causal=causal)
+    q, k, v, dout = (_randn(rng, (b, h, s, d), dtype, device)
+                     for _ in range(4))
+    q_valid = k_valid = None
+    if valid is not None:
+        k_valid = torch.ones((b, s), dtype=torch.uint8, device=device)
+        k_valid[0, valid:] = 0
+        q_valid = k_valid.clone()
+        assert layout.kv_full.all()
+    kw = dict(softmax_scale=d ** -0.5, dropout_p=p, seed=7 if p else None)
+    return q, k, v, dout, layout, q_valid, k_valid, kw
+
+
+# BS_SHAPES and a config 4-like mask at s = 4096: q tiles' lists run to 64
+# live tiles, past the K/V ring's 2-4 stages.
+FWD_DQ_SHAPES = BS_SHAPES + [(2, 4, 4096, 64, "random 0.25", True, 0.0,
+                              None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", FWD_DQ_SHAPES, ids=str)
+def test_blocksparse_fwd_and_dq_kernels_at_bs_shapes(cuda, shape, dtype):
+    """K8a and K8c alone at BS_SHAPES and at s = 4096: out, lse and dq
+    against the twins and, by the 2x rule, the oracle (fp32 autograd through
+    attention_ref with the element mask for dq); 10 seeded reruns of each
+    bit for bit."""
+    q, k, v, dout, layout, q_valid, k_valid, kw = _bs_shape_inputs(
+        shape, dtype, cuda)
+    b, h, s, d, _, _, p, _ = shape
+
+    def fwd():
+        return blocksparse_attention_fwd(q, k, v, layout, q_valid, k_valid,
+                                         **kw)
+    out, lse = fwd()
+    di = (out.float() * dout.float()).sum(-1)
+
+    def dq():
+        return (blocksparse_attention_dq(q, k, v, dout, lse, di, layout,
+                                         q_valid, k_valid, **kw),)
+    (dq_k,) = dq()
+    torch.cuda.synchronize()
+    twin, twin_lse = blocksparse_attention_fwd_plain(
+        q, k, v, layout, q_valid, k_valid, **kw)
+    twin_dq, _, _ = blocksparse_attention_bwd_plain(
+        q, k, v, dout, lse, di, layout, q_valid, k_valid, **kw)
+    mask = visible_plain(layout, q_valid, k_valid, cuda)
+    keep = dropout_mask_dense(7, b, h, s, s, p, device=cuda) if p else None
+    ref = dict(mask=mask, dropout_mask=keep, dropout_p=p)
+    native = attention_ref(q, k, v, upcast=False, **ref)
+    assert_two_x_bound(out, attention_ref(q, k, v, **ref), native,
+                       label=f"out {shape} {dtype}")
+    assert_two_x_bound(out, twin.float(), native,
+                       label=f"out vs twin {shape} {dtype}")
+    dead = ~mask.any(-1).expand(b, h, s)
+    assert torch.equal(torch.isneginf(lse), dead)
+    torch.testing.assert_close(lse[~dead], twin_lse[~dead], atol=1e-3,
+                               rtol=1e-3)
+    assert not out[dead].any() and not dq_k[dead].any()
+
+    nat = _ref_dq(q, k, v, dout, ref, upcast=False)
+    assert_two_x_bound(dq_k, _ref_dq(q, k, v, dout, ref, upcast=True), nat,
+                       atol=1e-4,
+                       label=f"dq {shape} {dtype}")
+    assert_two_x_bound(dq_k, twin_dq.float(), nat, atol=1e-4,
+                       label=f"dq vs twin {shape} {dtype}")
+    _reruns_equal(fwd)
+    _reruns_equal(dq)
+
+
+@pytest.mark.parametrize("pad", [False, True], ids=["no-pad", "pad"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_blocksparse_empty_lists_and_dead_rows(cuda, dtype, d, pad):
+    """A q tile whose list is empty (loads nothing) and rows that see
+    nothing inside live tiles (a dead cell row; with padding, padded rows
+    and a batch row with every key padded): out 0, lse -inf and dq 0 there,
+    the rest against the twins by the 2x rule."""
+    b, h, s = 2, 2, 448  # ragged: seven q tiles, two cell columns
+    rng = np.random.default_rng(d + pad)
+    bm = rng.random((s // 16, 2)) < 0.6
+    bm[:, 0] = True
+    bm[4:8] = False  # q tile 1: empty list
+    bm[13] = False  # one dead cell row inside q tile 3
+    layout = build_layout(bm, sq=s, sk=s, causal=True)
+    assert layout.kv_counts[1] == 0
+    q_valid = k_valid = None
+    if pad:
+        k_valid = torch.ones((b, s), dtype=torch.uint8, device=cuda)
+        k_valid[0, 300:] = 0
+        k_valid[1] = 0  # batch row 1 sees nothing
+        q_valid = k_valid.clone()
+    q, k, v, dout = (_randn(rng, (b, h, s, d), dtype, cuda)
+                     for _ in range(4))
+    kw = dict(softmax_scale=d ** -0.5, dropout_p=0.1, seed=9)
+    out, lse = blocksparse_attention_fwd(q, k, v, layout, q_valid, k_valid,
+                                         **kw)
+    di = (out.float() * dout.float()).sum(-1)
+    dq = blocksparse_attention_dq(q, k, v, dout, lse, di, layout, q_valid,
+                                  k_valid, **kw)
+    torch.cuda.synchronize()
+    mask = visible_plain(layout, q_valid, k_valid, cuda)
+    dead = ~mask.any(-1).expand(b, h, s)
+    assert dead[:, :, 64:128].all() and dead[:, :, 208:224].all()
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert not out[dead].any() and not dq[dead].any()
+    twin, _ = blocksparse_attention_fwd_plain(q, k, v, layout, q_valid,
+                                              k_valid, **kw)
+    twin_dq, _, _ = blocksparse_attention_bwd_plain(
+        q, k, v, dout, lse, di, layout, q_valid, k_valid, **kw)
+    ref = dict(mask=mask, dropout_p=0.1,
+               dropout_mask=dropout_mask_dense(9, b, h, s, s, 0.1,
+                                               device=cuda))
+    native = attention_ref(q, k, v, upcast=False, **ref)
+    assert_two_x_bound(out, twin.float(), native, label="out vs twin")
+    assert_two_x_bound(dq, twin_dq.float(),
+                       _ref_dq(q, k, v, dout, ref, upcast=False), atol=1e-4,
+                       label="dq vs twin")
 
 
 @pytest.mark.parametrize("d", [64, 128])
