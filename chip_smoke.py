@@ -14,7 +14,14 @@ paths with random weights from torch.Generator seed 0:
     steps held to teacher forcing;
   - speculative verification, GPT-2: a 6-layer draft proposes 4 tokens,
     the 12-layer model scores them through flash_attn_with_kvcache; every
-    round's logits held to the 2x rule;
+    round's logits held to the 2x rule; one verify round timed;
+  - the cache appends of decode (K7a) and verification (K7b) run inside
+    the paged attention launch that reads them (K5, K6): each path must
+    launch no standalone append, and the fused kernels must equal the
+    standalone append followed by K5 / K6 bit for bit at GPT-2's and
+    Llama-3-8B's decode shapes and at verification; a traced GPT-2 decode
+    window must show no copy kernel between a layer's qkv projection and
+    K5;
   - chunked serving, Llama-3-8B's published widths (32 layers, GQA 32/8,
     head_dim 128, bf16): 8 requests (prompts 300..4000) with
     prefill_chunk=512, and a 1500-token prompt in three chunks + 16 decode
@@ -25,7 +32,8 @@ paths with random weights from torch.Generator seed 0:
     step at dropout 0 held to the 2x rule against fp32 compute.
 A determinism phase requires 10 seeded reruns to agree bit for bit: K1 + K2
 at the train shape with dropout 0.1, K8a-c at BS_SHAPES (i), K5 and K6 at
-Llama-3-8B's decode and chunk shapes; each paged shape prints the split
+Llama-3-8B's decode and chunk shapes, and K5 and K6 with the append at
+Llama's decode and at the verify shape; each paged shape prints the split
 count the host chose for it.
 It prints ptxas's registers and spills, the dynamic shared memory and the
 HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5, K6 and K8a-c,
@@ -63,7 +71,10 @@ import torch
 import torch.nn.functional as F
 
 from dense_timing import (
+    APPEND_SHAPES,
+    append_inputs,
     busy_ms,
+    decode_window,
     device_events,
     host_ms,
     k7c_inputs,
@@ -92,6 +103,7 @@ from flash_attn_tpu_torch.kernels.common import paged_num_splits, sm_count
 from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_decode_with_append,
 )
 from flash_attn_tpu_torch.kernels.flash_bwd import (
     flash_attention_bwd,
@@ -117,7 +129,11 @@ from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
 from flash_attn_tpu_torch.reference import attention_ref, paged_chunk_ref
 from flash_attn_tpu_torch.serving import cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
-from flash_attn_tpu_torch.serving.speculative import speculative_decode
+from flash_attn_tpu_torch.serving.kvcache import flash_attn_with_kvcache
+from flash_attn_tpu_torch.serving.speculative import (
+    score_chunk,
+    speculative_decode,
+)
 from flash_attn_tpu_torch.utils.testing import (
     assert_two_x_bound,
     max_err,
@@ -126,36 +142,58 @@ from flash_attn_tpu_torch.utils.testing import (
 
 DEV = torch.device("cuda")
 BF16 = torch.bfloat16
+def counter(fn, attr="launches"):
+    """A wrapper's launch counter: the attribute ``attr`` of ``fn``."""
+    return (fn, attr)
+
+
+# The appends that run inside K5's and K6's launches on the serving paths.
+FUSED_K7A = counter(paged_decode_with_append)
+FUSED_K7B = counter(paged_chunk_attention, "append_launches")
 KERNELS = {
-    # name: (wrapper, source, TPU kernel it replaces)
-    "flash_fwd": (flash_attention_fwd, "flash_attn_tpu_torch/csrc/flash_fwd.cu",
+    # name: (counters of its launches, source, TPU kernel it replaces)
+    "flash_fwd": ((counter(flash_attention_fwd),),
+                  "flash_attn_tpu_torch/csrc/flash_fwd.cu",
                   "flash_attn_tpu/kernels/flash_fwd.py:104"),
-    "flash_bwd": (flash_attention_bwd, "flash_attn_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd": ((counter(flash_attention_bwd),),
+                  "flash_attn_tpu_torch/csrc/flash_bwd.cu",
                   "flash_attn_tpu/kernels/flash_bwd.py:106"),
-    "paged_decode": (paged_decode_attention,
+    "paged_decode": ((counter(paged_decode_attention), FUSED_K7A),
                      "flash_attn_tpu_torch/csrc/paged_decode.cu",
                      "flash_attn_tpu/kernels/decode.py:50"),
-    "append_token": (cache.append_token,
+    # K7a and K7b: their appends inside K5 / K6, and the standalone kernels
+    "append_token": ((FUSED_K7A, counter(cache.append_token)),
                      "flash_attn_tpu_torch/csrc/cache_write.cu",
                      "flash_attn_tpu/serving/cache.py:94"),
-    "write_pages": (cache._write_prompts,
+    "write_pages": ((counter(cache._write_prompts),),
                     "flash_attn_tpu_torch/csrc/cache_write.cu",
                     "flash_attn_tpu/serving/cache.py:460"),
-    "paged_chunk": (paged_chunk_attention,
+    "paged_chunk": ((counter(paged_chunk_attention),),
                     "flash_attn_tpu_torch/csrc/paged_chunk.cu",
                     "flash_attn_tpu/kernels/chunk.py:61"),
-    "append_span": (cache.append_span,
+    "append_span": ((FUSED_K7B, counter(cache.append_span)),
                     "flash_attn_tpu_torch/csrc/cache_write.cu",
                     "flash_attn_tpu/serving/cache.py:250"),
-    "blocksparse_fwd": (blocksparse_attention_fwd,
+    "blocksparse_fwd": ((counter(blocksparse_attention_fwd),),
                         "flash_attn_tpu_torch/csrc/blocksparse_fwd.cu",
                         "flash_attn_tpu/kernels/blocksparse.py:537"),
-    "blocksparse_dkv": (blocksparse_attention_dkv,
+    "blocksparse_dkv": ((counter(blocksparse_attention_dkv),),
                         "flash_attn_tpu_torch/csrc/blocksparse_bwd.cu",
                         "flash_attn_tpu/kernels/blocksparse.py:855"),
-    "blocksparse_dq": (blocksparse_attention_dq,
+    "blocksparse_dq": ((counter(blocksparse_attention_dq),),
                        "flash_attn_tpu_torch/csrc/blocksparse_bwd.cu",
                        "flash_attn_tpu/kernels/blocksparse.py:988"),
+}
+# Counts that are not a kernel's own: the standalone appends, the fused
+# appends, and flash_attn_with_kvcache's two-launch route past one row
+# tile.
+SIDE_COUNTS = {
+    "append_token standalone": counter(cache.append_token),
+    "append_span standalone": counter(cache.append_span),
+    "append_token in K5": FUSED_K7A,
+    "append_span in K6": FUSED_K7B,
+    "kvcache split_appends": counter(flash_attn_with_kvcache,
+                                     "split_appends"),
 }
 SERVE_KERNELS = ("flash_fwd", "paged_decode", "append_token", "write_pages")
 CHUNKED_KERNELS = ("paged_chunk", "write_pages", "paged_decode",
@@ -249,12 +287,35 @@ def sdpa_fastest(make):
 
 
 def reset_launches():
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
+    for counters, _, _ in KERNELS.values():
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+    for fn, attr in SIDE_COUNTS.values():
+        setattr(fn, attr, 0)
 
 
 def read_launches(names):
-    return {name: KERNELS[name][0].launches for name in names}
+    """{kernel: launches} for ``names``, and SIDE_COUNTS."""
+    counts = {name: sum(getattr(fn, attr) for fn, attr in KERNELS[name][0])
+              for name in names}
+    return {**counts, **{name: getattr(fn, attr)
+                         for name, (fn, attr) in SIDE_COUNTS.items()}}
+
+
+def check_fused_appends(label, launches, decode=False, verify=False):
+    """A serving path appended only inside K5's (decode) and K6's
+    (verification) launches: every K5 launch appended, no standalone
+    append ran."""
+    if decode:
+        check(launches["append_token standalone"] == 0
+              and launches["append_token in K5"] == launches["paged_decode"]
+              > 0, f"{label}: decode appends outside K5: {launches}")
+    if verify:
+        check(launches["append_span standalone"] == 0
+              and launches["kvcache split_appends"] == 0
+              and launches["append_span in K6"] == launches["paged_chunk"]
+              > 0,
+              f"{label}: verification appends outside K6: {launches}")
 
 
 # ---------------------------------------------------------------- phase 0-1
@@ -292,15 +353,16 @@ def kernel_label(mangled: str) -> str | None:
     dtype = ("bf16" if "nv_bfloat16" in mangled else
              "fp16" if "half" in mangled else "fp32")
     d = re.search(r"Li(\d+)E", mangled).group(1)
-    return f"{kernel} {dtype} d={d}"
+    append = " with the append" if "Lb1E" in mangled else ""
+    return f"{kernel} {dtype} d={d}{append}"
 
 
 def phase_build_report():
     """Evidence of what the Hopper kernels K1, K2, K5, K6 and K8a-c were
     built into: ptxas's registers and spills (-Xptxas -v at build), their
     dynamic shared memory, and, where cuobjdump exists, the HGMMA (wgmma)
-    instructions of K1's, K2's, K6's and K8a-c's bf16/fp16 kernels in the
-    SASS."""
+    instructions of K1's, K2's, K6's (alone and with the append) and
+    K8a-c's bf16/fp16 kernels in the SASS."""
     lib = _build.lib()
     print("dynamic shared memory: " + ", ".join(
         f"K1 d={d} {lib.fattn_flash_fwd_smem(d)} B, K2 d={d} "
@@ -338,7 +400,7 @@ def phase_build_report():
             name = kernel_label(name) if "wgmma" in name else None
         elif name and "HGMMA" in line:
             counts[name] = counts.get(name, 0) + 1
-    check(len(counts) == 24 and all(counts.values()),
+    check(len(counts) == 28 and all(counts.values()),
           f"HGMMA instructions missing from the wgmma kernels: {counts}")
     print("HGMMA instructions in the SASS (cuobjdump): " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
@@ -690,11 +752,59 @@ def phase_chunk_kernels(gen, errs):
           "equal to append_token outside page 0")
 
 
+def fused_route(shape):
+    """On dense_timing.append_inputs(shape) (the serving path's views of
+    the projections): the attention kernel with the append in its launch,
+    and the standalone append followed by the same kernel on a copy of the
+    cache. Returns (fused out, its cache, two-launch out, its cache, the
+    pages to compare (K7a writes page 0 for inactive slots), split count)."""
+    c, table, lens, before, new, q, k, v = append_inputs(DEV, shape)
+    pair = cache.PagedKVCache(c.k_pages.clone(), c.v_pages.clone())
+    if new is None:
+        out = paged_decode_with_append(q, k, v, c.k_pages, c.v_pages, before,
+                                       table)
+        cache.append_token(pair, k, v, table, before)
+        want = paged_decode_attention(q, pair.k_pages, pair.v_pages,
+                                      (before.clamp(min=0) + 1).int(), table)
+        return out, c, want, pair, slice(1, None), decode_splits(
+            q, c.k_pages, table)
+    out = paged_chunk_attention(q, c.k_pages, c.v_pages, lens, table,
+                                chunk_lens=new, new_k=k, new_v=v,
+                                cache_seqlens=before)
+    cache.append_span(pair, k, v, table, before, new)
+    want = paged_chunk_attention(q, pair.k_pages, pair.v_pages, lens, table,
+                                 chunk_lens=new)
+    return out, c, want, pair, slice(None), chunk_splits(q, c.k_pages, table)
+
+
+def phase_fused_kernels():
+    """K5 and K6 with the append in their launch, bit for bit the
+    two-launch route (K7a + K5, K7b + K6) in output and cache, at GPT-2's
+    and Llama-3-8B's decode shapes and at verification."""
+    for shape in APPEND_SHAPES:
+        out, c, want, pair, pages, splits = fused_route(shape)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"fused append {shape}: the output "
+              f"differs from the two-launch route by {max_err(out, want)}")
+        for name, a, b in (("k", c.k_pages, pair.k_pages),
+                           ("v", c.v_pages, pair.v_pages)):
+            check(torch.equal(a[:, pages], b[:, pages]),
+                  f"fused append {shape}: {name} pages differ")
+        kernel = "K5" if out.dim() == 3 else "K6"
+        print(f"{kernel} with the append, {shape} {tuple(out.shape)}, "
+              f"{splits} splits: output and cache bit for bit the "
+              "standalone append followed by the kernel")
+        del out, c, want, pair
+    torch.cuda.empty_cache()
+
+
 def phase_determinism(gen, n=10):
     """Each kernel ``n`` times on the same inputs and seed: every rerun
     bit for bit the first. K1 + K2 at the train shape with dropout 0.1 (out,
     lse, dq, dk, dv), K8a-c at BS_SHAPES (i) (the same), K5 at "Llama
-    decode" and K6 at "Llama chunk" (out; split-KV merged in split order)."""
+    decode" and K6 at "Llama chunk" (out; split-KV merged in split order),
+    K5 and K6 with the append at "Llama decode" and "verify" (out and
+    pages: each rerun stores the same rows again)."""
     def same(label, fn):
         first = [x.clone() for x in fn()]
         for _ in range(n - 1):
@@ -732,6 +842,19 @@ def phase_determinism(gen, n=10):
     same(f"paged_chunk verify, {chunk_splits(q, kp, table)} splits",
          lambda: (paged_chunk_attention(q, kp, vp, lens, table,
                                         chunk_lens=cl),))
+    c, table, lens, before, _, q, k, v = append_inputs(DEV, "Llama decode")
+    same(f"paged_decode_with_append Llama decode, "
+         f"{decode_splits(q, c.k_pages, table)} splits (out, pages)",
+         lambda: (paged_decode_with_append(q, k, v, c.k_pages, c.v_pages,
+                                           before, table),
+                  c.k_pages, c.v_pages))
+    c, table, lens, before, new, q, k, v = append_inputs(DEV, "verify")
+    same(f"paged_chunk with the append, verify, "
+         f"{chunk_splits(q, c.k_pages, table)} splits (out, pages)",
+         lambda: (paged_chunk_attention(q, c.k_pages, c.v_pages, lens, table,
+                                        chunk_lens=new, new_k=k, new_v=v,
+                                        cache_seqlens=before),
+                  c.k_pages, c.v_pages))
     torch.cuda.empty_cache()
 
 
@@ -761,6 +884,7 @@ def phase_serve(model, cfg, rng):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path")
     check(launches["flash_bwd"] == 0, "serving launched the backward")
+    check_fused_appends("serve", launches, decode=True)
     print(f"serve: 12 requests (prompts {lens.min()}..{lens.max()}) x 32 "
           f"tokens in {dt:.2f} s; launches {launches}")
     return launches
@@ -882,6 +1006,7 @@ def run_chunked(label, model, cfg, prompts, engine_kw, new_tokens=32):
         check(launches[name] > 0, f"{label}: kernel {name} not launched")
     check(launches["flash_fwd"] == 0,
           f"{label}: the dense forward ran; prefill was not chunked")
+    check_fused_appends(label, launches, decode=True)
     lens = [len(p) for p in prompts]
     print(f"{label}: {len(prompts)} requests (prompts {min(lens)}.."
           f"{max(lens)}, chunks of {engine_kw['prefill_chunk']}) x up to "
@@ -919,11 +1044,11 @@ def phase_speculative(model, cfg, model32, rng, prompt_len=500,
                       new_tokens=48, k=4, draft_layers=6):
     """Speculative decoding at full width: a 6-layer draft of the same
     weights proposes k tokens through K1, the 12-layer model verifies them
-    through flash_attn_with_kvcache (K7b + K6). Every verify round's logits
-    are held to the 2x rule against the fp32 and bf16 full-sequence models
-    on the same tokens (bf16 argmax near-ties may make the tokens differ
-    from plain greedy decoding, so they are not compared). Returns the
-    launch counts of the run."""
+    through flash_attn_with_kvcache (K6 with K7b's append in its launch).
+    Every verify round's logits are held to the 2x rule against the fp32
+    and bf16 full-sequence models on the same tokens (bf16 argmax near-ties
+    may make the tokens differ from plain greedy decoding, so they are not
+    compared). Returns the launch counts of the run."""
     prompt = rng.integers(0, cfg.vocab_size, prompt_len).tolist()
     reset_launches()
     t0 = time.perf_counter()
@@ -936,6 +1061,7 @@ def phase_speculative(model, cfg, model32, rng, prompt_len=500,
           "tokens")
     for name in SPEC_KERNELS:
         check(launches[name] > 0, f"speculative: kernel {name} not launched")
+    check_fused_appends("speculative", launches, verify=True)
     final = prompt + generated
     accepted, worst = 0, (0.0, 0.0)
     for pos0, chunk, logits in rounds:
@@ -957,7 +1083,40 @@ def phase_speculative(model, cfg, model32, rng, prompt_len=500,
           f"{k * len(rounds)} drafts accepted) in {dt:.2f} s; worst verify "
           f"logit err vs fp32 {worst[0]:.3e} (bf16 full forward "
           f"{worst[1]:.3e}); launches {launches}")
+    print(f"verify round (score_chunk, 12 layers, {k + 1} rows after the "
+          f"{prompt_len}-token prompt): {verify_round_ms(model, cfg, prompt, k)}"
+          f" [{card_line()}]")
     return launches
+
+
+def verify_round_ms(model, cfg, prompt, k, ps=128):
+    """One verify round of the speculative loop on the prompt's cache:
+    device busy ms (busy_ms) and host wall ms of a score_chunk call that
+    appends and attends k + 1 rows in every layer (each call writes the
+    same slots again)."""
+    n_pages = -(-(len(prompt) + k + 1) // ps)
+    caches = [cache.init_cache(cfg.n_kv_heads, 1 + n_pages, ps, cfg.head_dim,
+                               dtype=cfg.dtype, device=DEV)
+              for _ in range(cfg.n_layer)]
+    table = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=DEV)[None]
+    _, ks, vs = gpt2_decode.prefill(model, cfg, torch.tensor([prompt],
+                                                             device=DEV))
+    for c, kk, vv in zip(caches, ks, vs):
+        cache.write_prompt(c, kk[0], vv[0], table[0, : -(-len(prompt) // ps)])
+    chunk = prompt[-1:] + prompt[:k]
+
+    def call():
+        return score_chunk(model, cfg, caches, table, chunk, len(prompt))
+    busy = busy_ms(call)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return (f"device busy {busy:.4f} ms, host wall {statistics.median(walls):.3f}"
+            f" ms (median of 5)")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1016,6 +1175,20 @@ def phase_timing(model, cfg, rng):
                     "of 256", ttft_chunked, card))
     print(f"decode at batch 8 (contexts {lens.min()}..{lens.max() + 35}): "
           f"{tok_s:.1f} tokens/s, {ms_step:.2f} ms/step [{card}]")
+    eng, _ = admission(model, cfg, prompts, kw)
+    win = decode_window(eng, 16)
+    check(win["copies_before_k5"] == 0 and win["k7a_launches"] == 0
+          and win["k5_launches"] == 16 * cfg.n_layer,
+          f"GPT-2 decode window: copies or standalone appends around K5: "
+          f"{win}")
+    print(f"GPT-2 decode window, 16 steps at batch 8 after 3: device busy "
+          f"{win['busy_ms_per_step']:.4f} ms, {win['launches_per_step']:.1f}"
+          f" launches and {win['wall_ms_per_step']:.3f} ms wall per step "
+          f"({win['wall_ms_per_step_traced']:.3f} traced), idle "
+          f"{win['idle_share'] * 100:.1f}% of the GPU span; "
+          f"{win['k5_launches']} K5 launches, no standalone append; no copy "
+          f"kernel between a layer's GEMM and K5 (between them: "
+          f"{win['between_gemm_and_k5']}) [{card}]")
 
 
 def llama_fp32(model):
@@ -1204,6 +1377,62 @@ def cache_library_calls(pages, prompt, chunks, token, span):
     }
 
 
+def append_timing_specs():
+    """K5 and K6 alone and with the append in their launch on
+    dense_timing.append_inputs (the serving path's views of the
+    projections) at GPT-2's and Llama-3-8B's decode shapes and at
+    verification: the fused rows' marginal cost over the kernel alone, in
+    one run. The bound adds each new row's read and write to the kernel's;
+    the plain versions are the twins of the two-launch route."""
+    specs = {}
+    for shape, (lengths, chunk, sq, h, h_kv, d, _) in APPEND_SHAPES.items():
+        c, table, lens, before, new, q, k, v = append_inputs(DEV, shape)
+        pages = (c.k_pages, c.v_pages)
+        scale = d ** -0.5
+        if new is None:
+            n_bytes, flops = decode_work(q, c.k_pages, lens, table)
+            rows = len(lengths)
+            specs[f"K5 alone ({shape})"] = (
+                functools.partial(paged_decode_attention, q, *pages, lens,
+                                  table),
+                functools.partial(paged_decode_attention_plain, q, *pages,
+                                  lens, table, softmax_scale=scale),
+                None, n_bytes, flops)
+            specs[f"K5 with the append ({shape})"] = (
+                functools.partial(paged_decode_with_append, q, k, v, *pages,
+                                  before, table),
+                lambda a=(c, q, k, v, table, before), s=scale: (
+                    cache.append_token_plain(a[0], *a[2:]),
+                    paged_decode_attention_plain(
+                        a[1], a[0].k_pages, a[0].v_pages,
+                        (a[5].clamp(min=0) + 1).int(), a[4],
+                        softmax_scale=s)),
+                None, n_bytes + 4 * rows * h_kv * d * k.element_size(),
+                flops)
+            continue
+        n_bytes, flops = chunk_work(shape)
+        cap = 128 * table.shape[1]
+        rows = sum(max(0, min(n, cap - (t - n))) for t, n in
+                   zip(lengths, chunk) if t - n >= 0)  # rows K7b stores
+        specs[f"K6 alone ({shape})"] = (
+            functools.partial(paged_chunk_attention, q, *pages, lens, table,
+                              chunk_lens=new),
+            functools.partial(paged_chunk_attention_plain, q, *pages, lens,
+                              table, chunk_lens=new, softmax_scale=scale),
+            None, n_bytes, flops)
+        specs[f"K6 with the append ({shape})"] = (
+            functools.partial(paged_chunk_attention, q, *pages, lens, table,
+                              chunk_lens=new, new_k=k, new_v=v,
+                              cache_seqlens=before),
+            lambda a=(c, q, k, v, table, before, new, lens), s=scale: (
+                cache.append_span_plain(a[0], a[2], a[3], a[4], a[5], a[6]),
+                paged_chunk_attention_plain(
+                    a[1], a[0].k_pages, a[0].v_pages, a[7], a[4],
+                    chunk_lens=a[6], softmax_scale=s)),
+            None, n_bytes + 4 * rows * h_kv * d * k.element_size(), flops)
+    return specs
+
+
 def kernel_timing(gen):
     """Each kernel against its twin and, where one exists, a single PyTorch
     call computing the same function, at the main paths' shapes, in turns
@@ -1345,6 +1574,7 @@ def kernel_timing(gen):
             lambda a=a, one=one: paged_chunk_attention_plain(
                 *a, chunk_lens=one, softmax_scale=a[0].shape[-1] ** -0.5),
             None, *specs[k5][3:])
+    specs.update(append_timing_specs())
     specs.update(bs_timing_specs())
     times = {}
     for name, (kern, plain, library, n_bytes, flops, *tiles) in specs.items():
@@ -1393,7 +1623,10 @@ def kernel_timing(gen):
           "(h=12 d=64) and, as on Llama-3-8B's chunked path, 8 rows x 512 "
           "tokens into 4 pages each (h_kv=8 d=128) in one launch, each call "
           "on the next of 4 input sets (137 MB, over the 50 MB L2); "
-          "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); the cache "
+          "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); K5 and K6 "
+          "alone and with the append at dense_timing.APPEND_SHAPES (GPT-2 "
+          "and Llama decode, verify: views of the projections, lengths "
+          "before the append one less, or the chunk less); the cache "
           "writes' library = index_copy_ along the page axis from sources "
           "already in page layout (write_pages) or index_put_ (append_*), "
           "one call each for K and V, indices made outside the timed call; "
@@ -1932,6 +2165,7 @@ def main():
     rng = np.random.default_rng(0)
     errs = phase_kernels(gen)
     phase_chunk_kernels(gen, errs)
+    phase_fused_kernels()
     phase_train_kernels(gen, errs)
     phase_determinism(gen)
 
@@ -1967,16 +2201,39 @@ def main():
     launches["llama_chunked"] = phase_llama(rng)
     times = kernel_timing(gen)
 
+    # K7a and K7b run inside K5's and K6's launches on the paths: their
+    # launches by path are those appends (and the standalone kernels',
+    # 0 there); ms is the standalone kernel's, and the fused route's
+    # marginal cost is the kernel with the append less the kernel alone.
+    fused = {"append_token": ("K5", ("GPT-2 decode", "Llama decode"),
+                              "flash_attn_tpu_torch/csrc/paged_decode.cu"),
+             "append_span": ("K6", ("verify",),
+                             "flash_attn_tpu_torch/csrc/paged_chunk.cu")}
     kernels = []
     for name, (_, src, tpu) in KERNELS.items():
         ms, plain_ms, lib_ms, b_ms, b_by, backend = times[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library_backend": backend})
+            "library_backend": backend}
+        if name in fused:
+            kernel, shapes, into = fused[name]
+            entry.update({
+                "fused_into": into,
+                "standalone_launches_by_path": {
+                    path: counts[f"{name} standalone"]
+                    for path, counts in launches.items()},
+                "fused_ms": {shape: times[f"{kernel} with the append "
+                                          f"({shape})"][0]
+                             for shape in shapes},
+                "fused_marginal_ms": {
+                    shape: times[f"{kernel} with the append ({shape})"][0]
+                    - times[f"{kernel} alone ({shape})"][0]
+                    for shape in shapes}})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

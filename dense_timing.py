@@ -13,13 +13,20 @@ As a script it times the flash_attn_tpu_torch package of the checkout at
 DIR (default: the one holding this file): K1 (flash_attention_fwd), K2
 (flash_attention_bwd), K7c (the paged page write, GPT-2's prompt and one
 layer of Llama-3-8B's chunk, the latter on four input sets in turn so that
-it cannot run from L2) and K8a, K8b and K8c (blocksparse forward, dK/dV
-and dQ) at the rows of PERF.md's table, each by busy_ms and host_ms; one
+it cannot run from L2), K8a, K8b and K8c (blocksparse forward, dK/dV
+and dQ), and the cache appends at GPT-2's and Llama-3-8B's decode shapes
+and at verification (APPEND_SHAPES: K7a or K7b alone, K5 or K6 alone, the
+two-launch route with the copies its callers made, and, where the
+checkout has it, the attention kernel with the append in its launch) at
+the rows of PERF.md's table, each by busy_ms and host_ms; one
 GPT-2 admission of 8 prompts (9..700 tokens, bucket 768) through
 ServingEngine, traced for K1's and K7c's launches and device time, with the
-median host time of three untraced admissions; one chunked admission of 8
-prompts at Llama-3-8B's widths cut to 4 layers, traced for K7c's launches
-and device time; and two traced GPT-2 train steps through blocksparse
+median host time of three untraced admissions, then 16 decode steps of it
+traced (decode_window: device busy ms, launches and wall ms per step, idle
+share, and the copy kernels between each layer's projection and K5); one
+chunked admission of 8 prompts at Llama-3-8B's widths cut to 4 layers,
+traced for K7c's launches and device time, then 4 of its decode steps
+traced the same way; and two traced GPT-2 train steps through blocksparse
 attention (full width, b=8, s=1024, the LocalGlobal(256) mask), for their
 device busy time and K8a-c's share of it. To
 compare two commits by the same method, unpack the other one with `git
@@ -230,6 +237,105 @@ def k7c_inputs(dev):
     return gpt2, llama
 
 
+# name: (lengths after the step's append, chunk rows or None for decode,
+# sq, h, h_kv, d, pages_max): chip_smoke.py's DECODE_SHAPES "GPT-2 decode"
+# and "Llama decode" and CHUNK_SHAPES "verify", on 128-token pages.
+APPEND_SHAPES = {
+    "GPT-2 decode": ([1, 127, 128, 129, 400, 777, 1000, 0], None, 1, 12, 12,
+                     64, 8),
+    "Llama decode": ([300, 831, 1362, 1894, 2425, 2957, 3488, 4020], None, 1,
+                     32, 8, 128, 32),
+    "verify": ([5, 6, 130, 500, 505, 1000, 17, 0], [5, 5, 5, 5, 5, 3, 5, 0],
+               5, 12, 12, 64, 8),
+}
+
+
+def append_inputs(dev, shape):
+    """APPEND_SHAPES[shape] in bf16 from torch.Generator seed 0: the cache
+    (each sequence on its own pages in random order, page 0 never used),
+    the page table, the lengths after the append and before it
+    (``cache_lens``; a length 0 is an inactive slot, -1), the new rows'
+    count (decode: None), and q, k, v as the serving path hands them over:
+    views of GPT-2's fused projection where h == h_kv, else Llama's
+    separate contiguous projections; (b, h, d) at decode, (b, sq, h, d) at
+    verification."""
+    from flash_attn_tpu_torch.serving import cache
+    lengths, chunk, sq, h, h_kv, d, pages_max = APPEND_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ps, b = 128, len(lengths)
+    need = [-(-n // ps) for n in lengths]
+    pages = cache.init_cache(h_kv, 1 + sum(need), ps, d,
+                             dtype=torch.bfloat16, device=dev)
+    pages.k_pages.copy_(bf16_randn(gen, *pages.k_pages.shape))
+    pages.v_pages.copy_(bf16_randn(gen, *pages.v_pages.shape))
+    perm = torch.randperm(sum(need), generator=gen, device=dev) + 1
+    table = torch.zeros((b, pages_max), dtype=torch.int32, device=dev)
+    used = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    rows = (b,) if chunk is None else (b, sq)
+    if h == h_kv:
+        q, k, v = bf16_randn(gen, *rows, 3, h, d).unbind(-3)
+    else:
+        q, k, v = (bf16_randn(gen, *rows, n, d) for n in (h, h_kv, h_kv))
+    if chunk is None:
+        return pages, table, lens, lens - 1, None, q, k, v
+    new = torch.tensor(chunk, dtype=torch.int32, device=dev)
+    return pages, table, lens, lens - new, new, q, k, v
+
+
+def append_rows(dev):
+    """{row: call} for the cache appends at APPEND_SHAPES: K7a or K7b
+    alone (on contiguous rows, which every checkout takes), K5 or K6 alone,
+    the two-launch route as the serving path ran it before the append moved
+    into the attention launch (the callers' .contiguous() copies, the
+    append, the attention kernel), and that attention launch with the
+    append, where the checkout has it."""
+    from flash_attn_tpu_torch.kernels import chunk as k6
+    from flash_attn_tpu_torch.kernels import decode as k5
+    from flash_attn_tpu_torch.serving import cache
+    fused_k5 = getattr(k5, "paged_decode_with_append", None)
+    fused_k6 = "cache_seqlens" in k6.paged_chunk_attention.__code__.co_varnames
+    rows = {}
+    for shape in APPEND_SHAPES:
+        c, table, lens, before, new, q, k, v = append_inputs(dev, shape)
+        kc, vc = k.contiguous(), v.contiguous()
+        pages = (c.k_pages, c.v_pages)
+        if new is None:
+            rows[f"K7a alone, {shape}"] = functools.partial(
+                cache.append_token, c, kc, vc, table, before)
+            rows[f"K5 alone, {shape}"] = functools.partial(
+                k5.paged_decode_attention, q, *pages, lens, table)
+            rows[f"K7a + K5 (two launches, copies), {shape}"] = (
+                lambda c=c, a=(q, k, v, table, lens, before): (
+                    cache.append_token(c, a[1].contiguous(),
+                                       a[2].contiguous(), a[3], a[5]),
+                    k5.paged_decode_attention(a[0], c.k_pages, c.v_pages,
+                                              a[4], a[3])))
+            if fused_k5 is not None:
+                rows[f"K5 with the append, {shape}"] = functools.partial(
+                    fused_k5, q, k, v, *pages, before, table)
+            continue
+        rows[f"K7b alone, {shape}"] = functools.partial(
+            cache.append_span, c, kc, vc, table, before, new)
+        rows[f"K6 alone, {shape}"] = functools.partial(
+            k6.paged_chunk_attention, q, *pages, lens, table, chunk_lens=new)
+        rows[f"K7b + K6 (two launches, copies), {shape}"] = (
+            lambda c=c, a=(q, k, v, table, lens, before, new): (
+                cache.append_span(c, a[1].contiguous(), a[2].contiguous(),
+                                  a[3], a[5], a[6]),
+                k6.paged_chunk_attention(a[0].contiguous(), c.k_pages,
+                                         c.v_pages, a[4], a[3],
+                                         chunk_lens=a[6])))
+        if fused_k6:
+            rows[f"K6 with the append, {shape}"] = functools.partial(
+                k6.paged_chunk_attention, q, *pages, lens, table,
+                chunk_lens=new, new_k=k, new_v=v, cache_seqlens=before)
+    return rows
+
+
 def k8b_inputs(dev):
     """{shape: (q, k, v, dout, layout, dropout_p)} at chip_smoke.py's
     BS_SHAPES (i) and (ii), bf16 (b, h, s, d): (i) from torch.Generator
@@ -355,11 +461,70 @@ def bs_train_step(dev, n_traced=2):
     return steps
 
 
+# Substrings of GEMM kernel names, and the ops whose kernels are GEMMs.
+GEMM_KERNELS = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90_")
+GEMM_OPS = ("aten::addmm", "aten::mm", "aten::linear", "aten::matmul")
+
+
+def decode_window(engine, n_steps, warmup=3):
+    """``n_steps`` engine steps (every slot decoding) traced after
+    ``warmup`` untraced ones: device busy ms, launches (device events),
+    busy ms and wall ms per step, the idle share of the GPU span, K5's
+    and the standalone K7a's launches, and the copy kernels between each
+    K5 launch and the GEMM before it (the layer's qkv projection), with
+    the names of the kernels seen there; then the host wall ms per step of
+    ``n_steps`` untraced steps."""
+    for _ in range(warmup):
+        engine.step()
+    torch.cuda.synchronize()
+    wall, _, events = trace_call(
+        lambda: [engine.step() for _ in range(n_steps)])
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    dev = sorted(device_events(events), key=lambda e: e["ts"])
+
+    def op(e):
+        return ops.get(e.get("args", {}).get("External id"), "")
+
+    def is_gemm(e):
+        return op(e) in GEMM_OPS or any(
+            k in e["name"].lower() for k in GEMM_KERNELS)
+
+    k5 = [i for i, e in enumerate(dev) if "paged_decode" in e["name"]]
+    copies, between = 0, set()
+    for i in k5:
+        j = i - 1
+        while j >= 0 and not is_gemm(dev[j]):
+            name = dev[j]["name"]
+            between.add(name[:80])
+            copies += "copy" in (name + op(dev[j])).lower() \
+                or op(dev[j]) in ("aten::contiguous", "aten::clone")
+            j -= 1
+    busy = union_us(dev)
+    span = dev[-1]["ts"] + dev[-1]["dur"] - dev[0]["ts"]
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        engine.step()
+    torch.cuda.synchronize()
+    untraced = (time.perf_counter() - t0) * 1e3 / n_steps
+    return {"steps": n_steps, "busy_ms": busy / 1e3,
+            "busy_ms_per_step": busy / 1e3 / n_steps,
+            "launches_per_step": len(dev) / n_steps,
+            "idle_share": 1 - busy / span,
+            "wall_ms_per_step_traced": wall / n_steps,
+            "wall_ms_per_step": untraced,
+            "k5_launches": len(k5),
+            "k7a_launches": sum("append_token" in e["name"] for e in dev),
+            "copies_before_k5": copies,
+            "between_gemm_and_k5": sorted(between)}
+
+
 def serve_admission(dev):
     """K1's launches and device ms per launch and K7c's launches and device
     ms in one traced GPT-2 admission of 8 prompts, the admission's device
     busy ms, and the median host ms of three untraced admissions (time to
-    first token)."""
+    first token); then ``decode_window`` over 16 decode steps of a fresh
+    admission of the same prompts."""
     from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
     from flash_attn_tpu_torch.serving.engine import ServingEngine
     cfg = GPT2Config(param_dtype=torch.bfloat16)
@@ -391,19 +556,23 @@ def serve_admission(dev):
     k7c = [e["dur"] for e in dev_events if "write_pages" in e["name"]]
     copies = sum(e["dur"] for e in dev_events
                  if "copy" in (e.get("cat", "") + e["name"]).lower())
+    eng = engine()
+    eng._admit()
     return {"k1_launches": len(k1),
             "k1_ms_per_launch": sum(k1) / max(len(k1), 1) / 1e3,
             "k7c_launches": len(k7c), "k7c_ms": sum(k7c) / 1e3,
             "busy_ms": union_us(dev_events) / 1e3,
             "copies_ms": copies / 1e3,
-            "ttft_ms_median": statistics.median(walls)}
+            "ttft_ms_median": statistics.median(walls),
+            "decode": decode_window(eng, 16)}
 
 
 def llama_admission(dev):
     """K7c's launches and device ms, and the device busy ms, of one traced
     chunked admission of 8 prompts (300..4000 tokens, chunks of 512) at
     Llama-3-8B's widths (meta-llama/Meta-Llama-3-8B config.json) cut to
-    LLAMA_LAYERS layers, bf16, random weights from seed 0."""
+    LLAMA_LAYERS layers, bf16, random weights from seed 0; then
+    ``decode_window`` over 4 decode steps of that engine."""
     from flash_attn_tpu_torch.models import llama_decode
     from flash_attn_tpu_torch.models.llama import (
         LlamaConfig,
@@ -441,7 +610,8 @@ def llama_admission(dev):
             "k7c_ms": sum(k7c) / 1e3,
             "k7c_ms_per_launch": sum(k7c) / max(len(k7c), 1) / 1e3,
             "k7c_share": sum(k7c) / sum(e["dur"] for e in dev_events),
-            "busy_ms": busy / 1e3}
+            "busy_ms": busy / 1e3,
+            "decode": decode_window(held["engine"], 4)}
 
 
 def main():
@@ -452,8 +622,9 @@ def main():
                         help="seconds of calls before each trace")
     parser.add_argument("--rows", default="", metavar="PREFIX",
                         help="time only the rows whose names start with "
-                        "PREFIX (e.g. K8), and skip the admissions and the "
-                        "train step")
+                        "PREFIX (e.g. K8, or K5,K6,K7 for several), and skip "
+                        "the admissions, the decode windows and the train "
+                        "step")
     args = parser.parse_args()
     repo, warm_s = os.path.abspath(args.repo), args.warm_s
     if not torch.cuda.is_available():
@@ -471,8 +642,9 @@ def main():
     build_s = time.perf_counter() - t0
     rows = {}
     for name, fn in {**dense_rows(flash_attention_fwd, flash_attention_bwd,
-                                  dev), **k7c_k8_rows(dev)}.items():
-        if not name.startswith(args.rows):
+                                  dev), **k7c_k8_rows(dev),
+                      **append_rows(dev)}.items():
+        if not name.startswith(tuple(args.rows.split(","))):
             continue
         rows[name] = {"busy_ms": [busy_ms(fn, warm_s=warm_s),
                                   busy_ms(fn, warm_s=warm_s)],

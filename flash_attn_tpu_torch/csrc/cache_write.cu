@@ -1,11 +1,12 @@
-// Paged KV-cache writes for Hopper (sm_90a). Both update the cache in place.
+// Paged KV-cache writes for Hopper (sm_90a). All update the cache in place.
 //
 // append_token replaces flash_attn_tpu/serving/cache.py:_append_kernel: one
 // new token's K/V per sequence goes to slot length % page_size of page
 // page_table[b, length / page_size]. A sequence with length < 0 is inactive
 // and writes to slot 0 of the reserved scratch page 0 (cache.py:169-174).
 // The TPU kernel read-modified-wrote the whole page, because Mosaic has no
-// dynamic row store; here each thread stores its elements directly.
+// dynamic row store; here a warp per (sequence, kv head) copies the row in
+// 16-byte vectors.
 //
 // append_span replaces cache.py:_append_span_kernel: up to sq tokens per
 // sequence, token t of sequence b to slot lengths[b] + t for t <
@@ -13,7 +14,16 @@
 // past the page table write nothing: unlike append_token nothing goes to
 // page 0, so this kernel has no scratch-page race. The TPU launcher staged
 // each chunk page-aligned and the kernel RMW'd whole pages by row select
-// (Mosaic's workaround); here each thread stores one 16-byte vector.
+// (Mosaic's workaround); here a warp per (token, kv head, sequence) copies
+// its row in 16-byte vectors.
+//
+// Both read the new rows through strides and share store_new_row
+// (cache_write.cuh) with the serving path's own form of these appends,
+// which runs inside the paged attention launch that next reads the rows
+// (K5 in paged_decode.cu, K6 in paged_chunk.cu): that form saves the
+// launch, which is all these kernels cost (a few microseconds for 24-32 KB
+// at serving sizes). The standalone kernels stay for callers of the
+// public append_token / append_span.
 //
 // write_pages replaces cache.py:_write_pages_kernel: a prompt's K/V
 // (prompt_len, h, d) is copied page by page to the given page ids, with the
@@ -27,39 +37,49 @@
 // tests compare caches outside page 0.
 //
 // Bound: device-memory bytes, each source byte read once and each page
-// byte written once. append_token and append_span are a few microseconds at
-// serving sizes. write_pages moves megabytes per launch (Llama-3-8B's chunk
-// of 8 x 512 tokens: 33.6 MB), so it is built to reach the bandwidth: every
-// thread moves 16-byte vectors, two of K and two of V in flight, with one
-// index division per vector (not per element); the grid is (slab of a
-// page, page x kv head, row), so a launch fills the card. Payloads are
-// copied as raw bits, so every dtype whose rows are whole 16-byte vectors
-// shares one kernel.
+// byte written once. write_pages moves megabytes per launch (Llama-3-8B's
+// chunk of 8 x 512 tokens: 33.6 MB), so it is built to reach the
+// bandwidth: every thread moves 16-byte vectors, two of K and two of V in
+// flight, with one index division per vector (not per element); the grid
+// is (slab of a page, page x kv head, row), so a launch fills the card.
+// Payloads are copied as raw bits, so every dtype whose rows are whole
+// 16-byte vectors shares one kernel.
+#include "cache_write.cuh"
 #include "common.cuh"
 
 namespace fattn {
 namespace {
 
-template <typename U>
-__global__ void append_token_kernel(const U* new_k, const U* new_v,
-                                    U* k_pages, U* v_pages,
-                                    const int* page_table, const int* lengths,
-                                    int h, int num_pages, int page_size,
-                                    int pages_max, int d) {
-  const int bb = blockIdx.x;
+// Block (sequence, kv head): one warp copies the row.
+__global__ void __launch_bounds__(32)
+    append_token_kernel(const NewRows nr, uint4* k_pages, uint4* v_pages,
+                        const int* page_table, const int* lengths,
+                        int num_pages, int page_size, int pages_max) {
+  const int bb = blockIdx.x, hk = blockIdx.y;
+  const Slot at = token_slot(lengths[bb],
+                             page_table + (size_t)bb * pages_max, pages_max,
+                             page_size);
+  store_new_row(nr, k_pages, v_pages, bb, 0, hk, num_pages, page_size, at,
+                threadIdx.x, 32);
+}
+
+// Block (token, kv head, sequence): one warp copies the row, if it has a
+// slot.
+__global__ void __launch_bounds__(32)
+    append_span_kernel(const NewRows nr, uint4* k_pages, uint4* v_pages,
+                       const int* page_table, const int* lengths,
+                       const int* new_lens, int num_pages, int page_size,
+                       int pages_max) {
+  const int t = blockIdx.x, hk = blockIdx.y, bb = blockIdx.z;
   const int len = lengths[bb];
-  int page = 0, slot = 0;
-  if (len >= 0 && len / page_size < pages_max) {
-    page = page_table[(size_t)bb * pages_max + len / page_size];
-    slot = len % page_size;
+  Slot at;
+  if (len < 0 || t >= new_lens[bb] ||
+      !span_slot(len + t, page_table + (size_t)bb * pages_max, pages_max,
+                 page_size, &at)) {
+    return;
   }
-  for (int i = threadIdx.x; i < h * d; i += blockDim.x) {
-    const int hh = i / d, dd = i % d;
-    const size_t dst =
-        (((size_t)hh * num_pages + page) * page_size + slot) * d + dd;
-    k_pages[dst] = new_k[(size_t)bb * h * d + i];
-    v_pages[dst] = new_v[(size_t)bb * h * d + i];
-  }
+  store_new_row(nr, k_pages, v_pages, bb, t, hk, num_pages, page_size, at,
+                threadIdx.x, 32);
 }
 
 constexpr int kWriteThreads = 256;
@@ -102,85 +122,54 @@ __global__ void __launch_bounds__(kWriteThreads)
   }
 }
 
-// One thread per 16-byte vector of (sequence, chunk row, kv head): it finds
-// its slot and page itself and stores directly.
-__global__ void append_span_kernel(const uint4* new_k, const uint4* new_v,
-                                   uint4* k_pages, uint4* v_pages,
-                                   const int* page_table, const int* lengths,
-                                   const int* new_lens, int b, int sq, int h,
-                                   int num_pages, int page_size,
-                                   int pages_max, int vecs) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)b * sq * h * vecs) return;
-  const int vec = i % vecs;
-  const int hh = (i / vecs) % h;
-  const int t = (i / ((size_t)vecs * h)) % sq;
-  const int bb = i / ((size_t)vecs * h * sq);
-  const int len = lengths[bb];
-  if (len < 0 || t >= new_lens[bb]) return;  // inactive or padding: nothing
-  const int pos = len + t;
-  if (pos / page_size >= pages_max) return;  // past the table: nothing
-  const int page = page_table[(size_t)bb * pages_max + pos / page_size];
-  const size_t dst =
-      (((size_t)hh * num_pages + page) * page_size + pos % page_size) * vecs +
-      vec;
-  k_pages[dst] = new_k[i];
-  v_pages[dst] = new_v[i];
-}
-
 }  // namespace
 }  // namespace fattn
 
+// new_k / new_v (b, sq, h, d) through element strides sb, st, sh (shared;
+// d contiguous, whole 16-byte vectors) into the (h, num_pages, page_size,
+// d) caches.
 extern "C" int fattn_append_span(const void* new_k, const void* new_v,
                                  void* k_pages, void* v_pages,
                                  const void* page_table, const void* lengths,
                                  const void* new_lens, int b, int sq, int h,
                                  int num_pages, int page_size, int pages_max,
-                                 int d, int elem_bytes, void* stream) {
+                                 int d, long long sb, long long st,
+                                 long long sh, int elem_bytes, void* stream) {
   using namespace fattn;
-  if (b <= 0 || sq <= 0 || h <= 0 || d <= 0 || page_size <= 0 ||
-      pages_max <= 0 || elem_bytes <= 0 || (d * elem_bytes) % 16 != 0) {
+  NewRows nr;
+  if (b <= 0 || b > 65535 || sq <= 0 || h <= 0 || h > 65535 ||
+      page_size <= 0 || pages_max <= 0 ||
+      !make_new_rows(new_k, new_v, sb, st, sh, d, elem_bytes, &nr)) {
     return cudaErrorInvalidValue;
   }
-  const int vecs = d * elem_bytes / 16;
-  const size_t n = (size_t)b * sq * h * vecs;
-  const int threads = 256;
-  append_span_kernel<<<(n + threads - 1) / threads, threads, 0,
+  append_span_kernel<<<dim3(sq, h, b), 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(new_k), static_cast<const uint4*>(new_v),
-      static_cast<uint4*>(k_pages), static_cast<uint4*>(v_pages),
+      nr, static_cast<uint4*>(k_pages), static_cast<uint4*>(v_pages),
       static_cast<const int*>(page_table), static_cast<const int*>(lengths),
-      static_cast<const int*>(new_lens), b, sq, h, num_pages, page_size,
-      pages_max, vecs);
+      static_cast<const int*>(new_lens), num_pages, page_size, pages_max);
   return cudaGetLastError();
 }
 
+// new_k / new_v (b, h, d) through element strides sb, sh (shared; d
+// contiguous, whole 16-byte vectors).
 extern "C" int fattn_append_token(const void* new_k, const void* new_v,
                                   void* k_pages, void* v_pages,
                                   const void* page_table, const void* lengths,
                                   int b, int h, int num_pages, int page_size,
-                                  int pages_max, int d, int elem_bytes,
+                                  int pages_max, int d, long long sb,
+                                  long long sh, int elem_bytes,
                                   void* stream) {
   using namespace fattn;
-  if (b <= 0 || h <= 0 || d <= 0 || page_size <= 0 || pages_max <= 0) {
+  NewRows nr;
+  if (b <= 0 || h <= 0 || h > 65535 || page_size <= 0 || pages_max <= 0 ||
+      !make_new_rows(new_k, new_v, sb, 0, sh, d, elem_bytes, &nr)) {
     return cudaErrorInvalidValue;
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* tbl = static_cast<const int*>(page_table);
-  const int* lens = static_cast<const int*>(lengths);
-  if (elem_bytes == 2) {
-    append_token_kernel<uint16_t><<<b, 256, 0, st>>>(
-        static_cast<const uint16_t*>(new_k), static_cast<const uint16_t*>(new_v),
-        static_cast<uint16_t*>(k_pages), static_cast<uint16_t*>(v_pages), tbl,
-        lens, h, num_pages, page_size, pages_max, d);
-  } else if (elem_bytes == 4) {
-    append_token_kernel<uint32_t><<<b, 256, 0, st>>>(
-        static_cast<const uint32_t*>(new_k), static_cast<const uint32_t*>(new_v),
-        static_cast<uint32_t*>(k_pages), static_cast<uint32_t*>(v_pages), tbl,
-        lens, h, num_pages, page_size, pages_max, d);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  append_token_kernel<<<dim3(b, h), 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      nr, static_cast<uint4*>(k_pages), static_cast<uint4*>(v_pages),
+      static_cast<const int*>(page_table), static_cast<const int*>(lengths),
+      num_pages, page_size, pages_max);
   return cudaGetLastError();
 }
 

@@ -52,6 +52,31 @@
 //   - fp32 (paged_chunk_f32_kernel): 64 rows per block, four threads per
 //     row with FMA on the CUDA cores, 32-key tiles by 16-byte loads; never
 //     split.
+//
+// Verification with the span append (fattn_paged_chunk with new_k / new_v;
+// the JAX package's serving/kvcache.py "fused append + attend"): row t <
+// chunk_lens[b] of new_k / new_v is stored at position cache_lens[b] + t
+// (K7b's slots: nothing for an inactive sequence, cache_lens < 0, or past
+// the table), and lengths = cache_lens + chunk_lens as before. This form
+// needs the chunk to be one row tile (sq * group <= 128, fp32 64), so
+// each (split, kv head, sequence) has one block: the block stores the new
+// rows whose positions fall in its split's key range [split * split_keys,
+// + split_keys) (a span that straddles a split boundary is handled by both
+// splits, each its own rows); no other block reads those keys. The
+// arithmetic is K6's on the same key values: output and cache are bit for
+// bit those of append_span followed by this kernel.
+//   - bf16 / fp16: while the first TMA loads are issued, the rows are
+//     staged in shared memory by cp.async (dynamic shared memory grows by
+//     sq rows), written over what the TMA fetched from their slots once
+//     their tile has landed (then a proxy fence,
+//     fence.proxy.async.shared::cta, for wgmma, and a barrier), and
+//     stored to their slots then. No global round trip stands between the
+//     launch and the walk, and the TMA never reads a slot while it is
+//     written. The kernel is instantiated with and without the append,
+//     so K6 alone runs none of this.
+//   - fp32: the rows are stored first, a warp per row, and the walk reads
+//     them from the cache; its 16-byte loads follow a barrier.
+#include "cache_write.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
@@ -71,6 +96,8 @@ struct ChunkParams {
   const int* page_table;
   void* out;
   SplitKV sp;
+  NewRows nr;             // the appended rows (nr.k == nullptr: none)
+  const int* cache_lens;  // lengths before the append
   int sq, h_kv, group, tile_t, row_tiles, num_pages, page_size, pages_max;
   int box_rows;  // rows of a TMA box: min(page_size, 64)
   float scale_log2;
@@ -140,6 +167,38 @@ __device__ __forceinline__ int out_row(const ChunkParams& p,
   return (bb * p.sq + tt) * p.h_kv * p.group + hk * p.group + r % p.group;
 }
 
+// With the append: the new rows t0 <= t < t1 of sequence bb whose
+// positions cache_lens[bb] + t fall in split `split`'s key range, which
+// its block stores; false where there are none (no append, an inactive
+// sequence, none in the range or in the table).
+__device__ __forceinline__ bool appended_rows(const ChunkParams& p, int bb,
+                                              int split, int* t0, int* t1) {
+  if (p.nr.k == nullptr) return false;
+  const int len = p.cache_lens[bb];
+  if (len < 0) return false;  // inactive: nothing
+  const int k_lo = split * p.sp.split_keys;
+  *t0 = max(0, k_lo - len);
+  *t1 = min(min(p.chunk_lens[bb], p.sq),
+            min(k_lo + p.sp.split_keys, p.pages_max * p.page_size) - len);
+  return *t1 > *t0;
+}
+
+// Stores rows t0 <= t < t1 of sequence bb's new rows (kv head hk), a warp
+// per row.
+__device__ __forceinline__ void store_appended(const ChunkParams& p, int bb,
+                                               int hk, int t0, int t1) {
+  const int* tbl = p.page_table + (size_t)bb * p.pages_max;
+  const int len = p.cache_lens[bb];
+  const int warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
+  for (int t = t0 + warp; t < t1; t += n_warps) {
+    Slot at;
+    span_slot(len + t, tbl, p.pages_max, p.page_size, &at);  // in the table
+    store_new_row(p.nr, static_cast<uint4*>(const_cast<void*>(p.k_pages)),
+                  static_cast<uint4*>(const_cast<void*>(p.v_pages)), bb, t,
+                  hk, p.num_pages, p.page_size, at, threadIdx.x % 32, 32);
+  }
+}
+
 // ---------------------------------------------------------------- wgmma path
 
 constexpr int kRows = 128;     // query rows per block, 64 per warpgroup
@@ -153,9 +212,15 @@ struct ChunkLayout {
   // The K ring, the V ring, kStages mbarriers and release counts,
   // alignment slack.
   static constexpr int kBytes = 2 * 2 * kStages * kTile + 12 * kStages + 1024;
+  // With the append, after the release counts (up to 12 bytes to 16-byte
+  // alignment): each new row's staged K and V vectors, for at most kRows
+  // rows (one row tile).
+  static constexpr int kRowBytes = 2 * D * 2;
+  static constexpr int kAppendBytes = 16;
+  static constexpr int kMaxBytes = kBytes + kAppendBytes + kRows * kRowBytes;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kAppend>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
@@ -177,7 +242,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k_hi = min(br.n_keys, k_lo + p.sp.split_keys);
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
   const int* tbl = p.page_table + (size_t)bb * p.pages_max;
-
   // Tile j (keys k_lo + 64 j on) into ring stage j % kStages: one TMA box
   // per page it touches and 64-column block.
   auto load_tile = [&](int j) {
@@ -201,6 +265,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     mbar_fence_init();
     for (int j = 0; j < kStages && j < n_tiles; ++j) load_tile(j);
+  }
+  // With the append: rows t0 <= t < t1 of the new rows fall in this
+  // split, at positions new_lo on. While thread 0 issues the first loads,
+  // the threads past its warp stage them in shared memory by cp.async, a
+  // 16-byte vector per item (K's, then V's, of each row; thread kStagers +
+  // j takes items j, j + kThreads - kStagers, ...). Once their tile has
+  // landed, the same threads write them over what the TMA fetched from
+  // their slots and store them to the slots.
+  constexpr int kVecs = D / 8;  // 16-byte vectors of a row
+  constexpr int kStagers = 32;  // thread 0's warp stages nothing
+  int t0 = 0, t1 = 0;
+  const bool appends = kAppend && appended_rows(p, bb, split, &t0, &t1);
+  const int new_lo = appends ? p.cache_lens[bb] + t0 : 0;
+  const int n_items = (t1 - t0) * 2 * kVecs;
+  const int first_item = static_cast<int>(threadIdx.x) - kStagers;
+  uint4* staged = reinterpret_cast<uint4*>(
+      (reinterpret_cast<uintptr_t>(released + kStages) + 15) & ~uintptr_t{15});
+  if (appends && first_item >= 0) {
+    for (int i = first_item; i < n_items; i += kThreads - kStagers) {
+      const int tt = t0 + i / (2 * kVecs), e = i % (2 * kVecs);
+      const long long src =
+          bb * p.nr.sb + tt * p.nr.st + hk * p.nr.sh + e % kVecs;
+      cp_async16(staged + i, (e < kVecs ? p.nr.k : p.nr.v) + src, true);
+    }
+    cp_async_commit();
   }
   __syncthreads();
 
@@ -244,6 +333,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = j % kStages;
     const int k0 = k_lo + j * kKeys;
     mbar_wait(&full[s], (j / kStages) & 1);
+    if (appends && new_lo < k0 + kKeys && new_lo + t1 - t0 > k0) {
+      // This tile holds new rows: the staged rows over what the TMA
+      // fetched from their slots (in its 128-byte swizzle: 16-byte chunk c
+      // of row r at c ^ (r % 8)); wgmma reads shared memory in the async
+      // proxy, so fence, then the barrier; then into the cache (the page
+      // ids are the ones this tile's loads read from the table).
+      cp_async_wait<0>();  // this thread's own staged items
+      for (int i = first_item; first_item >= 0 && i < n_items;
+           i += kThreads - kStagers) {
+        const int row = new_lo + i / (2 * kVecs) - k0;
+        if (row < 0 || row >= kKeys) continue;
+        const int e = i % (2 * kVecs), v = e % kVecs;
+        *reinterpret_cast<uint4*>((e < kVecs ? k_s : v_s) + s * L::kTile +
+                                  (v / 8) * kKeys * 64 + row * 64 +
+                                  ((v % 8) ^ (row & 7)) * 8) = staged[i];
+      }
+      fence_proxy_async();
+      __syncthreads();
+      for (int i = first_item; first_item >= 0 && i < n_items;
+           i += kThreads - kStagers) {
+        const int pos = new_lo + i / (2 * kVecs);
+        if (pos < k0 || pos >= k0 + kKeys) continue;
+        const int e = i % (2 * kVecs), v = e % kVecs;
+        static_cast<uint4*>(const_cast<void*>(e < kVecs ? p.k_pages
+                                                        : p.v_pages))
+            [(((size_t)hk * p.num_pages + tbl[pos / ps]) * ps + pos % ps) *
+                 kVecs +
+             v] = staged[i];
+      }
+    }
     if (live) {
       // S = Q K^T: 64 rows x 64 keys; sc[4 nb + e] as in csrc/hopper.cuh.
       float sc[kKeys / 2];
@@ -416,6 +535,10 @@ __global__ void __launch_bounds__(256)
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
+  // The new rows: the barrier at the top of the first tile orders them
+  // before its loads.
+  int t0 = 0, t1 = 0;
+  if (appended_rows(p, bb, 0, &t0, &t1)) store_appended(p, bb, hk, t0, t1);
 
   for (int k0 = 0; k0 < br.n_keys; k0 += kBlockK) {
     const int n = min(kBlockK, br.n_keys - k0);
@@ -475,7 +598,7 @@ __global__ void __launch_bounds__(256)
   for (int i = 0; i < kPer; ++i) out[i * 4 + t4] = acc[i] * inv;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kAppend>
 cudaError_t launch_wgmma(const ChunkParams& p, int b, cudaStream_t st) {
   using L = ChunkLayout<D>;
   // Each cache as (h_kv, num_pages, page_size, d): 4-D maps whose box is
@@ -490,13 +613,15 @@ cudaError_t launch_wgmma(const ChunkParams& p, int b, cudaStream_t st) {
                         D, pages, p.box_rows);
   }
   if (err != cudaSuccess) return err;
-  const auto kernel = paged_chunk_wgmma_kernel<T, D>;
+  const auto kernel = paged_chunk_wgmma_kernel<T, D, kAppend>;
   // Once per kernel and process (the first launch, on the current device).
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kMaxBytes);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3(p.row_tiles * p.sp.n_splits, p.h_kv, b), kThreads,
-           L::kBytes, st>>>(map_k, map_v, p);
+  const int bytes =
+      L::kBytes + (kAppend ? L::kAppendBytes + p.sq * L::kRowBytes : 0);
+  kernel<<<dim3(p.row_tiles * p.sp.n_splits, p.h_kv, b), kThreads, bytes,
+           st>>>(map_k, map_v, p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.sp.o_part == nullptr) return err;
   return launch_merge<T, D>(p.sp, static_cast<T*>(p.out), st);
@@ -506,9 +631,11 @@ template <int D>
 cudaError_t launch(const ChunkParams& p, int dtype, int b, cudaStream_t st) {
   switch (dtype) {
     case kBF16:
-      return launch_wgmma<__nv_bfloat16, D>(p, b, st);
+      return p.nr.k != nullptr ? launch_wgmma<__nv_bfloat16, D, true>(p, b, st)
+                               : launch_wgmma<__nv_bfloat16, D, false>(p, b, st);
     case kF16:
-      return launch_wgmma<__half, D>(p, b, st);
+      return p.nr.k != nullptr ? launch_wgmma<__half, D, true>(p, b, st)
+                               : launch_wgmma<__half, D, false>(p, b, st);
     case kF32:
       paged_chunk_f32_kernel<D><<<dim3(p.row_tiles, p.h_kv, b), 256, 0, st>>>(p);
       return cudaGetLastError();
@@ -524,13 +651,19 @@ cudaError_t launch(const ChunkParams& p, int dtype, int b, cudaStream_t st) {
 // dimension contiguous, rows 16-byte aligned). partials: fp32 scratch of
 // n_splits * b * sq * h * (d + 1) floats (csrc/paged_split.cuh), or nullptr
 // when n_splits == 1 (always for fp32); split_keys: keys per split, a
-// multiple of 64 and of page_size.
+// multiple of 64 and of page_size. new_k / new_v: nullptr, or the (b, sq,
+// h_kv, d) rows to append first (one row tile only) through element
+// strides nk_sb, nk_st, nk_sh (shared; d contiguous, whole 16-byte
+// vectors) at positions cache_lens[b] + t.
 extern "C" int fattn_paged_chunk(const void* q, long long q_sb,
                                  long long q_st, long long q_sh,
-                                 const void* k_pages, const void* v_pages,
+                                 void* k_pages, void* v_pages,
                                  const void* lengths, const void* chunk_lens,
                                  const void* page_table, void* out,
-                                 void* partials, int b, int sq, int h_kv,
+                                 void* partials, const void* new_k,
+                                 const void* new_v, const void* cache_lens,
+                                 long long nk_sb, long long nk_st,
+                                 long long nk_sh, int b, int sq, int h_kv,
                                  int group, int num_pages, int page_size,
                                  int pages_max, int n_splits, int split_keys,
                                  int d, float scale, int dtype,
@@ -544,10 +677,18 @@ extern "C" int fattn_paged_chunk(const void* q, long long q_sb,
       num_pages <= 0 || page_size <= 0 || pages_max <= 0 || n_splits <= 0 ||
       split_keys <= 0 || split_keys % kKeys != 0 ||
       split_keys % page_size != 0 || (n_splits > 1) != (partials != nullptr) ||
-      (f32 && n_splits != 1) || (!f32 && !tiles_pages)) {
+      (f32 && n_splits != 1) || (!f32 && !tiles_pages) ||
+      (new_k == nullptr) != (new_v == nullptr) ||
+      (new_k != nullptr) != (cache_lens != nullptr)) {
     return cudaErrorInvalidValue;
   }
   const int tile_t = rows / group;
+  NewRows nr{};
+  if (new_k != nullptr &&
+      (sq > tile_t || !make_new_rows(new_k, new_v, nk_sb, nk_st, nk_sh, d,
+                                     f32 ? 4 : 2, &nr))) {
+    return cudaErrorInvalidValue;  // more than one row tile, or bad rows
+  }
   const ChunkParams p{q,
                       q_sb,
                       q_st,
@@ -560,6 +701,8 @@ extern "C" int fattn_paged_chunk(const void* q, long long q_sb,
                       out,
                       SplitKV{static_cast<float*>(partials), n_splits,
                               split_keys, b * sq * h_kv * group},
+                      nr,
+                      static_cast<const int*>(cache_lens),
                       sq,
                       h_kv,
                       group,

@@ -43,6 +43,32 @@
 //     (cp.async.bulk, one per run of keys inside a page) on an mbarrier per
 //     stage; eight lanes per key; a warp per row runs the online softmax;
 //     P @ V by threads that own column pairs.
+//
+// Decode with the append (fattn_paged_decode with new_k / new_v; the
+// JAX package's serving/kvcache.py "fused append + attend"): lengths are
+// then the lengths BEFORE the append and the keys are max(length, 0) + 1.
+// Only the block whose split holds position lengths[b] reads the new key,
+// so it alone handles that kv head's row (K7a's slot, csrc/cache_write.cuh),
+// and nothing waits across blocks. The arithmetic is K5's on the same key
+// values, so the output and the cache are bit for bit those of
+// append_token followed by this kernel.
+//   - bf16 / fp16: the warp whose 16 keys of the segment include the new
+//     one (only it reads that K and V row) loads the row into registers at
+//     the start, and once the segment has landed writes it over the row
+//     the cp.async fetched from the slot, then stores it to the slot. No
+//     global round trip stands between the launch and the walk.
+//   - fp32, and a row redirected to the scratch page (an inactive slot,
+//     length < 0, or a position past the table: slot 0 of page 0, stored
+//     by split 0): the row is stored first (store_new_row), and the walk
+//     reads it from the cache; the bulk copies read in the async proxy,
+//     so the storing threads fence (fence.proxy.async.global) before the
+//     barrier.
+// An inactive slot's output reads key 0 of page_table[b, 0], which may be
+// page 0 while other sequences store their inactive rows there: that
+// output is garbage either way and the engine discards it (active
+// sequences never read page 0 unmasked). The kernels are instantiated
+// with and without the append, so K5 alone runs none of this.
+#include "cache_write.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
@@ -67,6 +93,7 @@ struct DecodeParams {
   SplitKV sp;
   int h_kv, group, num_pages, page_size, pages_max;
   float scale_log2;
+  NewRows nr;  // the appended rows (nr.k == nullptr: none)
 };
 
 // The keys [k_begin, k_end) a block's split covers in its sequence.
@@ -74,11 +101,42 @@ struct SplitKeys {
   int k_begin, k_end;
 };
 
+template <bool kAppend>
 __device__ __forceinline__ SplitKeys split_keys(const DecodeParams& p,
                                                 int bb) {
-  const int length = paged_length(p.lengths[bb], p.pages_max, p.page_size);
+  int raw = p.lengths[bb];
+  if (kAppend) raw = max(raw, 0) + 1;  // the length after the append
+  const int length = paged_length(raw, p.pages_max, p.page_size);
   const int k_begin = blockIdx.x * p.sp.split_keys;
   return SplitKeys{k_begin, min(length, k_begin + p.sp.split_keys)};
+}
+
+// With the append, sequence bb's new row: redirected to the scratch page
+// (an inactive slot, or a position past the table), or else its offset
+// from the first key of the split that holds it (-1 in other splits).
+__device__ __forceinline__ bool appended_redirected(const DecodeParams& p,
+                                                    int bb) {
+  const int len = p.lengths[bb];
+  return len < 0 || len / p.page_size >= p.pages_max;
+}
+__device__ __forceinline__ int appended_offset(const DecodeParams& p,
+                                               int bb) {
+  const int len = p.lengths[bb];
+  return blockIdx.x == len / p.sp.split_keys
+             ? len - blockIdx.x * p.sp.split_keys
+             : -1;
+}
+
+// Stores sequence bb's new row of kv head hk (K7a's slot), n threads
+// taking its vectors.
+__device__ __forceinline__ void store_appended(const DecodeParams& p, int bb,
+                                               int hk, int tid, int n) {
+  const Slot at = token_slot(p.lengths[bb],
+                             p.page_table + (size_t)bb * p.pages_max,
+                             p.pages_max, p.page_size);
+  store_new_row(p.nr, static_cast<uint4*>(const_cast<void*>(p.k_pages)),
+                static_cast<uint4*>(const_cast<void*>(p.v_pages)), bb, 0, hk,
+                p.num_pages, p.page_size, at, tid, n);
 }
 
 // Writes row r's result (output row `row`): out, or the split's partial
@@ -115,7 +173,7 @@ struct MmaLayout {
   static_assert(4 * (4 * 16 * D + 2 * 4 * 16) <= kBytes, "merge scratch");
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kAppend>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_mma_kernel(const DecodeParams p) {
   using L = MmaLayout<D>;
@@ -129,7 +187,39 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int ps = p.page_size;
-  const SplitKeys sk = split_keys(p, bb);
+  // The append: a redirected row is stored before the first cp.async that
+  // may read it (generic proxy: the barrier orders them). Otherwise the
+  // warp that computes the new key's 16 keys holds its row, a 16-byte
+  // vector per lane (K's, then V's), for segment seg_new, row r_new.
+  constexpr int kVecs = D / 8;  // 16-byte vectors of a row
+  int seg_new = -1, r_new = 0;
+  uint4 new_vec = make_uint4(0u, 0u, 0u, 0u);
+  uint4* new_dst = nullptr;  // its vector in the cache
+  if (kAppend) {
+    if (appended_redirected(p, bb)) {
+      if (blockIdx.x == 0) {
+        store_appended(p, bb, hk, tid, kThreads);
+        __syncthreads();
+      }
+    } else if (const int off = appended_offset(p, bb); off >= 0) {
+      seg_new = off / kKeys;
+      r_new = off % kKeys;
+      if (warp == r_new / 16 && lane < 2 * kVecs) {
+        const int len = p.lengths[bb], e = lane % kVecs;
+        const long long src = bb * p.nr.sb + hk * p.nr.sh + e;
+        new_vec = lane < kVecs ? p.nr.k[src] : p.nr.v[src];
+        new_dst = static_cast<uint4*>(const_cast<void*>(
+                      lane < kVecs ? p.k_pages : p.v_pages)) +
+                  (((size_t)hk * p.num_pages +
+                    p.page_table[(size_t)bb * p.pages_max + len / ps]) *
+                       ps +
+                   len % ps) *
+                      kVecs +
+                  e;
+      }
+    }
+  }
+  const SplitKeys sk = split_keys<kAppend>(p, bb);
   const int n_seg =
       sk.k_end > sk.k_begin ? (sk.k_end - sk.k_begin + kKeys - 1) / kKeys : 0;
   const size_t head = (size_t)hk * p.num_pages * ps * D;
@@ -191,6 +281,16 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
 
     const int s = i % kStages;
+    if (kAppend && i == seg_new) {
+      // The new row over what the cp.async fetched from its slot, then
+      // into the cache; only this warp reads the row.
+      if (new_dst != nullptr) {
+        *reinterpret_cast<uint4*>((lane < kVecs ? k_s : v_s) + s * L::kSeg +
+                                  r_new * kS + (lane % kVecs) * 8) = new_vec;
+        *new_dst = new_vec;
+      }
+      __syncwarp();
+    }
     const int key0 = warp * 16;  // this warp's keys of the segment
     const uint16_t* ks = k_s + s * L::kSeg + key0 * kS;
     const uint16_t* vs = v_s + s * L::kSeg + key0 * kS;
@@ -315,7 +415,7 @@ struct F32Layout {
       128 + 4 * (2 * kStages * kSeg + kMaxGroup * (D + kF32Keys + 3));
 };
 
-template <int D>
+template <int D, bool kAppend>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_f32_kernel(const DecodeParams p) {
   using L = F32Layout<D>;
@@ -337,7 +437,7 @@ __global__ void __launch_bounds__(kThreads)
   const int G = p.group;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ps = p.page_size;
-  const SplitKeys sk = split_keys(p, bb);
+  const SplitKeys sk = split_keys<kAppend>(p, bb);
   const int n_seg = sk.k_end > sk.k_begin
                         ? (sk.k_end - sk.k_begin + kF32Keys - 1) / kF32Keys
                         : 0;
@@ -345,6 +445,14 @@ __global__ void __launch_bounds__(kThreads)
   const float* kh = static_cast<const float*>(p.k_pages) + head;
   const float* vh = static_cast<const float*>(p.v_pages) + head;
   const int* tbl = p.page_table + (size_t)bb * p.pages_max;
+  // The new row before the first bulk copy that may read it: the bulk
+  // copies read in the async proxy, so each storing thread fences first.
+  if (kAppend && (appended_redirected(p, bb) ? blockIdx.x == 0
+                                             : appended_offset(p, bb) >= 0)) {
+    store_appended(p, bb, hk, tid, kThreads);
+    fence_proxy_async_global();
+    __syncthreads();
+  }
 
   // The live keys of segment i into stage i % kStages: one bulk copy of K
   // and one of V per run of keys inside a page.
@@ -472,15 +580,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kAppend>
 cudaError_t launch_typed(const DecodeParams& p, int b, cudaStream_t st) {
   void (*kernel)(const DecodeParams);
   int bytes;
   if constexpr (sizeof(T) == 4) {
-    kernel = paged_decode_f32_kernel<D>;
+    kernel = paged_decode_f32_kernel<D, kAppend>;
     bytes = F32Layout<D>::kBytes;
   } else {
-    kernel = paged_decode_mma_kernel<T, D>;
+    kernel = paged_decode_mma_kernel<T, D, kAppend>;
     bytes = MmaLayout<D>::kBytes;
   }
   // Once per kernel and process (the first launch, on the current device).
@@ -495,8 +603,15 @@ cudaError_t launch_typed(const DecodeParams& p, int b, cudaStream_t st) {
 
 template <typename T>
 cudaError_t launch(const DecodeParams& p, int d, int b, cudaStream_t st) {
-  if (d == 64) return launch_typed<T, 64>(p, b, st);
-  if (d == 128) return launch_typed<T, 128>(p, b, st);
+  const bool append = p.nr.k != nullptr;
+  if (d == 64) {
+    return append ? launch_typed<T, 64, true>(p, b, st)
+                  : launch_typed<T, 64, false>(p, b, st);
+  }
+  if (d == 128) {
+    return append ? launch_typed<T, 128, true>(p, b, st)
+                  : launch_typed<T, 128, false>(p, b, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -506,12 +621,17 @@ cudaError_t launch(const DecodeParams& p, int d, int b, cudaStream_t st) {
 // q_sb, q_sh: q's batch and head element strides (its last dimension
 // contiguous, rows 4-byte aligned). partials: fp32 scratch of n_splits * b
 // * h * (d + 1) floats (csrc/paged_split.cuh), or nullptr when n_splits ==
-// 1; split_keys: keys per split, a multiple of page_size.
+// 1; split_keys: keys per split, a multiple of page_size. new_k / new_v:
+// nullptr, or the (b, h_kv, d) rows to append first through element
+// strides nk_sb, nk_sh (shared; d contiguous, whole 16-byte vectors), and
+// lengths are then the lengths before the append.
 extern "C" int fattn_paged_decode(const void* q, long long q_sb,
-                                  long long q_sh, const void* k_pages,
-                                  const void* v_pages, const void* lengths,
+                                  long long q_sh, void* k_pages,
+                                  void* v_pages, const void* lengths,
                                   const void* page_table, void* out,
-                                  void* partials, int b, int h_kv, int group,
+                                  void* partials, const void* new_k,
+                                  const void* new_v, long long nk_sb,
+                                  long long nk_sh, int b, int h_kv, int group,
                                   int num_pages, int page_size, int pages_max,
                                   int n_splits, int split_keys, int d,
                                   float scale, int dtype, void* stream) {
@@ -519,7 +639,14 @@ extern "C" int fattn_paged_decode(const void* q, long long q_sb,
   if (b <= 0 || h_kv <= 0 || group <= 0 || group > kMaxGroup ||
       num_pages <= 0 || page_size <= 0 || pages_max <= 0 || n_splits <= 0 ||
       split_keys <= 0 || split_keys % page_size != 0 ||
-      (n_splits > 1) != (partials != nullptr)) {
+      (n_splits > 1) != (partials != nullptr) ||
+      (new_k == nullptr) != (new_v == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  NewRows nr{};
+  if (new_k != nullptr &&
+      !make_new_rows(new_k, new_v, nk_sb, 0, nk_sh, d,
+                     dtype == kF32 ? 4 : 2, &nr)) {
     return cudaErrorInvalidValue;
   }
   const DecodeParams p{q,
@@ -537,7 +664,8 @@ extern "C" int fattn_paged_decode(const void* q, long long q_sb,
                        num_pages,
                        page_size,
                        pages_max,
-                       scale * kLog2e};
+                       scale * kLog2e,
+                       nr};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:

@@ -47,20 +47,25 @@ _SIGNATURES = {
     # h_kv, sq, sk, d, scale, causal, seed, threshold, rp, dtype, stream
     "fattn_flash_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
     # q, q_sb, q_sh, k_pages, v_pages, lengths, page_table, out, partials,
-    # b, h_kv, group, num_pages, page_size, pages_max, n_splits, split_keys,
-    # d, scale, dtype, stream
-    "fattn_paged_decode": [_P, _L, _L] + [_P] * 6 + [_I] * 9 + [_F, _I, _P],
+    # new_k, new_v, new rows' strides of batch and head, b, h_kv, group,
+    # num_pages, page_size, pages_max, n_splits, split_keys, d, scale,
+    # dtype, stream
+    "fattn_paged_decode": [_P, _L, _L] + [_P] * 8 + [_L] * 2 + [_I] * 9
+    + [_F, _I, _P],
     # q, q_sb, q_st, q_sh, k_pages, v_pages, lengths, chunk_lens,
-    # page_table, out, partials, b, sq, h_kv, group, num_pages, page_size,
-    # pages_max, n_splits, split_keys, d, scale, dtype, stream
-    "fattn_paged_chunk": [_P, _L, _L, _L] + [_P] * 7 + [_I] * 10
+    # page_table, out, partials, new_k, new_v, cache_lens, new rows'
+    # strides of batch, token and head, b, sq, h_kv, group, num_pages,
+    # page_size, pages_max, n_splits, split_keys, d, scale, dtype, stream
+    "fattn_paged_chunk": [_P, _L, _L, _L] + [_P] * 10 + [_L] * 3 + [_I] * 10
     + [_F, _I, _P],
     # new_k, new_v, k_pages, v_pages, page_table, lengths, new_lens, b, sq,
-    # h, num_pages, page_size, pages_max, d, elem_bytes, stream
-    "fattn_append_span": [_P] * 7 + [_I] * 8 + [_P],
+    # h, num_pages, page_size, pages_max, d, new rows' strides of batch,
+    # token and head, elem_bytes, stream
+    "fattn_append_span": [_P] * 7 + [_I] * 7 + [_L] * 3 + [_I, _P],
     # new_k, new_v, k_pages, v_pages, page_table, lengths, b, h,
-    # num_pages, page_size, pages_max, d, elem_bytes, stream
-    "fattn_append_token": [_P] * 6 + [_I] * 7 + [_P],
+    # num_pages, page_size, pages_max, d, new rows' strides of batch and
+    # head, elem_bytes, stream
+    "fattn_append_token": [_P] * 6 + [_I] * 6 + [_L] * 2 + [_I, _P],
     # k, v, k_pages, v_pages, page_table, b, len, n_pages, h, num_pages,
     # page_size, d, k/v strides of row, token and head, elem_bytes, stream
     "fattn_write_pages": [_P] * 5 + [_I] * 7 + [_L] * 3 + [_I, _P],

@@ -24,6 +24,18 @@ page size a multiple of 64 or a divisor of 64 from 8 on (the kernel's TMA
 boxes). On the card a small grid has its keys split over
 ``paged_num_splits`` blocks, merged in order by a second launch (bf16 and
 fp16; fp32 runs unsplit), so the result is bitwise reproducible.
+
+With ``new_k``, ``new_v`` (batch, sq, n_kv_heads, d) and ``cache_seqlens``
+(batch,) int32 the launch first appends the chunk's K/V IN PLACE, as
+``serving/cache.py`` ``append_span(cache, new_k, new_v, page_table,
+cache_seqlens, chunk_lens)`` writes them (row t at position
+``cache_seqlens[b] + t`` for t < chunk_lens[b]; nothing for an inactive
+sequence or past the table), with ``lengths = cache_seqlens + chunk_lens``:
+the output and the cache are bit for bit what that append followed by this
+kernel give. On the card this form takes one row tile (``append_fits``:
+sq * group <= 128, fp32 64), the verification shape; a longer chunk
+raises, and ``flash_attn_with_kvcache`` then appends by ``append_span``
+first.
 """
 
 from __future__ import annotations
@@ -43,10 +55,16 @@ from flash_attn_tpu_torch.kernels.common import (
     paged_visibility_mask,
     sm_count,
 )
+from flash_attn_tpu_torch.serving.cache import (
+    PagedKVCache,
+    append_span_plain,
+    new_rows,
+)
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 64  # query heads per kv head a block holds
 BLOCK_ROWS = 128  # query rows per block of the bf16/fp16 kernel
+F32_BLOCK_ROWS = 64  # and of the fp32 kernel
 
 
 def page_size_ok(page_size: int) -> bool:
@@ -56,14 +74,24 @@ def page_size_ok(page_size: int) -> bool:
         SPLIT_TILE % page_size == 0 and page_size >= 8)
 
 
+def append_fits(sq: int, group: int, dtype) -> bool:
+    """The kernel appends inside its launch when the chunk is one row
+    tile of its block: sq * group query rows within the block's rows (128,
+    fp32 64). Only then does one block read each new key."""
+    rows = F32_BLOCK_ROWS if dtype == torch.float32 else BLOCK_ROWS
+    return sq * group <= rows
+
+
 def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
                           k_scales=None, v_scales=None, *, chunk_lens=None,
                           softmax_scale: float | None = None,
                           window_left=None, alibi_slopes=None, softcap=None,
-                          qk_quant=None):
-    """Chunk-of-queries attention against a paged bf16/fp16/fp32 KV cache. A
-    CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
-    raises."""
+                          qk_quant=None, new_k=None, new_v=None,
+                          cache_seqlens=None):
+    """Chunk-of-queries attention against a paged bf16/fp16/fp32 KV cache,
+    with the chunk's K/V appended first when ``new_k``/``new_v`` and
+    ``cache_seqlens`` are given (module docstring). A CPU tensor takes the
+    plain twins; a CUDA tensor launches the kernel or raises."""
     check_ported(k_scales=k_scales, v_scales=v_scales,
                  window_left=window_left, alibi_slopes=alibi_slopes,
                  softcap=softcap, qk_quant=qk_quant)
@@ -78,7 +106,24 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
     if chunk_lens is None:
         chunk_lens = torch.full((batch,), sq, dtype=torch.int32,
                                 device=q.device)
+    new = (new_k, new_v, cache_seqlens)
+    if any(x is None for x in new) != all(x is None for x in new):
+        raise ValueError("paged_chunk_attention: new_k, new_v and "
+                         "cache_seqlens go together")
+    if new_k is not None:
+        if new_k.shape != (batch, sq, n_kv_heads, d) \
+                or new_v.shape != new_k.shape:
+            raise ValueError(f"paged_chunk_attention: new_k "
+                             f"{tuple(new_k.shape)}, new_v "
+                             f"{tuple(new_v.shape)} for q {tuple(q.shape)}")
+        for t in (new_k, new_v):
+            if t.dtype != k_pages.dtype:
+                raise ValueError(f"paged_chunk_attention: payload {t.dtype} "
+                                 f"into a {k_pages.dtype} cache")
     if q.device.type == "cpu":
+        if new_k is not None:
+            append_span_plain(PagedKVCache(k_pages, v_pages), new_k, new_v,
+                              page_table, cache_seqlens, chunk_lens)
         return paged_chunk_attention_plain(
             q, k_pages, v_pages, lengths, page_table, chunk_lens=chunk_lens,
             softmax_scale=softmax_scale)
@@ -90,19 +135,32 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
     if d not in HEAD_DIMS or group > MAX_GROUP:
         raise ValueError(f"paged_chunk_attention: head_dim {d} (need "
                          f"{HEAD_DIMS}), group {group} (max {MAX_GROUP})")
-    for name, t, shape in (("lengths", lengths, (batch,)),
-                           ("chunk_lens", chunk_lens, (batch,))):
-        if t.dtype != torch.int32 or t.shape != shape:
+    ints = [("lengths", lengths), ("chunk_lens", chunk_lens)]
+    nk = (None, None, None, 0, 0, 0)
+    if new_k is not None:
+        if not append_fits(sq, group, q.dtype):
+            raise ValueError(f"paged_chunk_attention: the append runs inside "
+                             f"the launch for one row tile only (sq {sq} x "
+                             f"group {group} > {BLOCK_ROWS}, fp32 "
+                             f"{F32_BLOCK_ROWS}); append with append_span "
+                             "first")
+        ints.append(("cache_seqlens", cache_seqlens))
+        _build.require_device("paged_chunk_attention", new_k, new_v, q)
+        nk = (new_k.data_ptr(), new_v.data_ptr(), cache_seqlens.data_ptr(),
+              *new_rows("paged_chunk_attention", new_k, new_v,
+                        PagedKVCache(k_pages, v_pages)))
+    for name, t in ints:
+        if t.dtype != torch.int32 or t.shape != (batch,):
             raise ValueError(f"paged_chunk_attention: {name} must be int32 "
-                             f"of shape {shape}")
+                             f"of shape {(batch,)}")
     if page_table.dtype != torch.int32 or page_table.dim() != 2 \
             or page_table.shape[0] != batch:
         raise ValueError("paged_chunk_attention: page_table must be int32 "
                          "(batch, pages_max)")
     _build.require_device("paged_chunk_attention", q, k_pages, v_pages,
                           lengths, chunk_lens, page_table)
-    _build.require_cuda("paged_chunk_attention", k_pages, v_pages, lengths,
-                        chunk_lens, page_table)
+    _build.require_cuda("paged_chunk_attention", k_pages, v_pages,
+                        page_table, *(t for _, t in ints))
     if any(x.data_ptr() % 16 for x in (k_pages, v_pages)):
         raise ValueError("paged_chunk_attention: the pages must be 16-byte "
                          "aligned (the kernel loads 16-byte vectors)")
@@ -127,18 +185,20 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
         chunk_lens.data_ptr(), page_table.data_ptr(), out.data_ptr(),
-        None if partials is None else partials.data_ptr(), batch, sq,
+        None if partials is None else partials.data_ptr(), *nk, batch, sq,
         n_kv_heads, group, num_pages, page_size, pages_max, n_splits,
         paged_split_keys(pages_max, page_size, n_splits), d,
         float(softmax_scale), _build.DTYPE_CODES[q.dtype],
         _build.stream_ptr(q.device),
     )
-    paged_chunk_attention.launches += 1
     _build.check(code, "fattn_paged_chunk")
+    paged_chunk_attention.launches += 1
+    paged_chunk_attention.append_launches += int(new_k is not None)
     return out
 
 
-paged_chunk_attention.launches = 0
+paged_chunk_attention.launches = 0  # every launch
+paged_chunk_attention.append_launches = 0  # those that appended first
 
 
 def paged_chunk_attention_plain(q, k_pages, v_pages, lengths, page_table, *,

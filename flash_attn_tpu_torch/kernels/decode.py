@@ -19,6 +19,12 @@ keys are split over ``paged_num_splits`` blocks per (sequence, kv head),
 chosen from the shapes and the SM count (the lengths stay on the card),
 and a second launch merges the splits in order: at most two launches and
 one scratch allocation per call, and a bitwise reproducible result.
+
+``paged_decode_with_append`` is the serving decode step's form: it writes
+this step's K/V row into the cache inside the same launch (K7a's slot,
+``serving/cache.py`` ``append_token``) and attends over the cache with it,
+bit for bit what ``append_token`` followed by ``paged_decode_attention``
+give, with one launch fewer.
 """
 
 from __future__ import annotations
@@ -34,6 +40,11 @@ from flash_attn_tpu_torch.kernels.common import (
     paged_split_keys,
     paged_visibility_mask,
     sm_count,
+)
+from flash_attn_tpu_torch.serving.cache import (
+    PagedKVCache,
+    append_token_plain,
+    new_rows,
 )
 
 HEAD_DIMS = (64, 128)
@@ -51,36 +62,104 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
     check_ported(k_scales=k_scales, v_scales=v_scales,
                  window_left=window_left, num_sinks=num_sinks or None,
                  alibi_slopes=alibi_slopes, softcap=softcap)
-    batch, n_q_heads, d = q.shape
-    n_kv_heads, num_pages, page_size, dk = k_pages.shape
-    if dk != d or v_pages.shape != k_pages.shape or n_q_heads % n_kv_heads:
-        raise ValueError(
-            f"paged_decode_attention: shapes {tuple(q.shape)}, "
-            f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     if softmax_scale is None:
-        softmax_scale = d ** -0.5
+        softmax_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
+        _check_shapes("paged_decode_attention", q, k_pages, v_pages)
         return paged_decode_attention_plain(
             q, k_pages, v_pages, lengths, page_table,
             softmax_scale=softmax_scale,
         )
+    out = _launch("paged_decode_attention", q, k_pages, v_pages, lengths,
+                  page_table, softmax_scale, None)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_decode_with_append(q, new_k, new_v, k_pages, v_pages,
+                             cache_lengths, page_table, *,
+                             softmax_scale: float | None = None):
+    """One decode step's append and attention in one launch: new_k/new_v
+    (batch, n_kv_heads, d) go to each sequence's next slot IN PLACE, as
+    ``append_token(PagedKVCache(k_pages, v_pages), new_k, new_v,
+    page_table, cache_lengths)`` writes them (an inactive slot, length < 0,
+    to the scratch page 0), and q attends over ``max(cache_lengths, 0) +
+    1`` keys with the new one, as ``paged_decode_attention`` does. Returns
+    what that pair returns, and leaves the cache as it leaves it (bit for
+    bit on the card; page 0 aside). ``cache_lengths`` (batch,) int32 are
+    the lengths BEFORE the append. new_k/new_v may be views of a fused
+    projection (``serving/cache.py`` ``new_rows``). An inactive slot's
+    output is not defined beyond that pair's (it may read page 0 while
+    other slots write it); the engine discards it. A CPU tensor takes the
+    pair of plain twins; a CUDA tensor launches the kernel or raises."""
+    if softmax_scale is None:
+        softmax_scale = q.shape[-1] ** -0.5
+    if new_k.shape != (q.shape[0], k_pages.shape[0], q.shape[-1]) \
+            or new_v.shape != new_k.shape:
+        raise ValueError(f"paged_decode_with_append: new_k "
+                         f"{tuple(new_k.shape)}, new_v {tuple(new_v.shape)}"
+                         f" for q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}")
+    for t in (new_k, new_v):
+        if t.dtype != k_pages.dtype:
+            raise ValueError(f"paged_decode_with_append: payload {t.dtype} "
+                             f"into a {k_pages.dtype} cache")
+    if q.device.type == "cpu":
+        _check_shapes("paged_decode_with_append", q, k_pages, v_pages)
+        append_token_plain(PagedKVCache(k_pages, v_pages), new_k, new_v,
+                           page_table, cache_lengths)
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages,
+            (cache_lengths.clamp(min=0) + 1).to(torch.int32), page_table,
+            softmax_scale=softmax_scale)
+    out = _launch("paged_decode_with_append", q, k_pages, v_pages,
+                  cache_lengths, page_table, softmax_scale, (new_k, new_v))
+    paged_decode_with_append.launches += 1
+    return out
+
+
+paged_decode_with_append.launches = 0
+
+
+def _check_shapes(name, q, k_pages, v_pages):
+    _, n_q_heads, d = q.shape
+    n_kv_heads, _, _, dk = k_pages.shape
+    if dk != d or v_pages.shape != k_pages.shape or n_q_heads % n_kv_heads:
+        raise ValueError(
+            f"{name}: shapes {tuple(q.shape)}, {tuple(k_pages.shape)}, "
+            f"{tuple(v_pages.shape)}")
+
+
+def _launch(name, q, k_pages, v_pages, lengths, page_table, softmax_scale,
+            new):
+    """Check the operands and launch K5, with the append of ``new`` =
+    (new_k, new_v) first when it is given. Returns out."""
+    _check_shapes(name, q, k_pages, v_pages)
+    batch, n_q_heads, d = q.shape
+    n_kv_heads, num_pages, page_size, _ = k_pages.shape
     group = n_q_heads // n_kv_heads
     pages_max = page_table.shape[1]
     if q.dtype not in _build.DTYPE_CODES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
-        raise ValueError(f"paged_decode_attention: dtypes {q.dtype}, "
-                         f"{k_pages.dtype}, {v_pages.dtype}")
+        raise ValueError(f"{name}: dtypes {q.dtype}, {k_pages.dtype}, "
+                         f"{v_pages.dtype}")
     if d not in HEAD_DIMS or group > MAX_GROUP:
-        raise ValueError(f"paged_decode_attention: head_dim {d} (need "
-                         f"{HEAD_DIMS}), group {group} (max {MAX_GROUP})")
+        raise ValueError(f"{name}: head_dim {d} (need {HEAD_DIMS}), group "
+                         f"{group} (max {MAX_GROUP})")
     if lengths.dtype != torch.int32 or page_table.dtype != torch.int32 \
             or lengths.shape != (batch,) or page_table.shape[0] != batch:
-        raise ValueError("paged_decode_attention: lengths (batch,) and "
-                         "page_table (batch, pages_max) must be int32")
-    _build.require_device("paged_decode_attention", q, k_pages, v_pages,
-                          lengths, page_table)
-    _build.require_cuda("paged_decode_attention", k_pages, v_pages, lengths,
-                        page_table)
+        raise ValueError(f"{name}: lengths (batch,) and page_table (batch, "
+                         "pages_max) must be int32")
+    _build.require_device(name, q, k_pages, v_pages, lengths, page_table)
+    _build.require_cuda(name, k_pages, v_pages, lengths, page_table)
+    nk = (None, None, 0, 0)
+    if new is not None:
+        _build.require_device(name, *new, q)
+        sb, sh = new_rows(name, *new, PagedKVCache(k_pages, v_pages))
+        nk = (new[0].data_ptr(), new[1].data_ptr(), sb, sh)
     if q.stride(-1) != 1 or q.stride(0) % 2 or q.stride(1) % 2 \
             or q.data_ptr() % 4:
         q = q.contiguous()  # the kernel reads q in pairs of elements
@@ -95,17 +174,13 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
         q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(),
         v_pages.data_ptr(), lengths.data_ptr(), page_table.data_ptr(),
         out.data_ptr(), None if partials is None else partials.data_ptr(),
-        batch, n_kv_heads, group, num_pages, page_size, pages_max, n_splits,
-        paged_split_keys(pages_max, page_size, n_splits), d,
+        *nk, batch, n_kv_heads, group, num_pages, page_size, pages_max,
+        n_splits, paged_split_keys(pages_max, page_size, n_splits), d,
         float(softmax_scale), _build.DTYPE_CODES[q.dtype],
         _build.stream_ptr(q.device),
     )
-    paged_decode_attention.launches += 1
     _build.check(code, "fattn_paged_decode")
     return out
-
-
-paged_decode_attention.launches = 0
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_table, *,

@@ -8,7 +8,8 @@
     layer writes the chunk's pages (K7c) and attends to the cache through
     multi-token paged attention (K6).
   - ``decode_step``: one token per sequence; each layer appends its K/V to
-    the paged cache (K7a) and attends through paged decode attention (K5).
+    the paged cache and attends through paged decode attention in one
+    launch (K5 with K7a's append, ``paged_decode_with_append``).
 
 Numerics. The JAX package's parameters are fp32 (``param_dtype``) and its
 ``_dense`` multiplies a bf16 activation by an fp32 kernel, which JAX
@@ -29,13 +30,12 @@ from typing import Sequence
 import torch
 
 from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
-from flash_attn_tpu_torch.kernels.decode import paged_decode_attention
+from flash_attn_tpu_torch.kernels.decode import paged_decode_with_append
 from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
     _write_prompts,
-    append_token,
 )
 
 
@@ -111,13 +111,11 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
     b = token_ids.shape[0]
     x = model.embed(
         token_ids, lengths.long().clamp(0, cfg.max_position_embeddings - 1))
-    ctx_len = (lengths.clamp(min=0) + 1).to(torch.int32)
     for block, cache in zip(model.h, caches):
-        q, k, v = block.qkv(x)  # (b, n_head, head_dim)
-        # Raw lengths: append_token redirects inactive slots itself.
-        append_token(cache, k.contiguous(), v.contiguous(), page_table,
-                     lengths)
-        ctx = paged_decode_attention(q, cache.k_pages,
-                                     cache.v_pages, ctx_len, page_table)
+        q, k, v = block.qkv(x)  # (b, n_head, head_dim) views of one tensor
+        # One launch appends k, v (raw lengths: inactive slots go to the
+        # scratch page) and attends over the cache with them.
+        ctx = paged_decode_with_append(q, k, v, cache.k_pages,
+                                       cache.v_pages, lengths, page_table)
         x = block.finish(x, ctx.reshape(b, cfg.n_embd))
     return model.lm_head(x), caches

@@ -3,12 +3,13 @@
 
 The three phases the serving engine drives, with the contracts of
 ``gpt2_decode``: ``prefill`` (K1), ``chunk_prefill_step`` (K7c + K6) and
-``decode_step`` (K7a + K5). Rotary is applied at each token's global
-position BEFORE the cache write, so the cache holds post-rotary keys and
-decode never rotates history; GQA rides the kernels' group axis. As in the
-port's GPT-2 serving, the projections compute in ``cfg.dtype`` (the JAX
-package promotes a bf16 activation times its fp32 kernel to fp32), so the
-parity tests run fp32 and the bf16 path is held to the 2x rule on the card.
+``decode_step`` (K5 with K7a's append, one launch). Rotary is applied at
+each token's global position BEFORE the cache write, so the cache holds
+post-rotary keys and decode never rotates history; GQA rides the kernels'
+group axis. As in the port's GPT-2 serving, the projections compute in
+``cfg.dtype`` (the JAX package promotes a bf16 activation times its fp32
+kernel to fp32), so the parity tests run fp32 and the bf16 path is held to
+the 2x rule on the card.
 """
 
 from __future__ import annotations
@@ -18,13 +19,12 @@ from typing import Sequence
 import torch
 
 from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
-from flash_attn_tpu_torch.kernels.decode import paged_decode_attention
+from flash_attn_tpu_torch.kernels.decode import paged_decode_with_append
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
     _write_prompts,
-    append_token,
 )
 
 
@@ -95,13 +95,12 @@ def decode_step(model: LlamaForCausalLM, cfg: LlamaConfig,
     _check(cfg)
     positions = lengths.long().clamp(min=0)[:, None]  # (b, 1)
     x = model.embed(token_ids[:, None])  # (b, 1, e)
-    ctx_len = (lengths.clamp(min=0) + 1).to(torch.int32)
     for block, cache in zip(model.layers, caches):
         q, k, v = block.qkv(x, positions)  # (b, 1, h, hd)
-        # Raw lengths: append_token redirects inactive slots itself.
-        append_token(cache, k[:, 0].contiguous(), v[:, 0].contiguous(),
-                     page_table, lengths)
-        ctx = paged_decode_attention(q[:, 0], cache.k_pages,
-                                     cache.v_pages, ctx_len, page_table)
+        # One launch appends k, v (raw lengths: inactive slots go to the
+        # scratch page) and attends over the cache with them.
+        ctx = paged_decode_with_append(q[:, 0], k[:, 0], v[:, 0],
+                                       cache.k_pages, cache.v_pages, lengths,
+                                       page_table)
         x = block.finish(x, ctx.flatten(1)[:, None])
     return model.logits(x[:, 0]), caches

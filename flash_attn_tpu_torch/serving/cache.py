@@ -5,8 +5,14 @@
 a span of tokens, whole pages) are CUDA kernels
 (``csrc/cache_write.cu``) that update the pages IN PLACE, where the JAX
 package's were functional with input/output aliasing; each still returns
-the cache so call sites read the same. ``PageAllocator`` is the host-side
-bookkeeping the serving engine uses to hand pages to sequences.
+the cache so call sites read the same. They read their sources through
+strides (``new_rows``), so callers pass views of their projections. The
+serving path appends inside the attention launch that reads the new rows
+(``kernels/decode.py`` ``paged_decode_with_append``,
+``kernels/chunk.py`` ``paged_chunk_attention(new_k=...)``); the
+standalone appends here serve every other caller. ``PageAllocator`` is
+the host-side bookkeeping the serving engine uses to hand pages to
+sequences.
 """
 
 from __future__ import annotations
@@ -52,6 +58,26 @@ def _check_dtype(name, cache, *tensors):
                              f"{cache.k_pages.dtype} cache")
 
 
+def new_rows(name, k, v, cache: PagedKVCache) -> list[int]:
+    """The element strides of every dimension but the last of ``k`` and
+    ``v`` (shared), which the cache-write kernels read through: raise unless
+    the last dimension is contiguous and every row, the data and the cache
+    sit on 16-byte boundaries (the kernels move 16-byte vectors). A
+    dimension of size 1 has no stride that matters: 0."""
+    size = k.element_size()
+    strides = [0 if n == 1 else st for n, st in zip(k.shape[:-1],
+                                                    k.stride()[:-1])]
+    same = all(n == 1 or a == b for n, a, b in zip(
+        k.shape[:-1], k.stride()[:-1], v.stride()[:-1]))
+    if not same or k.stride(-1) != 1 or v.stride(-1) != 1 or any(
+            x * size % 16 for x in (k.shape[-1], *strides)) or any(
+            x.data_ptr() % 16 for x in (k, v, cache.k_pages, cache.v_pages)):
+        raise ValueError(f"{name}: k and v need the same strides, a "
+                         "contiguous head dimension and 16-byte aligned "
+                         "rows (the kernel moves 16-byte vectors)")
+    return strides
+
+
 def append_token(cache: PagedKVCache, new_k, new_v, page_table, lengths
                  ) -> PagedKVCache:
     """Write one token per sequence at its next slot, IN PLACE.
@@ -60,7 +86,8 @@ def append_token(cache: PagedKVCache, new_k, new_v, page_table, lengths
     lengths (batch,) int32, the length BEFORE the append. A negative length
     marks an inactive slot: its write goes to the reserved scratch page 0,
     so a stale page-table row never corrupts a page given to another
-    sequence. Replaces ``cache.py:_append_kernel``."""
+    sequence. new_k/new_v may be views (``new_rows``). Replaces
+    ``cache.py:_append_kernel``."""
     _check_dtype("append_token", cache, new_k, new_v)
     batch, h, d = new_k.shape
     n_kv, num_pages, ps, dk = cache.k_pages.shape
@@ -72,12 +99,14 @@ def append_token(cache: PagedKVCache, new_k, new_v, page_table, lengths
         return append_token_plain(cache, new_k, new_v, page_table, lengths)
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("append_token: page_table and lengths must be int32")
-    _build.require_cuda("append_token", new_k, new_v, cache.k_pages,
-                        cache.v_pages, page_table, lengths)
+    _build.require_cuda("append_token", cache.k_pages, cache.v_pages,
+                        page_table, lengths)
+    _build.require_device("append_token", new_k, new_v, cache.k_pages)
     code = _build.lib().fattn_append_token(
         new_k.data_ptr(), new_v.data_ptr(), cache.k_pages.data_ptr(),
         cache.v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
         batch, h, num_pages, ps, page_table.shape[1], d,
+        *new_rows("append_token", new_k, new_v, cache),
         new_k.element_size(), _build.stream_ptr(new_k.device),
     )
     append_token.launches += 1
@@ -113,7 +142,8 @@ def append_span(cache: PagedKVCache, new_k, new_v, page_table, lengths,
     (batch,) int32 valid rows (default sq). Token t of sequence b lands at
     slot ``lengths[b] + t`` for ``t < new_lens[b]``. Inactive sequences
     (length < 0), padding rows and slots past the page table write nothing.
-    Replaces ``cache.py:_append_span_kernel``."""
+    new_k/new_v may be views (``new_rows``). Replaces
+    ``cache.py:_append_span_kernel``."""
     _check_dtype("append_span", cache, new_k, new_v)
     batch, sq, h, d = new_k.shape
     n_kv, num_pages, ps, dk = cache.k_pages.shape
@@ -132,19 +162,16 @@ def append_span(cache: PagedKVCache, new_k, new_v, page_table, lengths,
             or new_lens.dtype != torch.int32:
         raise ValueError("append_span: page_table, lengths and new_lens "
                          "must be int32")
-    _build.require_cuda("append_span", new_k, new_v, cache.k_pages,
-                        cache.v_pages, page_table, lengths, new_lens)
-    if (d * new_k.element_size()) % 16 or any(
-            x.data_ptr() % 16 for x in (new_k, new_v, cache.k_pages,
-                                        cache.v_pages)):
-        raise ValueError("append_span: rows and data must be 16-byte "
-                         "aligned (the kernel stores 16-byte vectors)")
+    _build.require_cuda("append_span", cache.k_pages, cache.v_pages,
+                        page_table, lengths, new_lens)
+    _build.require_device("append_span", new_k, new_v, cache.k_pages)
     code = _build.lib().fattn_append_span(
         new_k.data_ptr(), new_v.data_ptr(), cache.k_pages.data_ptr(),
         cache.v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
         new_lens.data_ptr(), batch, sq, h, num_pages, ps,
-        page_table.shape[1], d, new_k.element_size(),
-        _build.stream_ptr(new_k.device),
+        page_table.shape[1], d,
+        *new_rows("append_span", new_k, new_v, cache),
+        new_k.element_size(), _build.stream_ptr(new_k.device),
     )
     append_span.launches += 1
     _build.check(code, "fattn_append_span")
@@ -193,8 +220,8 @@ def _write_prompts(cache: PagedKVCache, k, v, page_table) -> PagedKVCache:
     row r of k/v (b, prompt_len, n_kv_heads, d) goes to the pages
     ``page_table[r]`` (b, n_pages) int32, tail zero-filled. The cache ends
     as the JAX package's loop of ``write_prompt`` over the rows leaves it,
-    outside the scratch page 0. k and v may be strided views (the head
-    dimension contiguous, 16-byte aligned rows, the same strides)."""
+    outside the scratch page 0. k and v may be strided views
+    (``new_rows``)."""
     _check_dtype("write_prompt", cache, k, v)
     b, prompt_len, h, d = k.shape
     n_kv, num_pages, ps, dk = cache.k_pages.shape
@@ -211,18 +238,11 @@ def _write_prompts(cache: PagedKVCache, k, v, page_table) -> PagedKVCache:
     _build.require_cuda("write_prompt", cache.k_pages, cache.v_pages,
                         page_table)
     _build.require_device("write_prompt", k, v, cache.k_pages)
-    size = k.element_size()
-    if k.stride() != v.stride() or k.stride(-1) != 1 or any(
-            x * size % 16 for x in (d, *k.stride()[:3])) or any(
-            x.data_ptr() % 16 for x in (k, v, cache.k_pages, cache.v_pages)):
-        raise ValueError("write_prompt: k and v need the same strides, a "
-                         "contiguous head dimension and 16-byte aligned "
-                         "rows (the kernel moves 16-byte vectors)")
     code = _build.lib().fattn_write_pages(
         k.data_ptr(), v.data_ptr(), cache.k_pages.data_ptr(),
         cache.v_pages.data_ptr(), page_table.data_ptr(), b, prompt_len,
-        n_pages, h, num_pages, ps, d, *k.stride()[:3], size,
-        _build.stream_ptr(k.device),
+        n_pages, h, num_pages, ps, d, *new_rows("write_prompt", k, v, cache),
+        k.element_size(), _build.stream_ptr(k.device),
     )
     _write_prompts.launches += 1
     _build.check(code, "fattn_write_pages")

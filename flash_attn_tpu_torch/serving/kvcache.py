@@ -1,18 +1,22 @@
 """``flash_attn_with_kvcache``: fused append + attend for serving (port of
 ``flash_attn_tpu/serving/kvcache.py``).
 
-Write this step's K/V into the paged cache with the span-append kernel
-(K7b, ``serving/cache.py`` ``append_span``), then attend the query chunk
-against the whole cache with the multi-token paged kernel (K6,
-``kernels/chunk.py``), tail-aligned. The cache is updated in place and
-returned, so call sites read as in the JAX package.
+Write this step's K/V into the paged cache and attend the query chunk
+against the whole cache, tail-aligned, in one launch of the multi-token
+paged kernel (K6, ``kernels/chunk.py``), which appends as the span-append
+kernel (K7b, ``serving/cache.py`` ``append_span``) would before it reads.
+The cache is updated in place and returned, so call sites read as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 
-from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
+from flash_attn_tpu_torch.kernels.chunk import (
+    append_fits,
+    paged_chunk_attention,
+)
 from flash_attn_tpu_torch.kernels.common import check_ported
 from flash_attn_tpu_torch.serving.cache import PagedKVCache, append_span
 
@@ -43,7 +47,15 @@ def flash_attn_with_kvcache(q, cache: PagedKVCache, page_table,
     chunk's K/V must then already be cached). ``new_lens`` (batch,) marks
     the valid chunk rows (default sq); the rest are padding: not written,
     output zero. One call with sq=1 is a decode step; sq>1 covers
-    speculative verification and chunked prefill.
+    speculative verification and chunked prefill. q, k and v may be views
+    of a fused projection.
+
+    With k/v, a chunk that is one row tile of K6's block (``append_fits``:
+    sq * group <= 128, fp32 64; verification) is appended inside K6's
+    launch. A longer chunk, on the card, is appended by one K7b launch and
+    then attended by K6, counted in
+    ``flash_attn_with_kvcache.split_appends``: a choice by shape, the same
+    result either way.
 
     ``apply_rotary`` needs ``ops/rotary.py`` (ROADMAP port item P6);
     ``window_left``, ``alibi_slopes``, ``softcap`` (P2) and ``qk_quant``
@@ -63,15 +75,21 @@ def flash_attn_with_kvcache(q, cache: PagedKVCache, page_table,
                               device=q.device)
     new_lens = new_lens.to(torch.int32)
     cache_seqlens = cache_seqlens.to(torch.int32)
+    total, new = cache_seqlens, {}
     if k is not None:
-        cache = append_chunk(cache, k, v, page_table, cache_seqlens,
-                             new_lens)
         total = cache_seqlens + new_lens
-    else:
-        total = cache_seqlens
+        group = q.shape[2] // cache.k_pages.shape[0]
+        if q.device.type == "cpu" or append_fits(sq, group, q.dtype):
+            new = dict(new_k=k, new_v=v, cache_seqlens=cache_seqlens)
+        else:
+            append_chunk(cache, k, v, page_table, cache_seqlens, new_lens)
+            flash_attn_with_kvcache.split_appends += 1
     out = paged_chunk_attention(
         q, cache.k_pages, cache.v_pages, total, page_table,
         chunk_lens=new_lens, softmax_scale=softmax_scale,
         window_left=window_left, alibi_slopes=alibi_slopes, softcap=softcap,
-        qk_quant=qk_quant)
+        qk_quant=qk_quant, **new)
     return out, cache
+
+
+flash_attn_with_kvcache.split_appends = 0

@@ -5,9 +5,9 @@ Draft and verify: the first ``draft_layers`` layers of the same model (a
 stand-in for a small draft model) propose ``k`` tokens greedily through
 dense flash attention (K1); the whole model scores ``[last, d1..dk]`` in
 one pass, each layer appending the chunk's K/V and attending to the cache
-through ``flash_attn_with_kvcache`` (K7b span append, then K6), and keeps
-the longest draft prefix that agrees with its own greedy choice, plus that
-choice. In exact arithmetic the output equals plain greedy decoding.
+through ``flash_attn_with_kvcache`` (one K6 launch that appends first),
+and keeps the longest draft prefix that agrees with its own greedy choice,
+plus that choice. In exact arithmetic the output equals plain greedy decoding.
 
 Rejected drafts leave K/V in the slots after the accepted ones; the next
 round's chunk starts at the first of those slots and overwrites them before
@@ -49,10 +49,8 @@ def score_chunk(model: GPT2LMHeadModel, cfg: GPT2Config, caches, table,
                     pos0 + torch.arange(n, device=dev))
     seqlens = torch.tensor([pos0], dtype=torch.int32, device=dev)
     for block, cache in zip(model.h, caches):
-        q, k, v = block.qkv(x)  # (1, n, n_head, head_dim)
-        ctx, _ = flash_attn_with_kvcache(q.contiguous(), cache, table,
-                                         seqlens, k.contiguous(),
-                                         v.contiguous())
+        q, k, v = block.qkv(x)  # (1, n, n_head, head_dim) views
+        ctx, _ = flash_attn_with_kvcache(q, cache, table, seqlens, k, v)
         x = block.finish(x, ctx.reshape(1, n, cfg.n_embd))
     return model.lm_head(x[0])
 

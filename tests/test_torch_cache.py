@@ -154,3 +154,38 @@ def test_page_allocator_op_sequence_matches_jax():
 def test_quantized_cache_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP port item P3"):
         torch_cache.init_cache(H, 4, PS, D, quantization="int8")
+
+
+@pytest.mark.parametrize("span", [False, True], ids=["token", "span"])
+def test_appends_take_projection_views(span):
+    """append_token and append_span given k and v as views of a fused
+    (b, [sq,] 3, h, d) projection write what their contiguous calls write;
+    new_rows reads those views' strides and refuses rows it cannot move as
+    16-byte vectors."""
+    rng = np.random.default_rng(9)
+    b, sq = 4, 5
+    lens = torch.tensor([0, 15, -1, 30], dtype=torch.int32)
+    table = torch.from_numpy(np.asarray(
+        [[1, 2, 3], [4, 5, 6], [7, 8, 9], [10, 11, 12]], np.int32))
+    shape = (b, sq, 3, H, D) if span else (b, 3, H, D)
+    fused = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    _, k, v = fused.unbind(-3)
+    assert not k.is_contiguous()
+    caches = []
+    for kk, vv in ((k, v), (k.contiguous(), v.contiguous())):
+        _, tc = _caches(10)
+        if span:
+            torch_cache.append_span(tc, kk, vv, table, lens,
+                                    torch.tensor([5, 3, 5, 0],
+                                                 dtype=torch.int32))
+        else:
+            torch_cache.append_token(tc, kk, vv, table, lens)
+        caches.append(tc)
+    assert torch.equal(caches[0].k_pages, caches[1].k_pages)
+    assert torch.equal(caches[0].v_pages, caches[1].v_pages)
+    assert torch_cache.new_rows("test", k, v, caches[0]) == list(
+        k.stride()[:-1])
+    with pytest.raises(ValueError, match="16-byte"):
+        torch_cache.new_rows("test", k, v.contiguous(), caches[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        torch_cache.new_rows("test", k[..., 1:-1], v[..., 1:-1], caches[0])

@@ -223,6 +223,91 @@ def test_flash_attn_with_kvcache_matches_jax(with_kv):
     _assert_equal_outside_page0(jc, tc)
 
 
+# (cache_seqlens, new_lens, q heads): page edges crossed, a short row;
+# an inactive row, a span running past the table, a padding row; GQA
+# group 2.
+KVCACHE_CASES = [
+    ([0, 14, 16, 40], [5, 5, 3, 5], 2),
+    ([5, -1, 45, 3], [5, 5, 5, 0], 2),
+    ([15, 31, 0, 20], [5, 1, 4, 5], 4),
+]
+
+
+@pytest.mark.parametrize("case", KVCACHE_CASES, ids=str)
+def test_flash_attn_with_kvcache_appends_like_jax(case):
+    """k/v given: the chunk is appended inside K6's launch on the card (its
+    plain twins here), against JAX's flash_attn_with_kvcache (append_span,
+    then the chunk kernel): the output at the fp32 tolerance, the cache
+    bitwise outside page 0."""
+    seqlens, new_lens, hq = case
+    seqlens, new_lens = (np.asarray(x, np.int32) for x in (seqlens, new_lens))
+    jc, tc = _caches(11)
+    rng = np.random.default_rng(12)
+    b, sq = len(seqlens), 5
+    q = rng.standard_normal((b, sq, hq, D)).astype(np.float32)
+    nk = rng.standard_normal((b, sq, H, D)).astype(np.float32)
+    nv = rng.standard_normal((b, sq, H, D)).astype(np.float32)
+    out_j, jc = jax_kvcache.flash_attn_with_kvcache(
+        jnp.asarray(q), jc, jnp.asarray(TABLE[:b]), jnp.asarray(seqlens),
+        jnp.asarray(nk), jnp.asarray(nv), new_lens=jnp.asarray(new_lens))
+    out_t, tc = torch_kvcache.flash_attn_with_kvcache(
+        torch.from_numpy(q), tc, torch.from_numpy(TABLE[:b]),
+        torch.from_numpy(seqlens), torch.from_numpy(nk), torch.from_numpy(nv),
+        new_lens=torch.from_numpy(new_lens))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL,
+                               rtol=RTOL)
+    _assert_equal_outside_page0(jc, tc)
+
+
+def test_kvcache_and_chunk_append_take_projection_views():
+    """q, k and v as views of GPT-2's fused (b, sq, 3, h, d) projection,
+    as score_chunk passes them: flash_attn_with_kvcache and
+    paged_chunk_attention(new_k=...) give what their contiguous calls
+    give, output and cache."""
+    rng = np.random.default_rng(13)
+    b, sq = 4, 5
+    seqlens = torch.tensor([0, 14, -1, 40], dtype=torch.int32)
+    new_lens = torch.tensor([5, 5, 5, 3], dtype=torch.int32)
+    table = torch.from_numpy(TABLE)
+    fused = torch.from_numpy(
+        rng.standard_normal((b, sq, 3, H, D)).astype(np.float32))
+    views = fused.unbind(2)
+    assert not views[1].is_contiguous()
+    for call in ("kvcache", "chunk"):
+        outs = []
+        for q, k, v in (views, [x.contiguous() for x in views]):
+            _, tc = _caches(14)
+            if call == "kvcache":
+                out, _ = torch_kvcache.flash_attn_with_kvcache(
+                    q, tc, table, seqlens, k, v, new_lens=new_lens)
+            else:
+                out = paged_chunk_attention(
+                    q, tc.k_pages, tc.v_pages, seqlens + new_lens, table,
+                    chunk_lens=new_lens, new_k=k, new_v=v,
+                    cache_seqlens=seqlens)
+            outs.append((out, tc.k_pages, tc.v_pages))
+        for x, y in zip(*outs):
+            assert torch.equal(x, y), call
+
+
+def test_append_fits_one_row_tile():
+    """K6 appends inside its launch when the chunk is one row tile: sq x
+    group query rows within 128 (fp32: 64); past that,
+    flash_attn_with_kvcache appends by append_span first."""
+    from flash_attn_tpu_torch.kernels.chunk import append_fits
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert append_fits(5, 1, bf16) and append_fits(128, 1, torch.float16)
+    assert append_fits(32, 4, bf16) and not append_fits(33, 4, bf16)
+    assert not append_fits(129, 1, bf16)
+    assert append_fits(16, 4, f32) and not append_fits(17, 4, f32)
+    q = torch.zeros((1, 2, 2, D))
+    kp = torch.zeros((H, 4, PS, D))
+    with pytest.raises(ValueError, match="go together"):
+        paged_chunk_attention(q, kp, kp, torch.tensor([2], dtype=torch.int32),
+                              torch.tensor([[1]], dtype=torch.int32),
+                              new_k=q[:, :, :H])
+
+
 def _load_example():
     spec = importlib.util.spec_from_file_location(
         "speculative_decode", ROOT / "examples" / "speculative_decode.py")

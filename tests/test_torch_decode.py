@@ -3,8 +3,11 @@
 The same numpy inputs (queries, pages, random page tables, lengths) go to
 both. On the CPU the port runs the kernel's plain-torch twin and JAX runs
 its Pallas kernel in interpret mode. fp32 parity tolerance: atol = rtol =
-1e-5 (different summation order; the observed gap is ~1e-6). The kernel
-itself is tested on the card in test_torch_kernels.py.
+1e-5 (different summation order; the observed gap is ~1e-6). Decode with
+the append (``paged_decode_with_append``) goes against JAX's
+``append_token`` followed by its ``paged_decode_attention``: the output at
+that tolerance, the cache bitwise outside the scratch page 0. The kernels
+themselves are tested on the card in test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -15,7 +18,11 @@ import torch
 from flash_attn_tpu.kernels.decode import (
     paged_decode_attention as jax_paged_decode_attention,
 )
-from flash_attn_tpu_torch.kernels.decode import paged_decode_attention
+from flash_attn_tpu.serving import cache as jax_cache
+from flash_attn_tpu_torch.kernels.decode import (
+    paged_decode_attention,
+    paged_decode_with_append,
+)
 from flash_attn_tpu_torch.reference import paged_chunk_ref
 
 ATOL = RTOL = 1e-5
@@ -90,3 +97,71 @@ def test_unported_arguments_raise(name, value):
         2, [3], 1, 1, 64, 16, 4, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP port item"):
         paged_decode_attention(q, kp, vp, lens, table, **{name: value})
+
+
+# (cache lengths before the append, h, h_kv, d, page_size, pages_max):
+# length 0, a page's last slot, the next page, an inactive slot (its table
+# row stale but its own), a position past the table.
+APPEND_CASES = [
+    ([0, 15, 16, -1], 2, 2, 64, 16, 3),
+    ([31, 0, -1, 47, 48], 8, 2, 128, 16, 3),  # GQA group 4, past the table
+    ([63, 64, 5], 4, 4, 64, 32, 4),
+]
+
+
+def _append_inputs(seed, lengths, h, h_kv, d, ps, pmax):
+    """Pages, q, the new rows and a table in which every sequence owns
+    pmax pages of its own (never page 0)."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    q, kp, vp, _, _ = _inputs(seed, [0], h, h_kv, d, ps, 1 + b * pmax, 1)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    table = (1 + rng.permutation(b * pmax)).reshape(b, pmax).astype(np.int32)
+    nk = rng.standard_normal((b, h_kv, d)).astype(np.float32)
+    nv = rng.standard_normal((b, h_kv, d)).astype(np.float32)
+    return q, kp, vp, np.asarray(lengths, np.int32), table, nk, nv
+
+
+@pytest.mark.parametrize("case", APPEND_CASES, ids=str)
+def test_decode_with_append_matches_jax_pair(case):
+    """paged_decode_with_append against JAX's append_token followed by
+    paged_decode_attention over max(length, 0) + 1 keys."""
+    lengths, h, h_kv, d, ps, pmax = case
+    q, kp, vp, lens, table, nk, nv = _append_inputs(3, lengths, h, h_kv, d,
+                                                    ps, pmax)
+    jc = jax_cache.append_token(
+        jax_cache.PagedKVCache(jnp.asarray(kp), jnp.asarray(vp), None, None),
+        jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(table),
+        jnp.asarray(lens))
+    out_j = jax_paged_decode_attention(
+        jnp.asarray(q), jc.k_pages, jc.v_pages,
+        jnp.asarray(np.maximum(lens, 0) + 1), jnp.asarray(table))
+    kp_t, vp_t = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    out_t = paged_decode_with_append(
+        torch.from_numpy(q), torch.from_numpy(nk), torch.from_numpy(nv),
+        kp_t, vp_t, torch.from_numpy(lens), torch.from_numpy(table))
+    assert out_t.shape == q.shape
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL,
+                               rtol=RTOL)
+    for j, t in ((jc.k_pages, kp_t), (jc.v_pages, vp_t)):
+        np.testing.assert_array_equal(t.numpy()[:, 1:], np.asarray(j)[:, 1:])
+
+
+def test_decode_with_append_takes_projection_views():
+    """k and v as views of GPT-2's fused (b, 3, h, d) projection, q too:
+    what the contiguous call gives, output and cache."""
+    lengths, h, d, ps, pmax = [0, 15, 16, -1], 4, 64, 16, 3
+    q, kp, vp, lens, table, _, _ = _append_inputs(4, lengths, h, h, d, ps,
+                                                  pmax)
+    fused = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (len(lengths), 3, h, d)).astype(np.float32))
+    views = fused.unbind(1)
+    assert not views[1].is_contiguous()
+    outs = []
+    for q_, k_, v_ in (views, [x.contiguous() for x in views]):
+        pages = (torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy()))
+        outs.append((paged_decode_with_append(
+            q_, k_, v_, *pages, torch.from_numpy(lens),
+            torch.from_numpy(table)), *pages))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -10,7 +10,9 @@ imports no JAX, so it runs on a machine that has only PyTorch
 Tolerances: attention, decode and chunk attention are held to the repo's
 2x rule (error against the fp32 twin at most twice a plain same-dtype
 implementation's, plus 1e-5); cache writes are bitwise equal outside the
-scratch page 0 (the span append writes nothing there: all pages). The
+scratch page 0 (the span append writes nothing there: all pages), and
+the paged kernels that append inside their launch (K5 and K6 with new
+k/v) are bit for bit the standalone append followed by the kernel. The
 backward kernels' gradients (K2, and K8b/K8c of blocksparse attention) are
 held to the 2x rule against fp32 autograd through ``attention_ref`` (the
 same-dtype ``attention_ref(upcast=False)`` in autograd is the baseline),
@@ -37,12 +39,15 @@ from flash_attn_tpu_torch.kernels.blocksparse import (
     visible_plain,
 )
 from flash_attn_tpu_torch.kernels.chunk import (
+    BLOCK_ROWS,
     paged_chunk_attention,
     paged_chunk_attention_plain,
 )
+from flash_attn_tpu_torch.kernels.common import paged_num_splits, sm_count
 from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_decode_with_append,
 )
 from flash_attn_tpu_torch.kernels.flash_bwd import (
     flash_attention_bwd,
@@ -625,6 +630,197 @@ def test_append_span_kernel_matches_twin(cuda, dtype):
     assert torch.equal(span.v_pages[:, 1:], token.v_pages[:, 1:])
 
 
+# Key layouts of the fused-append tests: (page_size, pages_max). One
+# 128-key page gives one split; sixteen 16-key pages give 64-key splits
+# when the grid is small.
+APPEND_LAYOUTS = {"1 split": (128, 1), "64-key splits": (16, 16)}
+
+
+def _fused_inputs(rng, b, h, h_kv, d, ps, pmax, sq, dtype, device):
+    """Pages where every sequence owns pmax pages of its own (never page
+    0), and q, k, v as views of one fused (b, [sq,] h + 2 h_kv, d)
+    projection (sq None: decode)."""
+    num_pages = 1 + b * pmax
+    kp = _randn(rng, (h_kv, num_pages, ps, d), dtype, device)
+    vp = _randn(rng, (h_kv, num_pages, ps, d), dtype, device)
+    table = torch.from_numpy((1 + rng.permutation(b * pmax)).reshape(
+        b, pmax).astype(np.int32)).to(device)
+    rows = (b,) if sq is None else (b, sq)
+    fused = _randn(rng, (*rows, h + 2 * h_kv, d), dtype, device)
+    q, k, v = fused.split([h, h_kv, h_kv], dim=-2)
+    return kp, vp, table, q, k, v
+
+
+def _int32(values, device):
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("layout", APPEND_LAYOUTS)
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_with_append_is_the_two_launch_route(cuda, dtype, d, group,
+                                                    layout):
+    """K5 with K7a's append in its launch, on views of a fused projection:
+    output and cache bit for bit append_token followed by K5. The new key
+    at cache length 0, 63 and 64 (the first 64-key segment and the next), a
+    split's first and last key, an inactive slot and a position past the
+    table (both to the scratch page 0)."""
+    ps, pmax = APPEND_LAYOUTS[layout]
+    if pmax == 1:
+        lengths = [0, 63, 64, 127, -1, 128]
+    else:
+        lengths = [0, 63, 64, 127, 191, -1, 256, 200]
+    h_kv = 2
+    kp, vp, table, q, k, v = _fused_inputs(
+        np.random.default_rng(20), len(lengths), group * h_kv, h_kv, d, ps,
+        pmax, None, dtype, cuda)
+    splits = paged_num_splits(len(lengths), h_kv, pmax, ps, sm_count(
+        cuda.index or 0))
+    assert (splits > 1) == (pmax > 1), splits
+    lens = _int32(lengths, cuda)
+    fused = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    pair = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    out = paged_decode_with_append(q, k, v, fused.k_pages, fused.v_pages,
+                                   lens, table)
+    torch_cache.append_token(pair, k.contiguous(), v.contiguous(), table,
+                             lens)
+    want = paged_decode_attention(q, pair.k_pages, pair.v_pages,
+                                  (lens.clamp(min=0) + 1).int(), table)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(fused.k_pages[:, 1:], pair.k_pages[:, 1:])
+    assert torch.equal(fused.v_pages[:, 1:], pair.v_pages[:, 1:])
+
+
+@pytest.mark.parametrize("layout", APPEND_LAYOUTS)
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chunk_with_append_is_the_two_launch_route(cuda, dtype, d, group,
+                                                   layout):
+    """K6 with K7b's span append in its launch (verification, sq 5), on
+    views of a fused projection: output and every page bit for bit
+    append_span followed by K6. Spans starting at cache length 0, 63 and 64,
+    one straddling a split (62), starting at a split's last key (127),
+    running past the table, an inactive row, a short row and a padding
+    row."""
+    ps, pmax = APPEND_LAYOUTS[layout]
+    cap = ps * pmax
+    seqlens = [0, 63, 64, 62, 127, cap - 3, -1, 10]
+    new_lens = [5, 5, 5, 5, 1, 5, 5, 0]
+    if pmax == 1:
+        seqlens[4] = 100
+    sq, h_kv = 5, 2
+    kp, vp, table, q, k, v = _fused_inputs(
+        np.random.default_rng(21), len(seqlens), group * h_kv, h_kv, d, ps,
+        pmax, sq, dtype, cuda)
+    if dtype != torch.float32:
+        row_tiles = -(-sq // (BLOCK_ROWS // group))
+        splits = paged_num_splits(len(seqlens) * row_tiles, h_kv, pmax, ps,
+                                  sm_count(cuda.index or 0))
+        assert (splits > 1) == (pmax > 1), splits
+    cl, nl = _int32(seqlens, cuda), _int32(new_lens, cuda)
+    total = cl + nl
+    fused = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    pair = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    out = paged_chunk_attention(q, fused.k_pages, fused.v_pages, total, table,
+                                chunk_lens=nl, new_k=k, new_v=v,
+                                cache_seqlens=cl)
+    torch_cache.append_span(pair, k.contiguous(), v.contiguous(), table, cl,
+                            nl)
+    want = paged_chunk_attention(q.contiguous(), pair.k_pages, pair.v_pages,
+                                 total, table, chunk_lens=nl)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(fused.k_pages, pair.k_pages)
+    assert torch.equal(fused.v_pages, pair.v_pages)
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chunk_with_append_fills_one_row_tile(cuda, dtype, d, group):
+    """K6 with the append at the longest chunk it takes, one full row tile
+    (sq x group = 128 rows, fp32 64): every new row staged and written
+    over its tile, spans over several tiles and splits, bit for bit
+    append_span followed by K6."""
+    sq = (64 if dtype == torch.float32 else 128) // group
+    ps, pmax, h_kv = 16, 24, 2
+    seqlens, new_lens = [0, 40, 100, 250, -1, 7], [sq, sq, sq - 3, 3, sq, 0]
+    kp, vp, table, q, k, v = _fused_inputs(
+        np.random.default_rng(24), len(seqlens), group * h_kv, h_kv, d, ps,
+        pmax, sq, dtype, cuda)
+    cl, nl = _int32(seqlens, cuda), _int32(new_lens, cuda)
+    fused = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    pair = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    out = paged_chunk_attention(q, fused.k_pages, fused.v_pages, cl + nl,
+                                table, chunk_lens=nl, new_k=k, new_v=v,
+                                cache_seqlens=cl)
+    torch_cache.append_span(pair, k.contiguous(), v.contiguous(), table, cl,
+                            nl)
+    want = paged_chunk_attention(q.contiguous(), pair.k_pages, pair.v_pages,
+                                 cl + nl, table, chunk_lens=nl)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(fused.k_pages, pair.k_pages)
+    assert torch.equal(fused.v_pages, pair.v_pages)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_appends_take_projection_views_on_card(cuda, dtype, d):
+    """K7a and K7b read k/v in place as views of a fused projection, bit
+    for bit their twins on contiguous copies (K7a outside page 0)."""
+    rng = np.random.default_rng(22)
+    b, sq, h_kv, ps, pmax = 4, 5, 2, 16, 4
+    for span in (False, True):
+        kp, vp, table, _, k, v = _fused_inputs(
+            rng, b, 4, h_kv, d, ps, pmax, sq if span else None, dtype, cuda)
+        lens = _int32([0, 15, -1, 62], cuda)
+        on_card = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+        plain = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+        if span:
+            nl = _int32([5, 3, 5, 5], cuda)
+            torch_cache.append_span(on_card, k, v, table, lens, nl)
+            torch_cache.append_span_plain(plain, k.contiguous(),
+                                          v.contiguous(), table, lens, nl)
+        else:
+            torch_cache.append_token(on_card, k, v, table, lens)
+            torch_cache.append_token_plain(plain, k.contiguous(),
+                                           v.contiguous(), table, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(on_card.k_pages[:, 1:], plain.k_pages[:, 1:])
+        assert torch.equal(on_card.v_pages[:, 1:], plain.v_pages[:, 1:])
+
+
+def test_kvcache_takes_the_two_launch_route_past_one_row_tile(cuda):
+    """flash_attn_with_kvcache with a chunk longer than one row tile of
+    K6's block (sq 33 at group 4): append_span, then K6, counted in
+    split_appends; what the fused route gives for the first 32 rows."""
+    from flash_attn_tpu_torch.serving.kvcache import flash_attn_with_kvcache
+    rng = np.random.default_rng(23)
+    b, h_kv, d, ps, pmax = 3, 2, 64, 16, 8
+    kp, vp, table, q, k, v = _fused_inputs(rng, b, 8, h_kv, d, ps, pmax, 33,
+                                           torch.bfloat16, cuda)
+    cl, nl = _int32([0, 40, 70], cuda), _int32([33, 20, 33], cuda)
+    caches = [torch_cache.PagedKVCache(kp.clone(), vp.clone())
+              for _ in range(2)]
+    before = (flash_attn_with_kvcache.split_appends,
+              paged_chunk_attention.append_launches)
+    out, _ = flash_attn_with_kvcache(q, caches[0], table, cl, k, v,
+                                     new_lens=nl)
+    assert (flash_attn_with_kvcache.split_appends,
+            paged_chunk_attention.append_launches) == (before[0] + 1,
+                                                       before[1])
+    want = paged_chunk_attention(
+        q[:, :32], caches[1].k_pages, caches[1].v_pages, cl + nl.clamp(max=32),
+        table, chunk_lens=nl.clamp(max=32), new_k=k[:, :32], new_v=v[:, :32],
+        cache_seqlens=cl)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :32], want)
+
+
 @pytest.mark.parametrize("prefill_chunk", [None, 32])
 def test_engines_on_card_match_cpu(cuda, prefill_chunk):
     """Tiny fp32 GPT-2 and Llama (GQA group 2), head_dim 64 as the kernels
@@ -1148,13 +1344,22 @@ def test_blocksparse_kernels_are_bitwise_reproducible(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_kernels_are_bitwise_reproducible(cuda, dtype):
-    """K5 and K6 (split-KV merged in split order): out bit for bit, at
-    Llama-3-8B's widths (GQA 32/8, d 128) with a long and an empty row."""
+    """K5 and K6 (split-KV merged in split order), alone and with the
+    append in their launch (on a copy of the pages: each rerun stores the
+    same rows again): out and pages bit for bit, at Llama-3-8B's widths
+    (GQA 32/8, d 128) with a long and an empty row."""
     lengths = [300, 4000, 5, 0]
-    q, kp, vp, lens, table = _chunk_inputs(np.random.default_rng(9), lengths,
-                                           5, 32, 8, 128, 128, 32, dtype,
-                                           cuda)
+    rng = np.random.default_rng(9)
+    q, kp, vp, lens, table = _chunk_inputs(rng, lengths, 5, 32, 8, 128, 128,
+                                           32, dtype, cuda)
+    nk, nv = (_randn(rng, (4, 5, 8, 128), dtype, cuda) for _ in "kv")
     cl = torch.tensor([5, 5, 5, 0], dtype=torch.int32, device=cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
     _reruns_equal(lambda: (
         paged_decode_attention(q[:, 0], kp, vp, lens, table),
-        paged_chunk_attention(q, kp, vp, lens, table, chunk_lens=cl)))
+        paged_chunk_attention(q, kp, vp, lens, table, chunk_lens=cl),
+        paged_decode_with_append(q[:, 0], nk[:, 0], nv[:, 0], kp2, vp2,
+                                 lens - 5, table),
+        paged_chunk_attention(q, kp2, vp2, lens, table, chunk_lens=cl,
+                              new_k=nk, new_v=nv, cache_seqlens=lens - cl),
+        kp2, vp2))
