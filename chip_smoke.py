@@ -29,9 +29,23 @@ paths with random weights from torch.Generator seed 0:
   - training: 6 AdamW steps of GPT2Config(dropout=0.1) (fp32 weights,
     bf16 compute) on one b=8, s=1024 batch, with falling finite loss, K1
     and K2 launched 12 times per step and no SDPA op in a traced step; one
-    step at dropout 0 held to the 2x rule against fp32 compute.
+    step at dropout 0 held to the 2x rule against fp32 compute;
+  - BERT training with padding masks: 4 AdamW steps of
+    BertForMaskedLM(BertConfig(dtype=bf16)) at BERT-base's published
+    width (12 layers, 12 heads, 768 wide, intermediate 3072, vocab 30522,
+    512 positions; fp32 weights) on one b=32, s=512 batch whose row
+    lengths are drawn uniformly in [171, 512], 15% of the real tokens
+    carrying MLM labels, dropout 0.1: falling finite loss, K1 and K2
+    launched 12 times per step each in their segment form (padding masked
+    inside the kernels by segment ids; no unpad), no SDPA op in a traced
+    step, one dropout-0 step held to the 2x rule against fp32 compute.
+K1 and K2 in segment form are held to their twins and the 2x rule at
+BERT's attention shape (b=32 h=12 s=512 d=64), and the cu_seqlens
+interface on the same tokens packed (qkvpacked; kvpacked with per-sequence
+sq != sk, causal) against the padded segment-id route.
 A determinism phase requires 10 seeded reruns to agree bit for bit: K1 + K2
-at the train shape with dropout 0.1, K8a-c at BS_SHAPES (i), K5 and K6 at
+at the train shape with dropout 0.1 and in segment form at BERT's shape,
+K8a-c at BS_SHAPES (i), K5 and K6 at
 Llama-3-8B's decode and chunk shapes, and K5 and K6 with the append at
 Llama's decode and at the verify shape; each paged shape prints the split
 count the host chose for it.
@@ -49,7 +63,8 @@ events (dense_timing.trace_call). Any failed check raises and
 the exit code is nonzero. Without CUDA it exits nonzero
 and prints no result. Output, in order: the card and toolchain, per-phase
 lines, the kernels' JSON line, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}.
+last line {"ok": true, "device": {...}}. Each phase prints its own
+time on the host clock (``phase ...: N s``).
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ import math
 import os
 import re
 import shutil
+import contextlib
 import statistics
 import subprocess
 import sys
@@ -73,6 +89,8 @@ import torch.nn.functional as F
 from dense_timing import (
     APPEND_SHAPES,
     append_inputs,
+    bert_lengths,
+    bert_padding,
     busy_ms,
     decode_window,
     device_events,
@@ -83,6 +101,7 @@ from dense_timing import (
     trace_call,
     union_us,
 )
+from flash_attn_tpu_torch import flash_attention
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.blocksparse import (
     blocksparse_attention_bwd,
@@ -99,7 +118,13 @@ from flash_attn_tpu_torch.kernels.chunk import (
     paged_chunk_attention,
     paged_chunk_attention_plain,
 )
-from flash_attn_tpu_torch.kernels.common import paged_num_splits, sm_count
+from flash_attn_tpu_torch.kernels.common import (
+    Segments,
+    paged_num_splits,
+    segment_mask,
+    segment_plan,
+    sm_count,
+)
 from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -115,6 +140,12 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
 )
 from flash_attn_tpu_torch.kernels.prng import dropout_mask_dense
 from flash_attn_tpu_torch.models import gpt2_decode, llama_decode, modules
+from flash_attn_tpu_torch.models.bert import (
+    BertConfig,
+    BertForMaskedLM,
+    make_train_step as make_bert_step,
+    mlm_loss,
+)
 from flash_attn_tpu_torch.models.blocksparse_modules import (
     LocalGlobalSparsityConfig,
 )
@@ -126,6 +157,15 @@ from flash_attn_tpu_torch.models.gpt2 import (
 )
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
+from flash_attn_tpu_torch.ops.interface import (
+    flash_attn_unpadded_kvpacked_func,
+    flash_attn_unpadded_qkvpacked_func,
+)
+from flash_attn_tpu_torch.ops.packing import (
+    cu_seqlens_to_segments,
+    pad_input,
+    unpad_input,
+)
 from flash_attn_tpu_torch.reference import attention_ref, paged_chunk_ref
 from flash_attn_tpu_torch.serving import cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
@@ -194,6 +234,9 @@ SIDE_COUNTS = {
     "append_span in K6": FUSED_K7B,
     "kvcache split_appends": counter(flash_attn_with_kvcache,
                                      "split_appends"),
+    # the tile plan of K1/K2's segment form (csrc/segments.cu): made once
+    # per attention call by the forward and reused by the backward
+    "segment plan": counter(segment_plan),
 }
 SERVE_KERNELS = ("flash_fwd", "paged_decode", "append_token", "write_pages")
 CHUNKED_KERNELS = ("paged_chunk", "write_pages", "paged_decode",
@@ -212,6 +255,19 @@ LLAMA3_8B = LlamaConfig(
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SEED = 1234  # the attention dropout seed of the kernel checks
+# BERT-base (google-research/bert BERT-Base: 12 layers, 12 heads, hidden
+# 768, intermediate 3072, vocab 30522, 512 positions), bf16 compute over
+# fp32 weights; one b=32 x s=512 batch.
+BERT_BASE = BertConfig(dtype=BF16)
+BERT_B, BERT_S = 32, 512
+
+
+@contextlib.contextmanager
+def phase_time(label):
+    """Prints the host-clock seconds of the phase it wraps."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
 
 
 def check(cond, msg):
@@ -353,16 +409,18 @@ def kernel_label(mangled: str) -> str | None:
     dtype = ("bf16" if "nv_bfloat16" in mangled else
              "fp16" if "half" in mangled else "fp32")
     d = re.search(r"Li(\d+)E", mangled).group(1)
-    append = " with the append" if "Lb1E" in mangled else ""
-    return f"{kernel} {dtype} d={d}{append}"
+    form = ""
+    if "Lb1E" in mangled:
+        form = " segments" if kernel in ("K1", "K2") else " with the append"
+    return f"{kernel} {dtype} d={d}{form}"
 
 
 def phase_build_report():
     """Evidence of what the Hopper kernels K1, K2, K5, K6 and K8a-c were
     built into: ptxas's registers and spills (-Xptxas -v at build), their
     dynamic shared memory, and, where cuobjdump exists, the HGMMA (wgmma)
-    instructions of K1's, K2's, K6's (alone and with the append) and
-    K8a-c's bf16/fp16 kernels in the SASS."""
+    instructions of K1's and K2's (dense and segment form), K6's (alone and
+    with the append) and K8a-c's bf16/fp16 kernels in the SASS."""
     lib = _build.lib()
     print("dynamic shared memory: " + ", ".join(
         f"K1 d={d} {lib.fattn_flash_fwd_smem(d)} B, K2 d={d} "
@@ -400,7 +458,7 @@ def phase_build_report():
             name = kernel_label(name) if "wgmma" in name else None
         elif name and "HGMMA" in line:
             counts[name] = counts.get(name, 0) + 1
-    check(len(counts) == 28 and all(counts.values()),
+    check(len(counts) == 36 and all(counts.values()),
           f"HGMMA instructions missing from the wgmma kernels: {counts}")
     print("HGMMA instructions in the SASS (cuobjdump): " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
@@ -823,6 +881,18 @@ def phase_determinism(gen, n=10):
         return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse, **kw))
     same("flash_fwd + flash_bwd b=8 h=12 s=1024 d=64 p=0.1 (out, lse, dq, "
          "dk, dv)", dense)
+    seg = padding_segments()
+    q, k, v, dout = packed_inputs(gen, BERT_B, 12, 12, BERT_S, 64)
+    kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
+
+    def segments():
+        plan = Segments(seg.q_seg, seg.kv_seg, seg.q_pos, seg.kv_pos)
+        out, lse = flash_attention_fwd(q, k, v, save_lse=True,
+                                       segments=plan, **kw)
+        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse,
+                                               segments=plan, **kw))
+    same("flash_fwd + flash_bwd in segment form, BERT b=32 h=12 s=512 d=64 "
+         "padding masks, p=0.1 (out, lse, dq, dk, dv)", segments)
     q, k, v, dout, layout, qv, kv, p = bs_inputs(gen, "(i) GPT-2 train")
     kw = dict(softmax_scale=0.125, dropout_p=p, seed=SEED)
 
@@ -1287,18 +1357,19 @@ def chunk_work(shape, elem=2):
     return n_bytes, 4 * pairs * h * d
 
 
-def sdpa_fwd(q, k, v, p=0.0, mask=None):
-    """The SDPA forward yardstick: causal, or with a boolean mask."""
-    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+def sdpa_fwd(q, k, v, p=0.0, mask=None, causal=True):
+    """The SDPA forward yardstick: causal (or not), or with a boolean
+    mask."""
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
     gqa = k.shape[1] != q.shape[1]
     return lambda: lambda: F.scaled_dot_product_attention(
         q, k, v, dropout_p=p, enable_gqa=gqa, **kw)
 
 
-def sdpa_bwd(q, k, v, dout, p=0.0, mask=None, wrt="qkv"):
+def sdpa_bwd(q, k, v, dout, p=0.0, mask=None, wrt="qkv", causal=True):
     """The SDPA backward yardstick: the gradients ``wrt`` of a graph built
     under the pinned backend."""
-    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
     gqa = k.shape[1] != q.shape[1]
 
     def make():
@@ -1436,7 +1507,8 @@ def append_timing_specs():
 def kernel_timing(gen):
     """Each kernel against its twin and, where one exists, a single PyTorch
     call computing the same function, at the main paths' shapes, in turns
-    (plain, kernel, kernel, plain; the library call last, under each pinned
+    (kernel, plain, kernel: the plain twin, 10-1000x slower, is timed once;
+    the library call last, under each pinned
     SDPA backend). Returns {name: (ms, plain_ms, library_ms, bound_ms,
     bound_by, library_backend)}."""
     card = card_line()
@@ -1576,10 +1648,16 @@ def kernel_timing(gen):
             None, *specs[k5][3:])
     specs.update(append_timing_specs())
     specs.update(bs_timing_specs())
+    bert_specs, plan_call = bert_timing_specs(gen)
+    specs.update(bert_specs)
+    plan_ms, plan_host = busy_ms(plan_call), host_ms(plan_call)
+    print(f"segment plan (BERT, csrc/segments.cu, one launch; inside the "
+          f"flash_fwd (BERT, segments) row): {plan_ms:.4f} ms (host "
+          f"{plan_host:.4f} ms to issue a call) [{card}]")
     times = {}
     for name, (kern, plain, library, n_bytes, flops, *tiles) in specs.items():
-        p1, k1, k2, p2 = (busy_ms(plain), busy_ms(kern), busy_ms(kern),
-                          busy_ms(plain))
+        t_row = time.perf_counter()
+        k1, p1, k2 = busy_ms(kern), busy_ms(plain), busy_ms(kern)
         host = host_ms(kern)
         lib_ms = backend = None
         lib = "none"
@@ -1592,7 +1670,7 @@ def kernel_timing(gen):
                 f"{b} {'refused' if t is None else f'{t:.4f}'}"
                 for b, t in each.items()) + ")"
         b_ms, b_by = bound(n_bytes, flops)
-        times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by, backend)
+        times[name] = (min(k1, k2), p1, lib_ms, b_ms, b_by, backend)
         live = ""
         if tiles:  # K8: (live 64x64 tiles, their products' operations)
             n_tiles, tile_flops = tiles[0]
@@ -1600,10 +1678,10 @@ def kernel_timing(gen):
                     f"GFLOP on them, {tile_flops / min(k1, k2) / 1e9:.1f} "
                     f"TFLOP/s on live tiles")
         print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms (host {host:.4f} ms "
-              f"to issue a call), plain {p1:.4f} / "
-              f"{p2:.4f} ms, library {lib}, bound {b_ms:.4f} ms "
-              f"({b_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)"
-              f"{live} [{card}]")
+              f"to issue a call), plain {p1:.4f} ms, library {lib}, bound "
+              f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP){live} [{card}]; row timed in "
+              f"{time.perf_counter() - t_row:.1f} s")
     print("shapes: flash_fwd b=8 h=12 s=768 d=64 causal (the serving "
           "bucket), library = SDPA forward; flash_fwd (train step) and "
           "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1 (and the "
@@ -1640,7 +1718,13 @@ def kernel_timing(gen):
           "with the element mask as attn_mask (forward; backward for k, v "
           "and for q), bound by operations over visible pairs (4d forward, "
           "8d dK/dV, 6d dQ); dense K1/K2 on config 4's inputs, library = "
-          "causal SDPA; all bf16")
+          "causal SDPA; flash_fwd / flash_bwd (BERT, segments) at b=32 h=12 "
+          "s=512 d=64, the BERT batch's padding masks (lengths uniform in "
+          "[171, 512]), non-causal, dropout 0.1, lse, beside the same "
+          "kernels with no mask on the same tensors; their bound counts the "
+          "real rows of q, k, v (and o, dout) read, the outputs written "
+          "whole and the visible pairs' products, library = SDPA with the "
+          "key-padding mask as attn_mask; all bf16")
     print_sparsity_pays(times)
     return times
 
@@ -1738,9 +1822,8 @@ def device_summary(wall, events):
 
 def phase_trace(step, batch, gen):
     """Two traced train steps. The first: no SDPA op may appear, and the
-    device time is broken down by kernel class. The second records input
-    shapes (which slows the host, so it is not used for the idle share) to
-    name the op behind each of the largest kernels."""
+    device time is broken down by kernel class. The second names the op
+    behind each of the largest kernels (print_top_kernels)."""
     step(batch, gen)
     torch.cuda.synchronize()
     wall, names, events = trace_call(lambda: step(batch, gen))
@@ -1753,8 +1836,14 @@ def phase_trace(step, batch, gen):
     check(per_step == [12, 12], f"K1, K2 kernels in a traced step: {per_step}")
     print(f"train step trace: {device_summary(wall, events)}; K1 and K2 12 "
           f"kernels each; no SDPA op [{card_line()}]")
+    print_top_kernels("train", lambda: step(batch, gen))
 
-    _, _, events = trace_call(lambda: step(batch, gen), record_shapes=True)
+
+def print_top_kernels(label, call, n=8):
+    """A second trace of ``call`` that records input shapes (which slows
+    the host, so it is not used for the idle share), naming the op behind
+    each of the ``n`` largest kernels."""
+    _, _, events = trace_call(call, record_shapes=True)
     ops = {e["args"]["External id"]: (e["name"], e["args"].get("Input Dims"))
            for e in events if e.get("cat") == "cpu_op"
            and "External id" in e.get("args", {})}
@@ -1763,16 +1852,18 @@ def phase_trace(step, batch, gen):
         op = ops.get(e.get("args", {}).get("External id"), ("?", None))
         key = (e["name"][:60], op[0], str(op[1]))
         by_kernel[key] = by_kernel.get(key, 0.0) + e["dur"]
-    top = "; ".join(f"{n} from {op} {dims}: {t / 1e3:.3f} ms"
-                    for (n, op, dims), t in sorted(
-                        by_kernel.items(), key=lambda kv: -kv[1])[:8])
-    print(f"train step trace, largest device time by kernel and the op "
+    top = "; ".join(f"{name} from {op} {dims}: {t / 1e3:.3f} ms"
+                    for (name, op, dims), t in sorted(
+                        by_kernel.items(), key=lambda kv: -kv[1])[:n])
+    print(f"{label} step trace, largest device time by kernel and the op "
           f"that launched it: {top}")
 
 
-def phase_train_timing(step, batch, gen, warmup=2, n=5, label="train"):
+def phase_train_timing(step, batch, gen, warmup=2, n=5, label="train",
+                       shape="b=8 s=1024 dropout 0.1"):
     """Host ms of ``n`` steps after ``warmup``; prints and returns the
-    median."""
+    median and the peak memory of those steps."""
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(warmup):
         step(batch, gen)
     times = []
@@ -1783,21 +1874,31 @@ def phase_train_timing(step, batch, gen, warmup=2, n=5, label="train"):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    print(f"{label} step b=8 s=1024 dropout 0.1: median {med:.2f} ms (min "
+    tokens = batch["input_ids"].numel()
+    print(f"{label} step {shape}: median {med:.2f} ms (min "
           f"{min(times):.2f}, max {max(times):.2f}, {n} steps after "
-          f"{warmup} warm-ups), {8 * 1024 / med * 1e3:.0f} tokens/s "
+          f"{warmup} warm-ups), {tokens / med * 1e3:.0f} tokens/s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[{card_line()}]")
     return med
 
 
 def reference_attention(q, k, v, *, causal, softmax_scale=None,
-                        dropout_p=0.0, dropout_seed=None):
+                        dropout_p=0.0, dropout_seed=None, q_segment_ids=None,
+                        kv_segment_ids=None, q_positions=None,
+                        kv_positions=None):
     """flash_attention's signature over the same-dtype attention_ref
-    (bshd), differentiable by autograd: the train check's baseline."""
+    (bshd), segment ids as the equivalent boolean mask, differentiable by
+    autograd: the train checks' baseline."""
     def tr(x):
         return x.transpose(1, 2)
 
-    return tr(attention_ref(tr(q), tr(k), tr(v), causal=causal,
+    mask = None
+    if q_segment_ids is not None:
+        mask = segment_mask(Segments(q_segment_ids, kv_segment_ids,
+                                     q_positions, kv_positions), causal)
+        causal = False
+    return tr(attention_ref(tr(q), tr(k), tr(v), causal=causal, mask=mask,
                             softmax_scale=softmax_scale, upcast=False))
 
 
@@ -1835,6 +1936,316 @@ def phase_train_check(batch):
               f"{float(got[i]):.6f}, fp32 compute {float(want[i]):.6f}, bf16 "
               f"+ attention_ref {float(base[i]):.6f}: err {err:.3e} (bf16 "
               f"baseline {b:.3e})")
+
+
+# ---------------------------------------------------------------- BERT
+
+def padding_segments():
+    """The BERT batch's padding masks in segment form (dense_timing
+    bert_padding)."""
+    return Segments(*bert_padding(DEV, BERT_B, BERT_S))
+
+
+def visible_pairs(seg, causal=False):
+    """Visible (query, key) pairs of one head, summed over the batch."""
+    return int(segment_mask(seg, causal).sum())
+
+
+def bert_batch(cfg):
+    """One b=32 x s=512 MLM batch from numpy's default_rng(1): real tokens
+    up to each row's length, padding id 0 after; 15% of the real tokens
+    are replaced by [MASK] (id 103) and carry their original id as the
+    label."""
+    lengths = bert_lengths(BERT_B, BERT_S)
+    rng = np.random.default_rng(1)
+    mask = np.arange(BERT_S)[None] < lengths[:, None]
+    ids = np.where(mask, rng.integers(1000, cfg.vocab_size,
+                                      (BERT_B, BERT_S)), 0)
+    label_mask = mask & (rng.random((BERT_B, BERT_S)) < 0.15)
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(DEV)
+
+    return {"input_ids": dev(np.where(label_mask, 103, ids)),
+            "attention_mask": dev(mask), "labels": dev(ids),
+            "label_mask": dev(label_mask)}
+
+
+def check_lse(lse, q, k, seg, scale, label):
+    """lse against the masked fp32 logsumexp; -inf exactly on rows that
+    see no key."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    want = torch.logsumexp(s.masked_fill(~segment_mask(seg, False),
+                                         float("-inf")), dim=-1)
+    dead = torch.isneginf(want)
+    check(torch.equal(torch.isneginf(lse), dead), f"{label}: -inf rows")
+    torch.testing.assert_close(lse[~dead], want[~dead], atol=1e-3, rtol=1e-3)
+
+
+def phase_segment_kernels(gen, errs):
+    """K1 and K2 in segment form at BERT's attention shape (b=32 h=12
+    s=512 d=64, bf16, the padding masks of the BERT batch, non-causal, on
+    views of a fused projection), dropout 0 and 0.1: against their twins
+    and against fp32 attention_ref under the equivalent boolean mask (by
+    autograd for the gradients), both by the 2x rule (baseline: the bf16
+    attention_ref); lse against the masked fp32 logsumexp. Then the
+    cu_seqlens interface on the same tokens packed, against the padded
+    segment-id route and the oracle; and kvpacked with per-sequence sq !=
+    sk, causal. Adds the max errors vs the twins to ``errs``."""
+    seg = padding_segments()
+    mask = segment_mask(seg, False)
+    q, k, v, dout = packed_inputs(gen, BERT_B, 12, 12, BERT_S, 64)
+    for p in (0.0, 0.1):
+        kw = dict(causal=False, softmax_scale=0.125, dropout_p=p,
+                  seed=SEED if p else None, segments=seg)
+        out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+        grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        torch.cuda.synchronize()
+        twin, _ = flash_attention_fwd_plain(q, k, v, save_lse=False, **kw)
+        twin_grads = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        keep = dropout_mask_dense(SEED, BERT_B, 12, BERT_S, BERT_S, p,
+                                  device=DEV) if p else None
+        ref = dict(mask=mask, dropout_mask=keep, dropout_p=p)
+        native = attention_ref(q, k, v, upcast=False, **ref)
+        label = f"segments b={BERT_B} h=12 s={BERT_S} d=64 p={p}"
+        err, base = assert_two_x_bound(out, attention_ref(q, k, v, **ref),
+                                       native, label=f"flash_fwd {label}")
+        assert_two_x_bound(out, twin.float(), native,
+                           label=f"flash_fwd vs twin {label}")
+        check_lse(lse, q, k, seg, 0.125, f"flash_fwd {label}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], max_err(out, twin))
+        leaves32 = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        attention_ref(*leaves32, **ref).backward(dout.float())
+        leaves16 = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        attention_ref(*leaves16, upcast=False, **ref).backward(dout)
+        parts = []
+        for name, g, tw, o, n in zip("qkv", grads, twin_grads, leaves32,
+                                     leaves16):
+            e, be = assert_two_x_bound(g, o.grad, n.grad, atol=1e-4,
+                                       label=f"flash_bwd d{name} {label}")
+            assert_two_x_bound(g, tw.float(), n.grad, atol=1e-4,
+                               label=f"flash_bwd d{name} vs twin {label}")
+            errs["flash_bwd"] = max(errs["flash_bwd"], max_err(g, tw))
+            parts.append(f"d{name} {e:.3e} ({be:.3e})")
+        print(f"flash_fwd+bwd {label}: out err vs fp32 {err:.3e} (bf16 "
+              f"baseline {base:.3e}); grads vs fp32 autograd (bf16 "
+              f"baseline) {', '.join(parts)}; vs twins fwd "
+              f"{max_err(out, twin):.3e}")
+        del out, lse, grads, twin, twin_grads, keep, native, leaves32, leaves16
+        torch.cuda.empty_cache()
+
+    # The same tokens packed: the cu_seqlens interface (qkvpacked) against
+    # the padded route, pad_input(packed out) against flash_attention on
+    # the padded batch with segment ids; both held to the oracle.
+    qkv = torch.stack([x.transpose(1, 2) for x in (q, k, v)], dim=2)
+    valid = seg.q_seg >= 0
+    packed, idx, cu, max_s = unpad_input(qkv, valid)
+    got = pad_input(flash_attn_unpadded_qkvpacked_func(packed, cu, max_s,
+                                                       0.0), idx, BERT_B,
+                    BERT_S).transpose(1, 2)
+    padded = flash_attention(*(x.transpose(1, 2) for x in (q, k, v)),
+                             q_segment_ids=seg.q_seg,
+                             kv_segment_ids=seg.kv_seg).transpose(1, 2)
+    ref32 = attention_ref(q, k, v, mask=mask)
+    ref16 = attention_ref(q, k, v, mask=mask, upcast=False)
+    e1, base = assert_two_x_bound(got, ref32, ref16,
+                                  label="qkvpacked interface vs fp32")
+    e2, _ = assert_two_x_bound(got, padded.float(), ref16,
+                               label="qkvpacked interface vs padded route")
+    print(f"qkvpacked interface, the BERT batch packed ({int(cu[-1])} "
+          f"tokens in {BERT_B} sequences): err vs fp32 {e1:.3e} (bf16 "
+          f"baseline {base:.3e}), vs pad_input(flash_attention(padded, "
+          f"segment ids)) {e2:.3e}")
+    # kvpacked: 8 sequences, per-sequence sq != sk, causal (top-left inside
+    # each), dropout 0.1: against fp32 attention_ref over the packed
+    # tokens with the segment mask (positions included).
+    lq, lk = bert_lengths(8, BERT_S, 2), bert_lengths(8, BERT_S, 3)
+    cq = torch.from_numpy(np.concatenate([[0], np.cumsum(lq)])).to(
+        DEV, torch.int32)
+    ck = torch.from_numpy(np.concatenate([[0], np.cumsum(lk)])).to(
+        DEV, torch.int32)
+    qp = randn(gen, (int(lq.sum()), 12, 64))
+    kv = randn(gen, (int(lk.sum()), 2, 12, 64))
+    got = flash_attn_unpadded_kvpacked_func(qp, kv, cq, ck, BERT_S, BERT_S,
+                                            0.1, causal=True,
+                                            dropout_seed=SEED)
+    qs, qpos = cu_seqlens_to_segments(cq, len(qp))
+    ks, kpos = cu_seqlens_to_segments(ck, len(kv))
+    pmask = segment_mask(Segments(qs[None], ks[None], qpos[None],
+                                  kpos[None]), True)
+    keep = dropout_mask_dense(SEED, 1, 12, len(qp), len(kv), 0.1, device=DEV)
+    ref = dict(mask=pmask, dropout_mask=keep, dropout_p=0.1)
+    bt = (qp.transpose(0, 1)[None], kv[:, 0].transpose(0, 1)[None],
+          kv[:, 1].transpose(0, 1)[None])
+    err, base = assert_two_x_bound(
+        got.transpose(0, 1)[None], attention_ref(*bt, **ref),
+        attention_ref(*bt, upcast=False, **ref),
+        label="kvpacked interface sq != sk causal")
+    print(f"kvpacked interface, 8 sequences, {int(lq.sum())} queries / "
+          f"{int(lk.sum())} keys (per-sequence sq != sk), causal, dropout "
+          f"0.1: err vs fp32 {err:.3e} (bf16 baseline {base:.3e})")
+    torch.cuda.empty_cache()
+
+
+def bert_model(cfg):
+    return BertForMaskedLM(cfg, device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(0))
+
+
+def phase_bert_train(n_steps=4):
+    """The BERT main path: BertForMaskedLM(BERT_BASE), fp32 weights and
+    AdamW state, bf16 compute in FlashMHA and the MLP, dropout 0.1, n_steps
+    on one padded batch. Each step launches K1 and K2 once per layer in
+    their segment form (one tile plan per layer). Returns (launches, step,
+    batch, generator)."""
+    cfg = dataclasses.replace(BERT_BASE, dropout=0.1)
+    batch = bert_batch(cfg)
+    model = bert_model(cfg)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    step = make_bert_step(model, opt)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(batch, gen) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(KERNELS)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"BERT losses {losses}")
+    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    for name in (*TRAIN_KERNELS, "segment plan"):
+        check(launches[name] == cfg.n_layer * n_steps,
+              f"BERT {name}: {launches[name]} launches in {n_steps} steps, "
+              f"want {cfg.n_layer} per step")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "non-fp32 BERT parameters")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"bert train: BERT-base ({n_params / 1e6:.1f} M parameters), "
+          f"b={BERT_B} s={BERT_S}, {int(batch['attention_mask'].sum())} real "
+          f"tokens, {int(batch['label_mask'].sum())} MLM labels, dropout 0.1, "
+          f"{n_steps} AdamW steps in {dt:.2f} s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches} [{card_line()}]")
+    return launches, step, batch, gen
+
+
+def phase_bert_trace(step, batch, gen):
+    """A traced BERT step: no SDPA op; K1 and K2 12 kernels each, all in
+    their segment form; device busy time, idle share and time by class."""
+    step(batch, gen)
+    torch.cuda.synchronize()
+    wall, names, events = trace_call(lambda: step(batch, gen))
+    sdpa = sorted(n for n in names if n.startswith(
+        ("aten::_scaled_dot_product", "aten::_efficient_attention",
+         "aten::_flash_attention")))
+    check(not sdpa, f"SDPA ops in the BERT step: {sdpa}")
+    dev = device_events(events)
+    per_step = [sum(key in e["name"] and ", true>" in e["name"]
+                    for e in dev)
+                for key in ("flash_fwd_wgmma", "flash_bwd_wgmma")]
+    dense = sum(("flash_fwd_wgmma" in e["name"] or "flash_bwd_wgmma"
+                 in e["name"]) and ", false>" in e["name"] for e in dev)
+    check(per_step == [12, 12] and dense == 0,
+          f"K1, K2 segment kernels in a traced BERT step: {per_step}, dense "
+          f"ones {dense}")
+    print(f"bert train step trace: {device_summary(wall, events)}; K1 and "
+          f"K2 12 segment-form kernels each; no SDPA op [{card_line()}]")
+    print_top_kernels("bert train", lambda: step(batch, gen))
+
+
+def phase_bert_check(batch):
+    """One BERT step at dropout 0, its loss and global gradient norm: bf16
+    compute through K1/K2's segment form against the same step in fp32
+    compute (the fp32 segment kernels), by the 2x rule. Baseline: the bf16
+    model with attention through the bf16 masked attention_ref. Floor:
+    1e-4 of the fp32 value."""
+    def loss_and_norm(model):
+        model.zero_grad(set_to_none=True)
+        loss = mlm_loss(model(batch["input_ids"],
+                              attention_mask=batch["attention_mask"]),
+                        batch["labels"], batch["label_mask"])
+        loss.backward()
+        norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
+                              for p in model.parameters()
+                              if p.grad is not None))  # the pooler: none
+        return torch.stack([loss.detach(), norm])
+
+    model16 = bert_model(BERT_BASE)
+    got = loss_and_norm(model16)
+    original = modules.flash_attention
+    modules.flash_attention = reference_attention
+    try:
+        base = loss_and_norm(model16)
+    finally:
+        modules.flash_attention = original
+    del model16
+    torch.cuda.empty_cache()
+    want = loss_and_norm(bert_model(dataclasses.replace(BERT_BASE,
+                                                        dtype=None)))
+    for i, what in enumerate(("loss", "grad norm")):
+        err, b = assert_two_x_bound(got[i], want[i], base[i],
+                                    atol=1e-4 * float(want[i].abs()),
+                                    label=f"BERT step {what}")
+        print(f"bert step at dropout 0, {what}: bf16 + kernels "
+              f"{float(got[i]):.6f}, fp32 compute {float(want[i]):.6f}, bf16 "
+              f"+ masked attention_ref {float(base[i]):.6f}: err {err:.3e} "
+              f"(bf16 baseline {b:.3e})")
+    torch.cuda.empty_cache()
+
+
+def bert_timing_specs(gen):
+    """kernel_timing rows of K1 and K2 in segment form at BERT's attention
+    shape (the BERT batch's padding masks, dropout 0.1, lse saved; K1's row
+    includes its tile plan, made inside the call as on the path, K2 reuses
+    the forward's), the same kernels without a mask on the same tensors,
+    and the plan alone. Bound: the real rows of q, k, v (and o, dout for
+    K2) read once, o (dq, dk, dv) written whole; products over the visible
+    pairs only (4 d flops each forward, 10 d backward). Library: SDPA with
+    the boolean key-padding mask (b, 1, 1, s) as attn_mask (every query row
+    attends the real keys). Returns (specs, a call making the plan
+    alone)."""
+    seg = padding_segments()
+    q, k, v, dout = packed_inputs(gen, BERT_B, 12, 12, BERT_S, 64)
+    kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
+    plan = Segments(seg.q_seg, seg.kv_seg, seg.q_pos, seg.kv_pos)
+    o, lse = flash_attention_fwd(q, k, v, save_lse=True, segments=plan, **kw)
+    od, lsed = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    pairs = visible_pairs(seg) * 12
+    real = int((seg.q_seg >= 0).sum()) / (BERT_B * BERT_S)
+    row = nbytes(q)  # one (b, h, s, d) bf16 operand
+    key_mask = (seg.kv_seg >= 0)[:, None, None, :]
+
+    def fresh():
+        return Segments(seg.q_seg, seg.kv_seg, seg.q_pos, seg.kv_pos)
+
+    return {
+        "flash_fwd (BERT, segments, dropout 0.1, lse)": (
+            lambda: flash_attention_fwd(q, k, v, save_lse=True,
+                                        segments=fresh(), **kw),
+            lambda: flash_attention_fwd_plain(q, k, v, save_lse=True,
+                                              segments=seg, **kw),
+            sdpa_fwd(q, k, v, p=0.1, mask=key_mask),
+            3 * real * row + row + nbytes(lse), 4 * 64 * pairs),
+        "flash_fwd (BERT shape, no mask, dropout 0.1, lse)": (
+            lambda: flash_attention_fwd(q, k, v, save_lse=True, **kw),
+            lambda: flash_attention_fwd_plain(q, k, v, save_lse=True, **kw),
+            sdpa_fwd(q, k, v, p=0.1, causal=False),
+            4 * row + nbytes(lse), 4 * 64 * 12 * BERT_B * BERT_S ** 2),
+        "flash_bwd (BERT, segments, dropout 0.1)": (
+            lambda: flash_attention_bwd(q, k, v, o, dout, lse,
+                                        segments=plan, **kw),
+            lambda: flash_attention_bwd_plain(q, k, v, o, dout, lse,
+                                              segments=seg, **kw),
+            sdpa_bwd(q, k, v, dout, p=0.1, mask=key_mask),
+            5 * real * row + 3 * row + nbytes(lse), 10 * 64 * pairs),
+        "flash_bwd (BERT shape, no mask, dropout 0.1)": (
+            lambda: flash_attention_bwd(q, k, v, od, dout, lsed, **kw),
+            lambda: flash_attention_bwd_plain(q, k, v, od, dout, lsed, **kw),
+            sdpa_bwd(q, k, v, dout, p=0.1, causal=False),
+            8 * row + nbytes(lse), 10 * 64 * 12 * BERT_B * BERT_S ** 2),
+    }, lambda: segment_plan(fresh(), False)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2159,47 +2570,69 @@ def print_sparsity_pays(times):
 
 
 def main():
+    t_start = time.perf_counter()
     phase_device()
     phase_build_report()
     gen = torch.Generator(device=DEV).manual_seed(0)
     rng = np.random.default_rng(0)
-    errs = phase_kernels(gen)
-    phase_chunk_kernels(gen, errs)
-    phase_fused_kernels()
-    phase_train_kernels(gen, errs)
-    phase_determinism(gen)
+    with phase_time("kernel checks"):
+        errs = phase_kernels(gen)
+        phase_chunk_kernels(gen, errs)
+        phase_fused_kernels()
+        phase_train_kernels(gen, errs)
+        phase_segment_kernels(gen, errs)
+    with phase_time("determinism"):
+        phase_determinism(gen)
 
     # Serving GPT-2: full width, weights stored in bf16 (the serving dtype).
-    cfg = GPT2Config(param_dtype=BF16)
-    model = GPT2LMHeadModel(cfg, device=DEV,
-                            generator=torch.Generator(device=DEV).manual_seed(0))
-    model32 = gpt2_fp32(model)
-    launches = {"serve": phase_serve(model, cfg, rng)}
-    phase_teacher_forcing(model, cfg, model32, rng)
-    launches["serve_chunked"] = phase_serve_chunked(model, cfg, model32, rng)
-    launches["speculative"] = phase_speculative(model, cfg, model32, rng)
-    phase_timing(model, cfg, rng)
-    del model, model32
-    torch.cuda.empty_cache()
+    with phase_time("GPT-2 serving"):
+        cfg = GPT2Config(param_dtype=BF16)
+        model = GPT2LMHeadModel(
+            cfg, device=DEV,
+            generator=torch.Generator(device=DEV).manual_seed(0))
+        model32 = gpt2_fp32(model)
+        launches = {"serve": phase_serve(model, cfg, rng)}
+        phase_teacher_forcing(model, cfg, model32, rng)
+        launches["serve_chunked"] = phase_serve_chunked(model, cfg, model32,
+                                                        rng)
+        launches["speculative"] = phase_speculative(model, cfg, model32, rng)
+        phase_timing(model, cfg, rng)
+        del model, model32
+        torch.cuda.empty_cache()
 
-    launches["train"], step, batch, dgen, *held = phase_train()
-    phase_trace(step, batch, dgen)
-    dense_ms = phase_train_timing(step, batch, dgen)
-    del step, held
-    torch.cuda.empty_cache()
-    phase_train_check(batch)
-    torch.cuda.empty_cache()
+    with phase_time("GPT-2 training"):
+        launches["train"], step, batch, dgen, *held = phase_train()
+        phase_trace(step, batch, dgen)
+        dense_ms = phase_train_timing(step, batch, dgen)
+        del step, held
+        torch.cuda.empty_cache()
+        phase_train_check(batch)
+        torch.cuda.empty_cache()
 
-    phase_blocksparse_kernels(gen, errs)
-    launches["blocksparse_train"], bs_ms = phase_blocksparse_train()
-    print(f"train step medians in this run: blocksparse {bs_ms:.2f} ms, "
-          f"dense {dense_ms:.2f} ms [{card_line()}]")
-    torch.cuda.empty_cache()
-    phase_blocksparse_train_check(batch)
-    torch.cuda.empty_cache()
+    with phase_time("BERT training"):
+        launches["bert_train"], bstep, bbatch, bgen = phase_bert_train()
+        phase_bert_trace(bstep, bbatch, bgen)
+        phase_train_timing(bstep, bbatch, bgen, label="bert train",
+                           shape=f"b={BERT_B} s={BERT_S} padding masks "
+                           "dropout 0.1")
+        del bstep
+        torch.cuda.empty_cache()
+        phase_bert_check(bbatch)
+        torch.cuda.empty_cache()
 
-    launches["llama_chunked"] = phase_llama(rng)
-    times = kernel_timing(gen)
+    with phase_time("blocksparse"):
+        phase_blocksparse_kernels(gen, errs)
+        launches["blocksparse_train"], bs_ms = phase_blocksparse_train()
+        print(f"train step medians in this run: blocksparse {bs_ms:.2f} ms, "
+              f"dense {dense_ms:.2f} ms [{card_line()}]")
+        torch.cuda.empty_cache()
+        phase_blocksparse_train_check(batch)
+        torch.cuda.empty_cache()
+
+    with phase_time("Llama serving"):
+        launches["llama_chunked"] = phase_llama(rng)
+    with phase_time("kernel timing"):
+        times = kernel_timing(gen)
 
     # K7a and K7b run inside K5's and K6's launches on the paths: their
     # launches by path are those appends (and the standalone kernels',
@@ -2233,8 +2666,21 @@ def main():
                     shape: times[f"{kernel} with the append ({shape})"][0]
                     - times[f"{kernel} alone ({shape})"][0]
                     for shape in shapes}})
+        if name in ("flash_fwd", "flash_bwd"):  # K1/K2 at BERT's shape
+            seg_ms, seg_plain, seg_lib, seg_b, seg_by, seg_backend = times[
+                f"{name} (BERT, segments, dropout 0.1"
+                + (", lse)" if name == "flash_fwd" else ")")]
+            entry["segment_form"] = {
+                "shape": "b32 h12 s512 d64, BERT padding masks, dropout 0.1",
+                "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": seg_b,
+                "bound_by": seg_by, "library_ms": seg_lib,
+                "library_backend": seg_backend,
+                "unmasked_ms": times[
+                    f"{name} (BERT shape, no mask, dropout 0.1"
+                    + (", lse)" if name == "flash_fwd" else ")")][0]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
+    print(f"phase total: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ events around back-to-back calls time the host, not the card.
 
 As a script it times the flash_attn_tpu_torch package of the checkout at
 DIR (default: the one holding this file): K1 (flash_attention_fwd), K2
-(flash_attention_bwd), K7c (the paged page write, GPT-2's prompt and one
+(flash_attention_bwd), both also in segment form where the checkout has
+it (BERT's padding masks, and the same batch packed as one sequence), K7c (the paged page write, GPT-2's prompt and one
 layer of Llama-3-8B's chunk, the latter on four input sets in turn so that
 it cannot run from L2), K8a, K8b and K8c (blocksparse forward, dK/dV
 and dQ), and the cache appends at GPT-2's and Llama-3-8B's decode shapes
@@ -208,6 +209,78 @@ def dense_rows(fwd, bwd, dev):
                     *a, causal=True, softmax_scale=d ** -0.5, save_lse=True))
         rows[f"K2 {label}, dropout {p}"] = (
             lambda a=(qt, kt, vt, ot, dt, lt), kw=kw: bwd(*a, **kw))
+    return rows
+
+
+def bert_lengths(b=32, s=512, seed=0):
+    """Row lengths of the BERT batch (chip_smoke.py): uniform in [s/3, s]
+    (the reference's generate_random_padding_mask;
+    tests/test_varlen.py:28-31) from numpy's default_rng(seed)."""
+    return np.random.default_rng(seed).integers(s // 3, s + 1, size=b)
+
+
+def bert_padding(dev, b=32, s=512, seed=0):
+    """The key-padding layout of rows of ``bert_lengths``, as (q_seg,
+    kv_seg, q_pos, kv_pos) int32 (b, s) on ``dev``: id 0 at real tokens,
+    -1 at padding, positions arange (models/modules.py makes the same from
+    key_padding_mask)."""
+    lengths = torch.as_tensor(bert_lengths(b, s, seed), device=dev)
+    pos = torch.arange(s, device=dev, dtype=torch.int32)
+    seg = torch.where(pos[None] < lengths[:, None], 0, -1).to(torch.int32)
+    pos = pos.expand_as(seg).contiguous()
+    return seg, seg, pos, pos
+
+
+def segment_rows(fwd, bwd, dev, b=32, s=512):
+    """{row: call} for K1 and K2 in segment form, where the checkout has it:
+    at BERT's attention shape (b32 h12 s512 d64, bert_padding, dropout 0.1,
+    lse; K1's calls make their tile plan, K2's reuse one) beside the same
+    kernels with no mask and in segment form with every token real (the
+    plan lists every tile, all full: the segment form's own cost), and on
+    the same batch packed as one super-sequence (b1, the 32 sequences back
+    to back: the cu_seqlens interface's layout), bf16 from
+    torch.Generator seed 0."""
+    import inspect
+    if "segments" not in inspect.signature(fwd).parameters:
+        return {}
+    from flash_attn_tpu_torch.kernels.common import Segments
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = functools.partial(bf16_randn, gen)
+    kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=1234)
+    ids = bert_padding(dev, b, s)
+    q, k, v, do = (randn(b, 12, s, 64) for _ in range(4))
+    n = int((ids[0] >= 0).sum())
+    lengths = (ids[0] >= 0).sum(1).tolist()
+    seq = torch.repeat_interleave(torch.arange(b, device=dev),
+                                  torch.as_tensor(lengths, device=dev))
+    start = torch.cumsum(torch.as_tensor([0] + lengths[:-1], device=dev), 0)
+    local = torch.arange(n, device=dev) - start[seq]
+    packed = tuple(x.to(torch.int32)[None].contiguous()
+                   for x in (seq, seq, local, local))
+    qp, kp, vp, dp = (randn(1, 12, n, 64) for _ in range(4))
+    rows = {}
+    for label, args, seg in ((f"BERT b{b} s{s} padding", (q, k, v, do), ids),
+                             (f"BERT batch packed b1 s{n}", (qp, kp, vp, dp),
+                              packed)):
+        plan = Segments(*seg)
+        o, lse = fwd(*args[:3], save_lse=True, segments=plan, **kw)
+        rows[f"K1 {label}, segments"] = (
+            lambda a=args, seg=seg: fwd(*a[:3], save_lse=True,
+                                        segments=Segments(*seg), **kw))
+        rows[f"K2 {label}, segments"] = (
+            lambda a=args, o=o, lse=lse, plan=plan: bwd(
+                *a[:3], o, a[3], lse, segments=plan, **kw))
+        if "padding" in label:
+            real = (torch.zeros_like(seg[0]),) * 2 + seg[2:]
+            rows[f"K1 {label}, segments, all tokens real"] = (
+                lambda a=args, seg=real: fwd(*a[:3], save_lse=True,
+                                             segments=Segments(*seg), **kw))
+            od, lsed = fwd(*args[:3], save_lse=True, **kw)
+            rows[f"K1 {label}, no mask"] = (
+                lambda a=args: fwd(*a[:3], save_lse=True, **kw))
+            rows[f"K2 {label}, no mask"] = (
+                lambda a=args, o=od, lse=lsed: bwd(*a[:3], o, a[3], lse,
+                                                   **kw))
     return rows
 
 
@@ -642,8 +715,10 @@ def main():
     build_s = time.perf_counter() - t0
     rows = {}
     for name, fn in {**dense_rows(flash_attention_fwd, flash_attention_bwd,
-                                  dev), **k7c_k8_rows(dev),
-                      **append_rows(dev)}.items():
+                                  dev),
+                      **segment_rows(flash_attention_fwd, flash_attention_bwd,
+                                     dev),
+                      **k7c_k8_rows(dev), **append_rows(dev)}.items():
         if not name.startswith(tuple(args.rows.split(","))):
             continue
         rows[name] = {"busy_ms": [busy_ms(fn, warm_s=warm_s),

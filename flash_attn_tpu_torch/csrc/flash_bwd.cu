@@ -45,6 +45,16 @@
 // blocks launch first) and a slice's ranks count from the first block that
 // reaches it, so the additions come in the order the walks arrive and a
 // rank rarely waits.
+// Segments (flash_bwd.py:63-90 and :322-327 there; csrc/segments.cuh):
+// visibility by segment ids and per-segment positions, as in the forward.
+// A block walks only the query tiles its plan lists for its key tile (no
+// K/V load at all when there are none: dK = dV = 0), tests elements on
+// partial pairs only, and waits for the dQ rank the plan gives the pair:
+// the count of blocks launched before it that are live on the same query
+// tile. A block never waits for a block that skips the tile, so a skipped
+// tile cannot stall the ranks after it. The fp32 kernel walks every query
+// step instead, takes and passes its turn on the steps whose 64 x 128 tile
+// the plan calls dead, and loads and computes nothing there.
 // Bound: tensor-core math at training sizes (5 products per tile, 10 d
 // flops per visible pair).
 //   - bf16 / fp16 (flash_bwd_wgmma_kernel): two warpgroups. K and V are
@@ -76,6 +86,7 @@
 #include "mask.cuh"
 #include "mma.cuh"
 #include "prng.cuh"
+#include "segments.cuh"
 
 namespace fattn {
 namespace {
@@ -100,14 +111,16 @@ struct BwdParams {
   bool causal;
   Dropout drop;
   Strides st[kNumOps];  // q, k, v, o, dout, dk, dv, dq
+  SegPlan seg;          // qsp == nullptr: no segments
 };
 
 constexpr int kStatRows = 64;  // the stats rows are padded to this
 
-// The key tile of this block: under causal masking the last (lightest)
-// key tiles launch first (see the header).
-__device__ __forceinline__ int key_tile(bool causal) {
-  return causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+// The key tile of this block: with last_first (causal masking, where the
+// last key tiles are the lightest, and the segment form) the last key
+// tiles launch first (see the header).
+__device__ __forceinline__ int key_tile(bool last_first) {
+  return last_first ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
 }
 
 // This block's place among the blocks that add into dQ rows [m0, m0 + 16):
@@ -193,7 +206,7 @@ struct BwdLayout {
                                 12 * (kStages + 1) + 1024;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -214,20 +227,40 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* kv_full = full + kStages;
   uint32_t* released = reinterpret_cast<uint32_t*>(kv_full + 1);
 
-  const int n0 = key_tile(p.causal) * kBwdN;
+  // The segment form launches the key tiles last first whatever the mask
+  // (csrc/segments.cuh: the plan's dQ ranks follow this order).
+  const int kt = key_tile(kSeg || p.causal);
+  const int n0 = kt * kBwdN;
   const int hk = blockIdx.y, bb = blockIdx.z;
   const int group = p.h / p.h_kv;
-  const int m_begin = first_row_for_keys(n0, p.causal) / kBwdM * kBwdM;
   // The walk, heads innermost: step it is query head hk * group + it %
-  // group, rows m_begin + (it / group) * kBwdM on.
-  const int n_m = m_begin < p.sq ? (p.sq - m_begin + kBwdM - 1) / kBwdM : 0;
+  // group, rows m_begin + (it / group) * kBwdM on; with segments, the query
+  // tiles of the plan's list for this key tile.
+  int m_begin = 0, n_m;
+  const int2* list = nullptr;
+  if constexpr (kSeg) {
+    const size_t e = (size_t)bb * p.seg.n_k128 + kt;
+    n_m = p.seg.bwd_n[e];
+    list = reinterpret_cast<const int2*>(p.seg.bwd) + e * p.seg.n_q64;
+  } else {
+    m_begin = first_row_for_keys(n0, p.causal) / kBwdM * kBwdM;
+    n_m = m_begin < p.sq ? (p.sq - m_begin + kBwdM - 1) / kBwdM : 0;
+  }
   const int n_steps = group * n_m;
+  auto step_row0 = [&](int it) -> int {
+    if constexpr (kSeg) {
+      return (int)((uint32_t)__ldg(&list[it / group].x) & kTileIndex) *
+             kBwdM;
+    } else {
+      return m_begin + (it / group) * kBwdM;
+    }
+  };
 
   // Q, dO and the row stats of step `it` into ring stage it % kStages.
   auto load_step = [&](int it) {
     const int s = it % kStages;
     const int hq = hk * group + it % group;
-    const int m0 = m_begin + (it / group) * kBwdM;
+    const int m0 = step_row0(it);
     mbar_arrive_expect_tx(&full[s], 2 * 2 * L::kQ + 16 * kBwdM);
     for (int c = 0; c < D / 64; ++c) {
       const int off = s * L::kQ + c * kBwdM * 64;
@@ -238,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               p.stats + (size_t)(bb * p.h + hq) * p.sq_pad + m0, 16 * kBwdM,
               &full[s]);
   };
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && n_steps > 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       released[s] = 0u;
@@ -273,7 +306,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   float dk[D / 2], dv[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-  mbar_wait(kv_full, 0);
+  if (n_steps > 0) mbar_wait(kv_full, 0);
+  // Segments: this thread's two keys' queries [lo, hi) in the interval
+  // form, else their (id, position).
+  int2 kr[2];
+  bool iv = false;
+  if constexpr (kSeg) {
+    iv = p.seg.interval_form(bb);
+    const int2* keys = iv ? p.seg.k_bounds(bb) : p.seg.k_rows(bb);
+    kr[0] = keys[key0];
+    kr[1] = keys[key0 + 8];
+  }
   // The warpgroup's dQ addition of the last step, until it has completed
   // and its turn is passed on (nullptr: none).
   int* pending = nullptr;
@@ -290,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int it = 0; it < n_steps; ++it) {
     const int hq = hk * group + it % group;
-    const int m0 = m_begin + (it / group) * kBwdM;
+    const int m0 = step_row0(it);
     float* dq_acc = p.dq_acc + (size_t)(bb * p.h + hq) * p.sq * D;
     const int s = it % kStages;
     const float4* st_t = stats_s + s * kBwdM;
@@ -328,20 +371,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(st);
 
     // st <- p (pre-dropout); only tiles crossing the causal diagonal or
-    // sk's edge test elements. Row stats come in pairs of queries.
-    const bool edge = kw0 + 64 > p.sk || (p.causal && kw0 + 63 > m0);
+    // sk's edge test elements (with segments: the plan's partial pairs).
+    // Row stats come in pairs of queries.
+    bool edge;
+    if constexpr (kSeg) {
+      edge = ((uint32_t)__ldg(&list[it / group].x) >> 30) != kTileFull;
+    } else {
+      edge = kw0 + 64 > p.sk || (p.causal && kw0 + 63 > m0);
+    }
 #pragma unroll
     for (int nb = 0; nb < kBwdM / 8; ++nb) {
       const int ql = nb * 8 + 2 * t;
       const float lse2[2] = {st_t[ql].x, st_t[ql + 1].x};
+      int4 qp;
+      if constexpr (kSeg) {
+        if (edge && !iv) qp = seg_pair(p.seg.q_rows(bb), m0 + ql);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float l2 = lse2[e & 1];
         float pv = fast_exp2(fmaf(st[4 * nb + e], p.scale_log2, -l2));
-        if (edge && !key_visible(m0 + ql + (e & 1), key0 + 8 * (e >> 1),
-                                 p.sk, p.causal)) {
-          pv = 0.f;
+        bool vis;
+        if constexpr (kSeg) {
+          const int q = m0 + ql + (e & 1);
+          const int2 kb = kr[e >> 1];
+          vis = !edge ||
+                (iv ? q >= kb.x && q < kb.y
+                    : seg_visible((e & 1) ? make_int2(qp.z, qp.w)
+                                          : make_int2(qp.x, qp.y),
+                                  kb, p.causal));
+        } else {
+          vis = !edge || key_visible(m0 + ql + (e & 1), key0 + 8 * (e >> 1),
+                                     p.sk, p.causal);
         }
+        if (!vis) pv = 0.f;
         st[4 * nb + e] = pv;
       }
     }
@@ -433,7 +496,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
     }
     int* turn = p.dq_turn + (size_t)(bb * p.h + hq) * p.n16 + m0 / 16;
-    if (tid == 0) wait_turn(turn, 2 * dq_order(m0, kBwdN, p.causal) + wg);
+    int rank;
+    if constexpr (kSeg) {
+      rank = __ldg(&list[it / group].y);
+    } else {
+      rank = dq_order(m0, kBwdN, p.causal);
+    }
+    if (tid == 0) wait_turn(turn, 2 * rank + wg);
     named_barrier(1 + wg, 128);
     wgmma_wait<0>();
     fence_regs(dqa);
@@ -497,8 +566,13 @@ __global__ void __launch_bounds__(256)
   __shared__ float do_s[kM * kS];
   __shared__ float p_s[kM * (kN + 1)];  // dropped, rescaled p (query, key)
   __shared__ float ds_s[kM * (kN + 1)];
+  __shared__ int2 qseg_s[kM];
+  // Segments: every block walks every query step (positions, not row
+  // indices, decide visibility), so the dense causal order is off.
+  const bool seg = p.seg.qsp != nullptr;
+  const bool tri = p.causal && !seg;
 
-  const int n0 = key_tile(p.causal) * kN;
+  const int n0 = key_tile(tri) * kN;
   const int hk = blockIdx.y, bb = blockIdx.z;
   const int group = p.h / p.h_kv;
   const int i16 = threadIdx.x >> 4, j16 = threadIdx.x & 15;
@@ -518,7 +592,8 @@ __global__ void __launch_bounds__(256)
   for (int i = 0; i < kPer; ++i) dk[i] = dv[i] = 0.f;
 
   const int col = n0 + j16;  // this thread's key in the score grid
-  const int m_begin = first_row_for_keys(n0, p.causal) / kM * kM;
+  const int2 kr = seg ? p.seg.k_rows(bb)[col] : make_int2(0, 0);
+  const int m_begin = first_row_for_keys(n0, tri) / kM * kM;
   // Heads innermost, as the wgmma path.
   const int n_m = m_begin < p.sq ? (p.sq - m_begin + kM - 1) / kM : 0;
   for (int it = 0; it < group * n_m; ++it) {
@@ -532,7 +607,19 @@ __global__ void __launch_bounds__(256)
     const long long qs = p.st[kOpQ].s, dos = p.st[kOpDO].s;
     const float4* stats = p.stats + (size_t)bh * p.sq_pad;
     float* dq = p.dq_acc + (size_t)bh * p.sq * D;
+    int* turn = p.dq_turn + (size_t)bh * p.n16 + m0 / 16;
+    if (seg && p.seg.tile_class(bb, m0 / 64, n0 / 128) == kTileDead) {
+      // Nothing loaded or computed; the turn is taken and passed on.
+      if (threadIdx.x == 0) {
+        wait_turn(turn, dq_order(m0, kN, tri));
+        pass_turn(turn);
+      }
+      continue;
+    }
     __syncthreads();
+    if (seg && threadIdx.x < kM) {
+      qseg_s[threadIdx.x] = p.seg.q_rows(bb)[m0 + threadIdx.x];
+    }
     for (int i = threadIdx.x; i < kM * D; i += blockDim.x) {
       const int r = i / D, c = i % D;
       const bool in = m0 + r < p.sq;
@@ -552,7 +639,8 @@ __global__ void __launch_bounds__(256)
     if (row < p.sq) {
       const float4 st4 = stats[row];  // lse2 = +inf where lse = -inf
       di_row = st4.y;
-      if (key_visible(row, col, p.sk, p.causal)) {
+      if (seg ? seg_visible(qseg_s[i16], kr, p.causal)
+              : key_visible(row, col, p.sk, p.causal)) {
         pv = exp2f(sc * p.scale_log2 - st4.x);
       }
     }
@@ -587,8 +675,7 @@ __global__ void __launch_bounds__(256)
       dqa[i] = a;
     }
     // dQ on this block's turn for the slice.
-    int* turn = p.dq_turn + (size_t)bh * p.n16 + m0 / 16;
-    if (threadIdx.x == 0) wait_turn(turn, dq_order(m0, kN, p.causal));
+    if (threadIdx.x == 0) wait_turn(turn, dq_order(m0, kN, tri));
     __syncthreads();
     if (m0 + i16 < p.sq) {
 #pragma unroll
@@ -614,7 +701,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t st) {
   using L = BwdLayout<D>;
   CUtensorMap map_q, map_k, map_v, map_do;
@@ -630,7 +717,7 @@ cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t st) {
     err = make_tile_map(&map_v, p.v, b, p.h_kv, p.sk, D, p.st[kOpV], kBwdN);
   }
   if (err != cudaSuccess) return err;
-  const auto kernel = flash_bwd_wgmma_kernel<T, D>;
+  const auto kernel = flash_bwd_wgmma_kernel<T, D, kSeg>;
   // Once per kernel and process (the first launch, on the current device).
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
@@ -655,8 +742,10 @@ cudaError_t launch_typed(const BwdParams& p, const void* o, const float* lse,
     flash_bwd_f32_kernel<D>
         <<<dim3((p.sk + 15) / 16, p.h_kv, b), 256, 0, st>>>(p);
     err = cudaGetLastError();
+  } else if (p.seg.qsp != nullptr) {
+    err = launch_wgmma<T, D, true>(p, b, st);
   } else {
-    err = launch_wgmma<T, D>(p, b, st);
+    err = launch_wgmma<T, D, false>(p, b, st);
   }
   if (err != cudaSuccess) return err;
   const size_t n4 = (size_t)b * p.h * p.sq * D / 4;
@@ -689,12 +778,14 @@ cudaError_t launch(const BwdParams& p, const void* o, const float* lse,
 // (b, h, sq_pad, 4) with sq_pad = sq rounded up to 64, and (b, h, sq, d)
 // fp32 followed by (b, h, (sq + 15) / 16) int32 turn counters. dq_acc is
 // zeroed here, counters included, on the stream, every call. strides: (batch, head,
-// row) element strides of every Operand (csrc/common.cuh).
+// row) element strides of every Operand (csrc/common.cuh). seg_plan: the
+// tile plan of csrc/segments.cu for (b, sq, sk, causal), or nullptr.
 extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const void* lse, const void* dlse, void* stats,
                                void* dq_acc, void* dq, void* dk, void* dv,
-                               const long long* strides, int b, int h,
+                               const long long* strides,
+                               const void* seg_plan, int b, int h,
                                int h_kv, int sq, int sk, int d, float scale,
                                int causal, unsigned seed, unsigned threshold,
                                float rp, int dtype, void* stream) {
@@ -729,6 +820,7 @@ extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
               causal != 0,
               Dropout{seed, threshold, rp}};
   set_strides(p.st, strides);
+  p.seg = SegPlan::at(static_cast<const int*>(seg_plan), b, sq, sk);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(dlse);
   if (d == 64) return launch<64>(p, o, l, dl, dq, dtype, b, st);

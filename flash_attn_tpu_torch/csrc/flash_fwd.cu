@@ -16,6 +16,16 @@
 // masked here; d is 64 or 128. Rows with no visible key give out = 0 and
 // lse = -inf. The mask is csrc/mask.cuh, shared with the backward.
 //
+// Segments (flash_fwd.py:314-333 there; csrc/segments.cuh): with a tile
+// plan, query row i sees key j only when both carry the same non-negative
+// segment id and, under causal masking, i's position is at or after j's
+// (positions are per segment, so causal is top-left inside each segment).
+// The wgmma kernel walks only the key tiles its plan lists for its 128
+// rows: a tile with no visible pair is neither loaded nor computed, and a
+// full tile (one shared segment, fully past) skips the per-element test. A
+// block with no live key tile writes out = 0 and lse = -inf without loading
+// anything.
+//
 // Dropout (flash_fwd.py:363-377 there): the keep mask is the coordinate hash
 // of csrc/prng.cuh on (seed, b * h + head, row, col), its row half computed
 // once per row. The normalizer l sums the un-dropped p, dropped p is zeroed
@@ -47,6 +57,7 @@
 #include "mask.cuh"
 #include "mma.cuh"
 #include "prng.cuh"
+#include "segments.cuh"
 
 namespace fattn {
 namespace {
@@ -62,6 +73,7 @@ struct FwdParams {
   bool causal;
   Dropout drop;
   Strides st[kNumOps];  // q, k, v, o
+  SegPlan seg;          // qsp == nullptr: no segments
 };
 
 // ---------------------------------------------------------------- wgmma path
@@ -81,7 +93,7 @@ struct FwdLayout {
       2 * (kQ + 2 * kStages * kTile) + 12 * (kStages + 1) + 1024;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -102,174 +114,242 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = tile * kBlockM;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int hk = hh / (p.h / p.h_kv);
-  const int n_tiles =
-      (keys_for_rows(q0, kBlockM, p.sk, p.causal) + kBlockN - 1) / kBlockN;
-
-  // K and V tile j into ring stage j % kStages, by TMA.
-  auto load_kv = [&](int j) {
-    const int s = j % kStages;
-    mbar_arrive_expect_tx(&full[s], 2 * 2 * L::kTile);
-    for (int c = 0; c < D / 64; ++c) {
-      const int off = s * L::kTile + c * kBlockN * 64;
-      tma_load_4d(k_s + off, &map_k, &full[s], c * 64, j * kBlockN, hk, bb);
-      tma_load_4d(v_s + off, &map_v, &full[s], c * 64, j * kBlockN, hk, bb);
+  // The walk: key tiles 0.. up to the causal bound, or with segments the
+  // live key tiles of the plan's list for these rows.
+  const uint32_t* list = nullptr;
+  int n_tiles;
+  if constexpr (kSeg) {
+    const size_t t = (size_t)bb * p.seg.n_q128 + tile;
+    n_tiles = p.seg.fwd_n[t];
+    list = reinterpret_cast<const uint32_t*>(p.seg.fwd) + t * p.seg.n_k128;
+  } else {
+    n_tiles =
+        (keys_for_rows(q0, kBlockM, p.sk, p.causal) + kBlockN - 1) / kBlockN;
+  }
+  auto key0_of = [&](int j) -> int {
+    if constexpr (kSeg) {
+      return (int)(__ldg(list + j) & kTileIndex) * kBlockN;
+    } else {
+      return j * kBlockN;
     }
   };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      released[s] = 0u;
-    }
-    mbar_init(q_full, 1);
-    mbar_fence_init();
-    mbar_arrive_expect_tx(q_full, 2 * L::kQ);
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load_4d(q_s + c * kBlockM * 64, &map_q, q_full, c * 64, q0, hh, bb);
-    }
-    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
-  }
-  __syncthreads();
 
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int wg_row0 = q0 + wg * 64;
   const int row0 = wg_row0 + warp * 16 + g;  // this thread's rows: +0, +8
-  // Shared byte addresses: this warpgroup's rows of Q, the K and V rings.
-  const uint32_t q_base = smem_u32(q_s + wg * 64 * 64);
-  const uint32_t k_base = smem_u32(k_s), v_base = smem_u32(v_s);
 
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums, reduced at the end
-  uint32_t rh[2] = {0u, 0u};  // row halves of the dropout hash
-  if (p.drop.on()) {
-    const uint32_t bh = bb * p.h + hh;
-    rh[0] = hash_row(p.drop.seed, bh, row0);
-    rh[1] = hash_row(p.drop.seed, bh, row0 + 8);
-  }
 
-  // S = Q K_j^T: 64 rows x 128 keys; sc[4 nb + e] as in csrc/hopper.cuh.
-  float sc[kBlockN / 2];
-  auto issue_s = [&](int j) {
-    const int s = j % kStages;
-    mbar_wait(&full[s], (j / kStages) & 1);
-    const uint32_t qb = opaque(q_base);
-    const uint32_t kb = opaque(k_base) + s * L::kTile * 2;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // Column block kk / 4, 16-element (32-byte) step kk % 4 inside it.
-      const int c = kk / 4, step = (kk % 4) * 32;
-      Wgmma<T, kBlockN>::template ss<0, 0>(
-          sc, sw128_desc(qb + c * kBlockM * 128 + step, 16, 1024),
-          sw128_desc(kb + c * kBlockN * 128 + step, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
-  };
-
-  mbar_wait(q_full, 0);
-  issue_s(0);
-  if (wg == 1) named_barrier_arrive(3, 256);  // warpgroup 0 goes first
-  wgmma_wait<0>();
-  fence_regs(sc);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlockN;
-    // Only a tile crossing sk's edge or this warpgroup's causal diagonal
-    // tests elements.
-    if (k0 + kBlockN > p.sk || (p.causal && k0 + kBlockN - 1 > wg_row0)) {
-#pragma unroll
-      for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + nb * 8 + 2 * t + (e & 1);
-          if (!key_visible(row0 + 8 * (e >> 1), col, p.sk, p.causal)) {
-            sc[nb * 4 + e] = -INFINITY;
-          }
-        }
+  // A block with no live key tile (segments only) writes out = 0 and
+  // lse = -inf.
+  if (n_tiles > 0) {
+    // K and V tile j into ring stage j % kStages, by TMA.
+    auto load_kv = [&](int j) {
+      const int s = j % kStages;
+      const int kr = key0_of(j);
+      mbar_arrive_expect_tx(&full[s], 2 * 2 * L::kTile);
+      for (int c = 0; c < D / 64; ++c) {
+        const int off = s * L::kTile + c * kBlockN * 64;
+        tma_load_4d(k_s + off, &map_k, &full[s], c * 64, kr, hk, bb);
+        tma_load_4d(v_s + off, &map_v, &full[s], c * 64, kr, hk, bb);
       }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < kBlockN / 2; ++i) {
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    }
-    float base[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m[r], mx[r] * p.scale_log2);
-      // A row with nothing visible yet keeps m = -inf; exp2 against 0
-      // then gives p = 0 and alpha = 0 instead of NaN.
-      base[r] = mn == -INFINITY ? 0.f : mn;
-      alpha[r] = exp2f(m[r] - base[r]);
-      m[r] = mn;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kBlockN / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      sc[i] = fast_exp2(fmaf(sc[i], p.scale_log2, -base[r]));
-      rs[r] += sc[i];
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    if (p.drop.on()) {  // after l: the normalizer keeps the dropped p
-#pragma unroll
-      for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t col = k0 + nb * 8 + 2 * t + (e & 1);
-          if (!keep_elem(rh[e >> 1], col, p.drop.threshold)) {
-            sc[nb * 4 + e] = 0.f;
-          }
-        }
+    };
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(&full[s], 1);
+        released[s] = 0u;
       }
+      mbar_init(q_full, 1);
+      mbar_fence_init();
+      mbar_arrive_expect_tx(q_full, 2 * L::kQ);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(q_s + c * kBlockM * 64, &map_q, q_full, c * 64, q0, hh, bb);
+      }
+      for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
+    }
+    __syncthreads();
+
+    // Shared byte addresses: this warpgroup's rows of Q, the K and V rings.
+    const uint32_t q_base = smem_u32(q_s + wg * 64 * 64);
+    const uint32_t k_base = smem_u32(k_s), v_base = smem_u32(v_s);
+    // Segments: this thread's two rows' keys [lo, hi) in the interval
+    // form, else their (id, position).
+    int2 qr[2];
+    bool iv = false;
+    if constexpr (kSeg) {
+      iv = p.seg.interval_form(bb);
+      const int2* rows = iv ? p.seg.q_bounds(bb) : p.seg.q_rows(bb);
+      qr[0] = rows[row0];
+      qr[1] = rows[row0 + 8];
+    }
+    uint32_t rh[2] = {0u, 0u};  // row halves of the dropout hash
+    if (p.drop.on()) {
+      const uint32_t bh = bb * p.h + hh;
+      rh[0] = hash_row(p.drop.seed, bh, row0);
+      rh[1] = hash_row(p.drop.seed, bh, row0 + 8);
     }
 
-    // O += P V_j: the C fragments of two key n-blocks form one A fragment.
-    uint32_t pa[kBlockN / 16][4];
+    // S = Q K_j^T: 64 rows x 128 keys; sc[4 nb + e] as in csrc/hopper.cuh.
+    float sc[kBlockN / 2];
+    auto issue_s = [&](int j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const uint32_t qb = opaque(q_base);
+      const uint32_t kb = opaque(k_base) + s * L::kTile * 2;
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      pa[kk][0] = Mma<T>::pack(sc[8 * kk + 0], sc[8 * kk + 1]);
-      pa[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
-    fence_regs(o);
-    // The two warpgroups take turns on the tensor cores: while one issues
-    // its products, the other runs its softmax (barriers 3 and 4).
-    named_barrier(3 + wg, 256);
-    wgmma_fence();
-    const uint32_t vb = opaque(v_base) + (j % kStages) * L::kTile * 2;
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      Wgmma<T, D>::template rs<1>(
-          o, pa[kk], sw128_desc(vb + kk * 16 * 128, kBlockN * 128, 1024), 1);
-    }
-    wgmma_commit();
-    // S of the next tile queues behind P V (its accumulators are free: P
-    // lives in pa now), so the warpgroup waits once for both.
-    if (j + 1 < n_tiles) issue_s(j + 1);
-    // Hand the tensor cores to the other warpgroup; warpgroup 1's last turn
-    // has no successor (each barrier sees n_tiles syncs and arrivals).
-    if (wg == 0 || j + 1 < n_tiles) named_barrier_arrive(4 - wg, 256);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // Column block kk / 4, 16-element (32-byte) step kk % 4 inside it.
+        const int c = kk / 4, step = (kk % 4) * 32;
+        Wgmma<T, kBlockN>::template ss<0, 0>(
+            sc, sw128_desc(qb + c * kBlockM * 128 + step, 16, 1024),
+            sw128_desc(kb + c * kBlockN * 128 + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    mbar_wait(q_full, 0);
+    issue_s(0);
+    if (wg == 1) named_barrier_arrive(3, 256);  // warpgroup 0 goes first
     wgmma_wait<0>();
-    fence_regs(pa);  // read by P V until the wait: not reused for S
-    fence_regs(o);
     fence_regs(sc);
-    // Tile j's stage is free once both warpgroups are done with it.
-    named_barrier(1 + wg, 128);
-    if (tid == 0 && stage_released_by_both(&released[j % kStages]) &&
-        j + kStages < n_tiles) {
-      load_kv(j + kStages);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = key0_of(j);
+      if constexpr (kSeg) {
+        // The plan's class of this warpgroup's 64 rows against the tile: a
+        // dead one masks every element, a partial one tests each (two
+        // bounds per row in the interval form, else the pairs).
+        const int cls = (int)(__ldg(list + j) >> (28 + 2 * wg)) & 3;
+        if (cls == kTileDead) {
+#pragma unroll
+          for (int i = 0; i < kBlockN / 2; ++i) sc[i] = -INFINITY;
+        } else if (cls == kTilePartial && iv) {
+#pragma unroll
+          for (int nb = 0; nb < kBlockN / 8; ++nb) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k0 + nb * 8 + 2 * t + (e & 1);
+              if (col < qr[e >> 1].x || col >= qr[e >> 1].y) {
+                sc[nb * 4 + e] = -INFINITY;
+              }
+            }
+          }
+        } else if (cls == kTilePartial) {
+          const int2* kr = p.seg.k_rows(bb);
+#pragma unroll
+          for (int nb = 0; nb < kBlockN / 8; ++nb) {
+            const int4 kp = seg_pair(kr, k0 + nb * 8 + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int2 key = (e & 1) ? make_int2(kp.z, kp.w)
+                                       : make_int2(kp.x, kp.y);
+              if (!seg_visible(qr[e >> 1], key, p.causal)) {
+                sc[nb * 4 + e] = -INFINITY;
+              }
+            }
+          }
+        }
+      } else if (k0 + kBlockN > p.sk ||
+                 (p.causal && k0 + kBlockN - 1 > wg_row0)) {
+        // Only a tile crossing sk's edge or this warpgroup's causal diagonal
+        // tests elements.
+#pragma unroll
+        for (int nb = 0; nb < kBlockN / 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + nb * 8 + 2 * t + (e & 1);
+            if (!key_visible(row0 + 8 * (e >> 1), col, p.sk, p.causal)) {
+              sc[nb * 4 + e] = -INFINITY;
+            }
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kBlockN / 2; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      float base[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mn = fmaxf(m[r], mx[r] * p.scale_log2);
+        // A row with nothing visible yet keeps m = -inf; exp2 against 0
+        // then gives p = 0 and alpha = 0 instead of NaN.
+        base[r] = mn == -INFINITY ? 0.f : mn;
+        alpha[r] = exp2f(m[r] - base[r]);
+        m[r] = mn;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kBlockN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = fast_exp2(fmaf(sc[i], p.scale_log2, -base[r]));
+        rs[r] += sc[i];
+      }
+      l[0] = l[0] * alpha[0] + rs[0];
+      l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      if (p.drop.on()) {  // after l: the normalizer keeps the dropped p
+#pragma unroll
+        for (int nb = 0; nb < kBlockN / 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t col = k0 + nb * 8 + 2 * t + (e & 1);
+            if (!keep_elem(rh[e >> 1], col, p.drop.threshold)) {
+              sc[nb * 4 + e] = 0.f;
+            }
+          }
+        }
+      }
+
+      // O += P V_j: the C fragments of two key n-blocks form one A fragment.
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        pa[kk][0] = Mma<T>::pack(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      fence_regs(o);
+      // The two warpgroups take turns on the tensor cores: while one issues
+      // its products, the other runs its softmax (barriers 3 and 4).
+      named_barrier(3 + wg, 256);
+      wgmma_fence();
+      const uint32_t vb = opaque(v_base) + (j % kStages) * L::kTile * 2;
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        Wgmma<T, D>::template rs<1>(
+            o, pa[kk], sw128_desc(vb + kk * 16 * 128, kBlockN * 128, 1024), 1);
+      }
+      wgmma_commit();
+      // S of the next tile queues behind P V (its accumulators are free: P
+      // lives in pa now), so the warpgroup waits once for both.
+      if (j + 1 < n_tiles) issue_s(j + 1);
+      // Hand the tensor cores to the other warpgroup; warpgroup 1's last turn
+      // has no successor (each barrier sees n_tiles syncs and arrivals).
+      if (wg == 0 || j + 1 < n_tiles) named_barrier_arrive(4 - wg, 256);
+      wgmma_wait<0>();
+      fence_regs(pa);  // read by P V until the wait: not reused for S
+      fence_regs(o);
+      fence_regs(sc);
+      // Tile j's stage is free once both warpgroups are done with it.
+      named_barrier(1 + wg, 128);
+      if (tid == 0 && stage_released_by_both(&released[j % kStages]) &&
+          j + kStages < n_tiles) {
+        load_kv(j + kStages);
+      }
     }
-  }
+  }  // n_tiles > 0
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -300,6 +380,8 @@ constexpr int kF32Rows = 64;  // query rows per block
 
 // Four threads per query row; thread t4 owns dims t4, t4 + 4, ... of q and of
 // the accumulator, so a quad reads four consecutive floats of a K/V row.
+// With segments the block (one 64-row query tile of the plan) skips the
+// 128-key tiles its plan calls dead and tests every element of the rest.
 template <int D>
 __global__ void __launch_bounds__(256)
     flash_fwd_f32_kernel(const FwdParams p) {
@@ -307,6 +389,8 @@ __global__ void __launch_bounds__(256)
   constexpr int kPer = D / 4;
   __shared__ __align__(16) float k_s[kBlockK * D];
   __shared__ __align__(16) float v_s[kBlockK * D];
+  __shared__ int2 kseg_s[kBlockK];
+  const bool seg = p.seg.qsp != nullptr;
 
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int hk = hh / (p.h / p.h_kv);
@@ -331,10 +415,18 @@ __global__ void __launch_bounds__(256)
   float m = -INFINITY, l = 0.f;
   const uint32_t rh =
       p.drop.on() ? hash_row(p.drop.seed, bb * p.h + hh, row) : 0u;
+  const int2 qrow = seg ? p.seg.q_rows(bb)[row] : make_int2(0, 0);
 
-  const int n_keys = keys_for_rows(q0, kF32Rows, p.sk, p.causal);
+  const int n_keys =
+      seg ? p.sk : keys_for_rows(q0, kF32Rows, p.sk, p.causal);
   for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
+    if (seg && p.seg.tile_class(bb, blockIdx.x, k0 / 128) == kTileDead) {
+      continue;  // not loaded, not computed
+    }
     __syncthreads();
+    if (seg && threadIdx.x < kBlockK) {
+      kseg_s[threadIdx.x] = p.seg.k_rows(bb)[k0 + threadIdx.x];
+    }
     for (int i = threadIdx.x; i < kBlockK * D / 4; i += blockDim.x) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
@@ -357,8 +449,9 @@ __global__ void __launch_bounds__(256)
       a += __shfl_xor_sync(0xffffffffu, a, 1);
       a += __shfl_xor_sync(0xffffffffu, a, 2);
       const int col = k0 + j;
-      s[j] = key_visible(row, col, p.sk, p.causal) ? a * p.scale_log2
-                                                   : -INFINITY;
+      const bool vis = seg ? seg_visible(qrow, kseg_s[j], p.causal)
+                           : key_visible(row, col, p.sk, p.causal);
+      s[j] = vis ? a * p.scale_log2 : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float base = mx == -INFINITY ? 0.f : mx;
@@ -398,7 +491,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSeg>
 cudaError_t launch_wgmma(const FwdParams& p, int b, cudaStream_t st) {
   using L = FwdLayout<D>;
   CUtensorMap map_q, map_k, map_v;
@@ -411,7 +504,7 @@ cudaError_t launch_wgmma(const FwdParams& p, int b, cudaStream_t st) {
     err = make_tile_map(&map_v, p.v, b, p.h_kv, p.sk, D, p.st[kOpV], kBlockN);
   }
   if (err != cudaSuccess) return err;
-  const auto kernel = flash_fwd_wgmma_kernel<T, D>;
+  const auto kernel = flash_fwd_wgmma_kernel<T, D, kSeg>;
   // Once per kernel and process (the first launch, on the current device).
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
@@ -425,9 +518,12 @@ template <int D>
 cudaError_t launch(const FwdParams& p, int dtype, int b, cudaStream_t st) {
   switch (dtype) {
     case kBF16:
-      return launch_wgmma<__nv_bfloat16, D>(p, b, st);
+      return p.seg.qsp != nullptr
+                 ? launch_wgmma<__nv_bfloat16, D, true>(p, b, st)
+                 : launch_wgmma<__nv_bfloat16, D, false>(p, b, st);
     case kF16:
-      return launch_wgmma<__half, D>(p, b, st);
+      return p.seg.qsp != nullptr ? launch_wgmma<__half, D, true>(p, b, st)
+                                  : launch_wgmma<__half, D, false>(p, b, st);
     case kF32:
       flash_fwd_f32_kernel<D>
           <<<dim3((p.sq + kF32Rows - 1) / kF32Rows, p.h, b), 256, 0, st>>>(p);
@@ -441,13 +537,14 @@ cudaError_t launch(const FwdParams& p, int dtype, int b, cudaStream_t st) {
 }  // namespace fattn
 
 // strides: (batch, head, row) element strides of every Operand
-// (csrc/common.cuh); q, k, v and o are read here.
+// (csrc/common.cuh); q, k, v and o are read here. seg_plan: the tile plan
+// of csrc/segments.cu for (b, sq, sk, causal), or nullptr (no segments).
 extern "C" int fattn_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, const long long* strides,
-                               int b, int h, int h_kv, int sq, int sk, int d,
-                               float scale, int causal, unsigned seed,
-                               unsigned threshold, float rp, int dtype,
-                               void* stream) {
+                               const void* seg_plan, int b, int h, int h_kv,
+                               int sq, int sk, int d, float scale, int causal,
+                               unsigned seed, unsigned threshold, float rp,
+                               int dtype, void* stream) {
   using namespace fattn;
   if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || sq <= 0 || sk <= 0 ||
       !(scale > 0.f)) {
@@ -457,6 +554,7 @@ extern "C" int fattn_flash_fwd(const void* q, const void* k, const void* v,
               h,  h_kv, sq, sk, scale * kLog2e,
               causal != 0, Dropout{seed, threshold, rp}};
   set_strides(p.st, strides);
+  p.seg = SegPlan::at(static_cast<const int*>(seg_plan), b, sq, sk);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(p, dtype, b, st);
   if (d == 128) return launch<128>(p, dtype, b, st);

@@ -7,11 +7,23 @@
 // also when sq != sk, as in the JAX package; keys past sk are never visible.
 #pragma once
 
+#include <cuda_runtime.h>
+
 namespace fattn {
 
 __device__ __forceinline__ bool key_visible(int row, int col, int sk,
                                             bool causal) {
   return col < sk && (!causal || col <= row);
+}
+
+// Segment form (flash_fwd.py:326-333 and flash_bwd.py:75-84 there): key k
+// is visible from query q iff both carry the same non-negative segment id
+// and, under causal masking, the query's position is not before the key's.
+// x is the segment id, y the position (per segment, so causal is top-left
+// inside each segment); rows and keys out of bounds carry id -1. K1 and K2
+// walk only the tiles their plan calls live (csrc/segments.cuh).
+__device__ __forceinline__ bool seg_visible(int2 q, int2 k, bool causal) {
+  return q.x >= 0 && q.x == k.x && (!causal || q.y >= k.y);
 }
 
 // Keys a query tile [q0, q0 + block_q) can see at all: the loop bound of the

@@ -40,12 +40,17 @@ _L = ctypes.c_longlong
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, strides, b, h, h_kv, sq, sk, d, scale, causal,
-    # seed, threshold, rp, dtype, stream
-    "fattn_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
-    # q, k, v, o, dout, lse, dlse, stats, dq_acc, dq, dk, dv, strides, b, h,
-    # h_kv, sq, sk, d, scale, causal, seed, threshold, rp, dtype, stream
-    "fattn_flash_bwd": [_P] * 13 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
+    # q, k, v, o, lse, strides, seg_plan, b, h, h_kv, sq, sk, d, scale,
+    # causal, seed, threshold, rp, dtype, stream
+    "fattn_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
+    # q, k, v, o, dout, lse, dlse, stats, dq_acc, dq, dk, dv, strides,
+    # seg_plan, b, h, h_kv, sq, sk, d, scale, causal, seed, threshold, rp,
+    # dtype, stream
+    "fattn_flash_bwd": [_P] * 14 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
+    # q_seg, kv_seg, q_pos, kv_pos, plan, b, sq, sk, causal, stream
+    "fattn_seg_plan": [_P] * 5 + [_I] * 4 + [_P],
+    # b, sq, sk -> int32 words of the plan (long long)
+    "fattn_seg_plan_words": [_I] * 3,
     # q, q_sb, q_sh, k_pages, v_pages, lengths, page_table, out, partials,
     # new_k, new_v, new rows' strides of batch and head, b, h_kv, group,
     # num_pages, page_size, pages_max, n_splits, split_keys, d, scale,
@@ -97,6 +102,8 @@ _SIGNATURES = {
     "fattn_blocksparse_dq_smem": [_I],
 }
 
+# Return types other than the error code (int).
+_RESTYPES = {"fattn_seg_plan_words": ctypes.c_longlong}
 _lib: ctypes.CDLL | None = None
 
 
@@ -184,7 +191,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         loaded.fattn_error_string.argtypes = [ctypes.c_int]
         loaded.fattn_error_string.restype = ctypes.c_char_p
         _lib = loaded

@@ -21,6 +21,7 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -224,3 +225,259 @@ def strides_arg(**operands):
         x = operands.get(name)
         flat += [0, 0, 0] if x is None else list(x.stride()[:3])
     return (ctypes.c_longlong * len(flat))(*flat)
+
+
+# ------------------------------------------------------------- segments
+#
+# The segment (varlen) form of K1 and K2 (csrc/segments.cuh). Visibility:
+# query row i sees key j iff both carry the same non-negative segment id
+# and, under causal masking, i's position is at or after j's
+# (flash_attn_tpu/kernels/flash_fwd.py:326-333). On the card a pre-pass
+# (csrc/segments.cu) turns the ids and positions into a tile plan: a class
+# per (64-row query tile, 128-key tile) pair, K2's dQ ranks over the live
+# pairs, the lists of live tiles the kernels walk, and, for layouts in
+# interval form (padded batches, packed sequences), each token's interval
+# of visible tokens on the other side.
+
+SEG_Q_TILE, SEG_K_TILE = 64, 128  # the plan's query and key tiles
+TILE_DEAD, TILE_PARTIAL, TILE_FULL = 0, 1, 2
+
+
+@dataclasses.dataclass
+class Segments:
+    """Segment ids and per-segment positions of one attention call, each
+    (b, s) int32 contiguous on the tensors' device; ``plan`` is the card's
+    tile plan (``segment_plan``), made once per call and shared by the
+    forward and the backward."""
+
+    q_seg: torch.Tensor
+    kv_seg: torch.Tensor
+    q_pos: torch.Tensor
+    kv_pos: torch.Tensor
+    plan: torch.Tensor | None = None
+
+
+def segment_mask(seg: Segments, causal: bool) -> torch.Tensor:
+    """(b, 1, sq, sk) bool, True = visible: the plain form of the kernels'
+    ``seg_visible``."""
+    qs, ks = seg.q_seg[:, :, None], seg.kv_seg[:, None, :]
+    mask = (qs == ks) & (qs >= 0)
+    if causal:
+        mask = mask & (seg.q_pos[:, :, None] >= seg.kv_pos[:, None, :])
+    return mask[:, None]
+
+
+def classify_segment_block(qp, kp, qs, ks, *, causal: bool,
+                           bounds_possible: bool):
+    """(live, uniform) of one block from its position and segment-id
+    vectors, as ``flash_attn_tpu/kernels/common.py:205``
+    ``classify_segment_block`` (window terms: ROADMAP port item M4).
+    ``live`` False: every pair is causally masked; ``uniform`` True: the
+    block is provably mask-free. The card's plan (``segment_plan``) makes
+    the same decision per tile pair over valid rows only, and also calls
+    dead the pairs whose segment ranges do not meet."""
+    live = torch.tensor(True)
+    if causal:
+        live = qp.max() >= kp.min()
+    seg_lo = torch.minimum(qs.min(), ks.min())
+    seg_hi = torch.maximum(qs.max(), ks.max())
+    uniform = (seg_lo == seg_hi) & (seg_lo >= 0)
+    if bounds_possible:
+        uniform = torch.tensor(False)
+    if causal:
+        uniform = uniform & (qp.min() >= kp.max())
+    return live, uniform
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def plan_layout(b: int, sq: int, sk: int) -> dict:
+    """{section: (offset, shape)} of the plan's int32 words
+    (csrc/segments.cuh SegPlanT::at), and "words": the total."""
+    n_q64, n_q128 = -(-sq // 64), -(-sq // 128)
+    n_k128 = -(-sk // 128)
+    shapes = {"qsp": (b, n_q128 * 128, 2), "ksp": (b, n_k128 * 128, 2),
+              "qsum": (b, n_q64, 8), "ksum": (b, n_k128, 8),
+              "cls": (b, n_q64, n_k128), "fwd_n": (b, n_q128),
+              "fwd": (b, n_q128, n_k128), "bwd_n": (b, n_k128),
+              "bwd": (b, n_k128, n_q64, 2), "ivf": (b,),
+              "qiv": (b, n_q128 * 128, 2), "kiv": (b, n_k128 * 128, 2)}
+    out, off = {}, 0
+    for name, shape in shapes.items():
+        out[name] = (off, shape)
+        off += _round4(math.prod(shape))
+    out["words"] = off
+    return out
+
+
+def plan_sections(plan: torch.Tensor, b: int, sq: int, sk: int) -> dict:
+    """Views of each section of a plan buffer."""
+    layout = plan_layout(b, sq, sk)
+    del layout["words"]
+    return {name: plan[off:off + math.prod(shape)].view(shape)
+            for name, (off, shape) in layout.items()}
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 words as the int32 bit patterns the card writes."""
+    return (((x & 0xFFFFFFFF) + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def _tile_sums(rows: torch.Tensor, tile: int) -> torch.Tensor:
+    """Per-tile (seg min, seg max, pos min, pos max, pure, 0, 0, 0) over
+    the valid rows of (b, n * tile, 2) (id, position) pairs."""
+    b = rows.shape[0]
+    r = rows.reshape(b, -1, tile, 2).long()
+    valid = r[..., 0] >= 0
+    big, small = 2 ** 31 - 1, -2 ** 31
+    seg_min = torch.where(valid, r[..., 0], big).amin(-1)
+    seg_max = torch.where(valid, r[..., 0], small).amax(-1)
+    pos_min = torch.where(valid, r[..., 1], big).amin(-1)
+    pos_max = torch.where(valid, r[..., 1], small).amax(-1)
+    pure = valid.all(-1) & (seg_min == seg_max)
+    zero = torch.zeros_like(seg_min)
+    return torch.stack([seg_min, seg_max, pos_min, pos_max, pure.long(),
+                        zero, zero, zero], dim=-1)
+
+
+def _compact(live: torch.Tensor, entries: torch.Tensor):
+    """Entries where ``live``, in order, to the front of the last axis (the
+    rest: zeros), and the count per list."""
+    order = torch.argsort((~live).to(torch.int8), dim=-1, stable=True)
+    idx = order.view(*order.shape, *([1] * (entries.dim() - live.dim())))
+    picked = torch.gather(entries, live.dim() - 1,
+                          idx.expand(*order.shape, *entries.shape[
+                              live.dim():]))
+    n = live.sum(-1)
+    keep = torch.arange(live.shape[-1], device=live.device) < n[..., None]
+    keep = keep.view(*keep.shape, *([1] * (entries.dim() - live.dim())))
+    return torch.where(keep, picked, 0), n
+
+
+def _interval_form(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """(b,) True where rows (b, >= n, 2) of (id, position) are in the
+    interval form of csrc/segments.cuh: padding only after the valid
+    tokens, runs of increasing id, positions 0, 1, ... inside each run."""
+    seg, pos = rows[:, :n, 0], rows[:, :n, 1]
+    valid = seg >= 0
+    first = ~valid[:, :1] | (pos[:, :1] == 0)
+    prev_seg, prev_pos, cur_seg, cur_pos = (seg[:, :-1], pos[:, :-1],
+                                            seg[:, 1:], pos[:, 1:])
+    step = torch.where(prev_seg == cur_seg, cur_pos == prev_pos + 1,
+                       (cur_seg > prev_seg) & (cur_pos == 0))
+    rest = ~valid[:, 1:] | ((prev_seg >= 0) & step)
+    return first.all(1) & rest.all(1)
+
+
+def _intervals(mine, other, n_other, causal: bool, is_query: bool):
+    """Per token of ``mine`` (b, m, 2) its interval on the other side: the
+    run of its id among the other side's first ``n_other`` (b,) tokens,
+    cut by causality (a query's keys up to the run's start + its position;
+    a key's queries from there); (0, 0) where empty."""
+    out = torch.zeros_like(mine)
+    for bb in range(mine.shape[0]):
+        ids = other[bb, :int(n_other[bb]), 0].contiguous()
+        s = mine[bb, :, 0].contiguous()
+        lo = torch.searchsorted(ids, s, right=False)
+        hi = torch.searchsorted(ids, s, right=True)
+        if causal and is_query:
+            hi = torch.minimum(hi, lo + mine[bb, :, 1] + 1)
+        elif causal:
+            lo = lo + mine[bb, :, 1]
+        keep = (s >= 0) & (hi > lo)
+        out[bb, :, 0] = torch.where(keep, lo, 0)
+        out[bb, :, 1] = torch.where(keep, hi, 0)
+    return out
+
+
+def segment_plan_plain(seg: Segments, causal: bool) -> dict:
+    """The plan's sections (``plan_sections``) in plain torch, as the
+    pre-pass of csrc/segments.cu writes them; list tails past their counts
+    are zeros here (the card leaves them unwritten)."""
+    b, sq = seg.q_seg.shape
+    sk = seg.kv_seg.shape[1]
+    lay = plan_layout(b, sq, sk)
+    dev = seg.q_seg.device
+
+    def rows(ids, pos, n):
+        out = torch.zeros((b, n, 2), dtype=torch.int64, device=dev)
+        out[..., 0] = -1
+        out[:, :ids.shape[1], 0] = ids
+        out[:, :ids.shape[1], 1] = pos
+        return out
+
+    qsp = rows(seg.q_seg, seg.q_pos, lay["qsp"][1][1])
+    ksp = rows(seg.kv_seg, seg.kv_pos, lay["ksp"][1][1])
+    n_q64 = lay["qsum"][1][1]
+    qsum = _tile_sums(qsp[:, :n_q64 * 64], SEG_Q_TILE)
+    ksum = _tile_sums(ksp, SEG_K_TILE)
+    q, k = qsum[:, :, None], ksum[:, None, :]
+    empty = (q[..., 0] > q[..., 1]) | (k[..., 0] > k[..., 1])
+    apart = (q[..., 1] < k[..., 0]) | (k[..., 1] < q[..., 0])
+    dead = empty | apart
+    if causal:
+        dead = dead | (q[..., 3] < k[..., 2])
+    full = (q[..., 4] == 1) & (k[..., 4] == 1) & (q[..., 0] == k[..., 0])
+    if causal:
+        full = full & (q[..., 2] >= k[..., 3])
+    cls = torch.where(dead, TILE_DEAD, torch.where(full, TILE_FULL,
+                                                   TILE_PARTIAL))
+    # dQ ranks over the live pairs, in K2's launch order of key tiles (the
+    # last first).
+    n_k = cls.shape[2]
+    order = torch.arange(n_k, device=dev).flip(0)
+    live_o = (cls[:, :, order] != TILE_DEAD).long()
+    rank = torch.empty_like(live_o)
+    rank[:, :, order] = live_o.cumsum(-1) - live_o
+    words = cls | (rank << 2)
+    # K1: per 128-row query tile, its live key tiles.
+    n_q128 = lay["fwd_n"][1][1]
+    c = torch.zeros((b, 2 * n_q128, n_k), dtype=torch.int64, device=dev)
+    c[:, :n_q64] = cls
+    c0, c1 = c[:, 0::2], c[:, 1::2]
+    kt = torch.arange(n_k, device=dev).expand_as(c0)
+    fwd, fwd_n = _compact((c0 | c1) != TILE_DEAD, kt | (c0 << 28) | (c1 << 30))
+    # K2: per key tile, its live query tiles and their ranks.
+    cls_t, rank_t = cls.transpose(1, 2), rank.transpose(1, 2)
+    qt = torch.arange(n_q64, device=dev).expand_as(cls_t)
+    bwd, bwd_n = _compact(cls_t != TILE_DEAD, torch.stack(
+        [qt | (cls_t << 30), rank_t], dim=-1))
+    # The interval form and its bounds.
+    form = _interval_form(qsp, sq) & _interval_form(ksp, sk)
+    n_q, n_kv = (qsp[..., 0] >= 0).sum(1), (ksp[..., 0] >= 0).sum(1)
+    keep = form[:, None, None]
+    qiv = torch.where(keep, _intervals(qsp, ksp, n_kv, causal, True), 0)
+    kiv = torch.where(keep, _intervals(ksp, qsp, n_q, causal, False), 0)
+    return {"qsp": _int32(qsp), "ksp": _int32(ksp), "qsum": _int32(qsum),
+            "ksum": _int32(ksum), "cls": _int32(words),
+            "fwd_n": _int32(fwd_n), "fwd": _int32(fwd),
+            "bwd_n": _int32(bwd_n), "bwd": _int32(bwd),
+            "ivf": _int32(form.long()), "qiv": _int32(qiv),
+            "kiv": _int32(kiv)}
+
+
+def segment_plan(seg: Segments, causal: bool) -> torch.Tensor:
+    """The card's tile plan for ``seg`` (one launch of csrc/segments.cu),
+    stored in ``seg.plan`` and returned. CUDA tensors only."""
+    from flash_attn_tpu_torch.kernels import _build
+
+    b, sq = seg.q_seg.shape
+    sk = seg.kv_seg.shape[1]
+    _build.require_cuda("segment_plan", seg.q_seg, seg.kv_seg, seg.q_pos,
+                        seg.kv_pos)
+    lib = _build.lib()
+    plan = torch.empty(lib.fattn_seg_plan_words(b, sq, sk),
+                       dtype=torch.int32, device=seg.q_seg.device)
+    code = lib.fattn_seg_plan(
+        seg.q_seg.data_ptr(), seg.kv_seg.data_ptr(), seg.q_pos.data_ptr(),
+        seg.kv_pos.data_ptr(), plan.data_ptr(), b, sq, sk, int(causal),
+        _build.stream_ptr(plan.device))
+    segment_plan.launches += 1
+    _build.check(code, "fattn_seg_plan")
+    seg.plan = plan
+    return plan
+
+
+segment_plan.launches = 0

@@ -24,6 +24,7 @@ import torch
 
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.common import (
+    Segments,
     check_rows,
     empty_rows,
     strides_arg,
@@ -33,25 +34,29 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     compute_dtype,
     dropout_args,
     keep_plain,
+    plan_arg,
     scores_plain,
 )
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
                         softmax_scale: float, dropout_p: float = 0.0,
-                        seed=None, dlse=None):
+                        seed=None, dlse=None,
+                        segments: Segments | None = None):
     """Gradients of attention. A CPU tensor takes the plain twin; a CUDA
     tensor launches the kernel or raises. Layout as the forward kernel's:
     q, out, dout (b, h, sq, d); k, v (b, h_kv, sk, d); lse, dlse (b, h, sq)
-    fp32 contiguous."""
+    fp32 contiguous. ``segments``: the forward's (its tile plan is reused
+    when it has one)."""
     seed_u32, threshold, rp = dropout_args(dropout_p, seed)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, out, dout, lse, causal=causal,
             softmax_scale=softmax_scale, dropout_p=dropout_p, seed=seed,
-            dlse=dlse,
+            dlse=dlse, segments=segments,
         )
     check_kernel_inputs("flash_attention_bwd", q, k, v, softmax_scale)
+    plan = plan_arg("flash_attention_bwd", segments, q, k, causal)
     b, h, sq, d = q.shape
     _, h_kv, sk, _ = k.shape
     if out.shape != q.shape or dout.shape != q.shape \
@@ -84,7 +89,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
         stats.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(),
         strides_arg(q=q, k=k, v=v, o=out, dout=dout, dk=dk, dv=dv, dq=dq),
-        b, h, h_kv, sq, sk, d, float(softmax_scale),
+        plan.data_ptr() if plan is not None else None, b, h, h_kv, sq, sk, d, float(softmax_scale),
         int(causal), seed_u32, threshold, rp,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device),
     )
@@ -98,17 +103,19 @@ flash_attention_bwd.launches = 0
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool,
                               softmax_scale: float, dropout_p: float = 0.0,
-                              seed=None, dlse=None):
+                              seed=None, dlse=None,
+                              segments: Segments | None = None):
     """Plain-torch twin of the kernel, in fp32 (fp64 for fp64 inputs):
-    p = exp(s - lse) (0 where masked or where lse = -inf), dV from the
-    dropped p, dS = p * (dP - di) from the pre-dropout p, GQA groups summed
-    to the kv heads."""
+    p = exp(s - lse) (0 where masked, by causality or segments, or where
+    lse = -inf), dV from the dropped p, dS = p * (dP - di) from the
+    pre-dropout p, GQA groups summed to the kv heads."""
     _, _, rp = dropout_args(dropout_p, seed)
     ct = compute_dtype(q)
     b, h, sq, d = q.shape
     h_kv, sk = k.shape[1], k.shape[2]
     group = h // h_kv
-    s = scores_plain(q, k, causal=causal, softmax_scale=softmax_scale)
+    s = scores_plain(q, k, causal=causal, softmax_scale=softmax_scale,
+                     segments=segments)
     lse = lse.to(ct)
     p = torch.exp(s - lse[..., None])
     p = torch.where(torch.isneginf(s) | torch.isneginf(lse)[..., None], 0.0, p)

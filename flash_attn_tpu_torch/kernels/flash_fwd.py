@@ -12,6 +12,14 @@ place); returns out (b, h, sq, d) in the q dtype (on the card a view of
 give out = 0 and lse = -inf. With ``dropout_p > 0`` the attention weights
 are dropped by the coordinate hash of ``kernels/prng.py`` keyed on
 ``seed``; the lse stays that of the un-dropped scores.
+
+``segments`` (``kernels/common.py`` ``Segments``) gives the segment form
+(``_fwd_kernel``'s ``has_segments`` branch there): query i sees key j only
+within one non-negative segment id and, under causal masking, where i's
+position is at or after j's (causal is top-left inside each segment). On
+the card the kernel walks the tile plan of ``segment_plan``: key tiles
+with no visible pair are never loaded. The dropout hash keeps the padded
+(b, h, row, col) coordinates.
 """
 
 from __future__ import annotations
@@ -22,12 +30,18 @@ import torch
 
 from flash_attn_tpu_torch.kernels import _build, prng
 from flash_attn_tpu_torch.kernels.common import (
+    Segments,
     check_rows,
     empty_rows,
+    segment_mask,
+    segment_plan,
     strides_arg,
 )
 
 HEAD_DIMS = (64, 128)
+# The bf16/fp16 kernel's tile: query rows per block, keys per K/V tile
+# (csrc/flash_fwd.cu kBlockM, kBlockN).
+BLOCK_M, BLOCK_N = 128, 128
 
 
 def dropout_args(dropout_p: float, seed) -> tuple[int, int, float]:
@@ -62,8 +76,25 @@ def check_kernel_inputs(name, q, k, v, softmax_scale):
     check_rows(name, q, k, v)
 
 
+def plan_arg(name, segments: Segments | None, q, k, causal: bool):
+    """The card's tile plan of ``segments`` (made here if the caller has
+    none), checked against the call's shapes; None without segments."""
+    if segments is None:
+        return None
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
+    for x, s in ((segments.q_seg, sq), (segments.q_pos, sq),
+                 (segments.kv_seg, sk), (segments.kv_pos, sk)):
+        if x.shape != (b, s) or x.dtype != torch.int32:
+            raise ValueError(f"{name}: segment ids/positions {x.dtype} "
+                             f"{tuple(x.shape)}, need int32 {(b, s)}")
+    if segments.plan is None:
+        segment_plan(segments, causal)
+    return segments.plan
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool, softmax_scale: float,
-                        save_lse: bool, dropout_p: float = 0.0, seed=None):
+                        save_lse: bool, dropout_p: float = 0.0, seed=None,
+                        segments: Segments | None = None):
     """Forward attention. A CPU tensor takes the plain twin; a CUDA tensor
     launches the kernel or raises. Returns ``(out, lse)``; ``lse`` is None
     unless ``save_lse``."""
@@ -72,8 +103,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool, softmax_scale: float,
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
             save_lse=save_lse, dropout_p=dropout_p, seed=seed,
+            segments=segments,
         )
     check_kernel_inputs("flash_attention_fwd", q, k, v, softmax_scale)
+    plan = plan_arg("flash_attention_fwd", segments, q, k, causal)
     b, h, sq, d = q.shape
     _, h_kv, sk, _ = k.shape
     out = empty_rows(b, h, sq, q)
@@ -82,7 +115,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool, softmax_scale: float,
     code = _build.lib().fattn_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        strides_arg(q=q, k=k, v=v, o=out), b, h, h_kv, sq, sk, d, float(softmax_scale), int(causal),
+        strides_arg(q=q, k=k, v=v, o=out),
+        plan.data_ptr() if plan is not None else None,
+        b, h, h_kv, sq, sk, d, float(softmax_scale), int(causal),
         seed_u32, threshold, rp,
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device),
     )
@@ -100,13 +135,17 @@ def compute_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def scores_plain(q, k, *, causal: bool, softmax_scale: float):
+def scores_plain(q, k, *, causal: bool, softmax_scale: float,
+                 segments: Segments | None = None):
     """Scaled scores (b, h, sq, sk) with GQA by repeated kv heads and the
-    top-left causal mask as -inf, in the compute dtype."""
+    top-left causal mask (or the segment mask) as -inf, in the compute
+    dtype."""
     ct = compute_dtype(q)
     kf = k.to(ct).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * softmax_scale
-    if causal:
+    if segments is not None:
+        s = s.masked_fill(~segment_mask(segments, causal), -math.inf)
+    elif causal:
         sq, sk = q.shape[2], k.shape[2]
         visible = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~visible, -math.inf)
@@ -122,13 +161,14 @@ def keep_plain(q, k, dropout_p: float, seed):
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool, softmax_scale: float,
                               save_lse: bool, dropout_p: float = 0.0,
-                              seed=None):
-    """Plain-torch twin of the kernel: fp32 scores, top-left causal mask,
-    GQA by repeating kv heads, out = 0 and lse = -inf on empty rows,
-    dropout after the softmax rescaled by 1 / (1 - p)."""
+                              seed=None, segments: Segments | None = None):
+    """Plain-torch twin of the kernel: fp32 scores, top-left causal mask
+    (or the segment mask), GQA by repeating kv heads, out = 0 and lse =
+    -inf on empty rows, dropout after the softmax rescaled by 1 / (1 - p)."""
     _, _, rp = dropout_args(dropout_p, seed)
     ct = compute_dtype(q)
-    s = scores_plain(q, k, causal=causal, softmax_scale=softmax_scale)
+    s = scores_plain(q, k, causal=causal, softmax_scale=softmax_scale,
+                     segments=segments)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None]).nan_to_num(0.0)  # empty rows: 0
     if dropout_p > 0.0:

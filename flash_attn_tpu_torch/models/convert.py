@@ -1,5 +1,5 @@
-"""Load a flax GPT-2 or Llama parameter tree into the port's
-``GPT2LMHeadModel`` or ``LlamaForCausalLM``.
+"""Load a flax GPT-2, Llama or BERT parameter tree into the port's
+``GPT2LMHeadModel``, ``LlamaForCausalLM`` or ``BertForMaskedLM``.
 
 The tree comes in as numpy arrays (the caller runs
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module imports no
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flash_attn_tpu_torch.models.bert import BertConfig, BertForMaskedLM
 from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -86,6 +87,40 @@ def llama_from_jax_params(params, cfg: LlamaConfig, device="cuda"
             for name in ("gate_proj", "up_proj", "down_proj"):
                 put(getattr(block.mlp, name).weight,
                     tree["mlp"][name]["kernel"], transpose=True)
+    return model
+
+
+def bert_from_jax_params(params, cfg: BertConfig, device="cuda"
+                         ) -> BertForMaskedLM:
+    """``params``: the flax tree of ``flash_attn_tpu.models.bert
+    .BertForMaskedLM`` as numpy arrays (``bert/{embeddings, layer_{i},
+    pooler}``, ``transform``, ``transform_ln``, ``decoder``). Returns the
+    port's model on ``device``, parameters in ``cfg.param_dtype``."""
+    p = params.get("params", params)
+    model = BertForMaskedLM(cfg, device=device,
+                            generator=torch.Generator().manual_seed(0))
+
+    def norm(ln, tree):
+        put(ln.weight, tree["scale"])
+        put(ln.bias, tree["bias"])
+
+    with torch.no_grad():
+        emb, tree = model.bert.embeddings, p["bert"]["embeddings"]
+        for name in ("word_embeddings", "position_embeddings",
+                     "token_type_embeddings"):
+            put(getattr(emb, name).weight, tree[name]["embedding"])
+        norm(emb.LayerNorm, tree["LayerNorm"])
+        for i, layer in enumerate(model.bert.layers()):
+            tree = p["bert"][f"layer_{i}"]
+            mha_from_jax_params(tree["attention"], layer.attention)
+            norm(layer.attention_ln, tree["attention_ln"])
+            dense(layer.intermediate, tree["intermediate"])
+            dense(layer.output, tree["output"])
+            norm(layer.output_ln, tree["output_ln"])
+        dense(model.bert.pooler, p["bert"]["pooler"])
+        dense(model.transform, p["transform"])
+        norm(model.transform_ln, p["transform_ln"])
+        dense(model.decoder, p["decoder"])
     return model
 
 

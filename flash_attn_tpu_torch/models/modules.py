@@ -1,15 +1,28 @@
 """Attention modules (port of ``flash_attn_tpu/models/modules.py``).
 
-``FlashAttention`` is the inner attention over packed qkv in the padded
-``(b, s, 3, h, d)`` mode; ``FlashMHA`` is fused ``Wqkv`` -> flash attention
--> ``out_proj``, with the submodules named as in the flax tree. Dropout
-takes its seed from an explicit ``torch.Generator`` passed to ``forward``
-(the counterpart of ``_seed_from_rng_key``): one uint32 per call, keyed into
-the kernels' coordinate hash, so nothing else is saved for the backward.
+``FlashAttention`` is the inner attention over packed qkv, in the three
+input modes of the reference module (flash_attention.py:27-72 there):
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``key_padding_mask`` (segments) and window, ALiBi and softcap (P2);
-``cu_seqlens`` (the varlen interface) and rotary embeddings (P6).
+  - padded ``(b, s, 3, h, d)``, no mask: K1/K2 directly;
+  - padded with ``key_padding_mask`` (b, s): the batch stays padded and the
+    kernels mask padding by segment ids (``ops/packing.py``
+    ``make_segment_ids_from_mask``: each row segment 0, padding -1), as the
+    JAX module does. Not unpad -> varlen -> pad: the dropout hash is keyed
+    on the padded (b * h + head, row, col) coordinates, which packing would
+    change, so the masks would no longer match JAX's bit for bit;
+  - packed ``(nnz, 3, h, d)`` with ``cu_seqlens``: the varlen interface
+    (``ops/interface.py``), which hashes the packed super-sequence's
+    coordinates.
+
+``FlashMHA`` is fused ``Wqkv`` -> optional rotary ("1d" or "2d",
+``ops/rotary.py``) -> flash attention -> ``out_proj``, with the submodules
+named as in the flax tree. Dropout takes its seed from an explicit
+``torch.Generator`` passed to ``forward`` (the counterpart of
+``_seed_from_rng_key``): one uint32 per call, keyed into the kernels'
+coordinate hash, so nothing else is saved for the backward.
+
+Window, ALiBi and softcap raise ``NotImplementedError`` naming ROADMAP item
+M4.
 """
 
 from __future__ import annotations
@@ -19,6 +32,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from flash_attn_tpu_torch.ops.attention import flash_attention
+from flash_attn_tpu_torch.ops.interface import (
+    flash_attn_unpadded_qkvpacked_func,
+)
+from flash_attn_tpu_torch.ops.packing import make_segment_ids_from_mask
+from flash_attn_tpu_torch.ops.rotary import (
+    RotaryEmbedding,
+    RotaryEmbedding2D,
+)
 
 
 def draw_seeds(generator: torch.Generator, n: int) -> list[int]:
@@ -39,18 +60,16 @@ def linear(x, lin: nn.Linear, dtype):
 
 
 def _unported(**given):
-    items = {"key_padding_mask": "P2 (segments)", "window_size": "P2",
-             "use_alibi": "P2", "softcap": "P2",
-             "cu_seqlens": "P6 (varlen interface)",
-             "use_rotary_emb": "P6 (rotary)"}
     for name, value in given.items():
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{name}: ROADMAP port item {items[name]}")
+                f"{name}: ROADMAP port item M4 (window/ALiBi/softcap)")
 
 
 class FlashAttention(nn.Module):
-    """Inner scaled-dot-product attention over packed qkv (b, s, 3, h, d)."""
+    """Inner scaled-dot-product attention over packed qkv: (b, s, 3, h, d),
+    with an optional (b, s) ``key_padding_mask`` (True at real tokens), or
+    (nnz, 3, h, d) with ``cu_seqlens`` and ``max_s``."""
 
     def __init__(self, softmax_scale: float | None = None,
                  attention_dropout: float = 0.0, window_size=None,
@@ -64,27 +83,51 @@ class FlashAttention(nn.Module):
     def forward(self, qkv, key_padding_mask=None, causal: bool = False,
                 cu_seqlens=None, max_s=None, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        _unported(key_padding_mask=key_padding_mask, cu_seqlens=cu_seqlens)
+        if cu_seqlens is not None:
+            if qkv.dim() != 4 or qkv.shape[1] != 3:
+                raise ValueError(f"packed qkv must be (nnz, 3, h, d), got "
+                                 f"{tuple(qkv.shape)}")
+            if max_s is None:
+                raise ValueError("cu_seqlens requires max_s")
+            dropout_p, seed = self.dropout_args(deterministic, generator)
+            return flash_attn_unpadded_qkvpacked_func(
+                qkv, cu_seqlens, max_s, dropout_p,
+                softmax_scale=self.softmax_scale, causal=causal,
+                dropout_seed=seed)
         if qkv.dim() != 5 or qkv.shape[2] != 3:
             raise ValueError(f"padded qkv must be (b, s, 3, h, d), got "
                              f"{tuple(qkv.shape)}")
         return self.attend(*qkv.unbind(dim=2), causal=causal,
+                           key_padding_mask=key_padding_mask,
                            deterministic=deterministic, generator=generator)
 
-    def attend(self, q, k, v, *, causal: bool, deterministic: bool,
-               generator: torch.Generator | None):
-        """Attention over (b, s, h, d) q and (b, s, h_kv, d) k, v."""
+    def dropout_args(self, deterministic: bool, generator):
+        """(dropout_p, seed) of one call: a seed drawn from ``generator``
+        when dropout is on."""
         dropout_p = 0.0 if deterministic else self.attention_dropout
         seed = draw_seeds(generator, 1)[0] if dropout_p > 0.0 else None
+        return dropout_p, seed
+
+    def attend(self, q, k, v, *, causal: bool, deterministic: bool,
+               generator: torch.Generator | None, key_padding_mask=None):
+        """Attention over (b, s, h, d) q and (b, s, h_kv, d) k, v; padding
+        (``key_padding_mask`` False) masked by segment ids."""
+        dropout_p, seed = self.dropout_args(deterministic, generator)
+        seg = pos = None
+        if key_padding_mask is not None:
+            seg, pos = make_segment_ids_from_mask(key_padding_mask)
         return flash_attention(q, k, v, causal=causal,
                                softmax_scale=self.softmax_scale,
-                               dropout_p=dropout_p, dropout_seed=seed)
+                               dropout_p=dropout_p, dropout_seed=seed,
+                               q_segment_ids=seg, kv_segment_ids=seg,
+                               q_positions=pos, kv_positions=pos)
 
 
 class FlashMHA(nn.Module):
-    """Multi-head attention block: fused Wqkv -> flash attention ->
-    out_proj. With GQA (``num_kv_heads`` < ``num_heads``) the projection
-    splits as [hq * hd | hkv * hd | hkv * hd]. ``dtype`` is the compute
+    """Multi-head attention block: fused Wqkv -> optional rotary
+    (``use_rotary_emb`` "1d" or "2d") -> flash attention -> out_proj. With
+    GQA (``num_kv_heads`` < ``num_heads``) the projection splits as
+    [hq * hd | hkv * hd | hkv * hd]. ``dtype`` is the compute
     dtype (None: the promotion of the input's and the parameters'), and
     ``param_dtype`` the stored one. The parameters are made on the card
     unless ``device`` says otherwise."""
@@ -98,9 +141,10 @@ class FlashMHA(nn.Module):
                  use_alibi: bool = False, softcap: float | None = None,
                  device="cuda"):
         super().__init__()
-        _unported(use_rotary_emb=use_rotary_emb)
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
+        if use_rotary_emb not in (None, "1d", "2d"):
+            raise ValueError(f"use_rotary_emb: {use_rotary_emb}")
         kv_heads = num_kv_heads or num_heads
         if num_heads % kv_heads:
             raise ValueError(f"num_heads {num_heads} must be a multiple of "
@@ -108,6 +152,10 @@ class FlashMHA(nn.Module):
         self.embed_dim, self.num_heads, self.kv_heads = (
             embed_dim, num_heads, kv_heads)
         self.head_dim = embed_dim // num_heads
+        self.rotary_emb = {None: None, "1d": RotaryEmbedding,
+                           "2d": RotaryEmbedding2D}[use_rotary_emb]
+        if self.rotary_emb is not None:
+            self.rotary_emb = self.rotary_emb(self.head_dim)
         self.causal = causal
         self.dtype = dtype
         factory = dict(device=device, dtype=param_dtype)
@@ -121,7 +169,6 @@ class FlashMHA(nn.Module):
 
     def forward(self, x, key_padding_mask=None, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        _unported(key_padding_mask=key_padding_mask)
         b, s, _ = x.shape
         hq, hkv, hd = self.num_heads, self.kv_heads, self.head_dim
         dtype = self.dtype if self.dtype is not None else \
@@ -133,7 +180,10 @@ class FlashMHA(nn.Module):
             q = qkv[..., : hq * hd].reshape(b, s, hq, hd)
             k = qkv[..., hq * hd: (hq + hkv) * hd].reshape(b, s, hkv, hd)
             v = qkv[..., (hq + hkv) * hd:].reshape(b, s, hkv, hd)
+        if self.rotary_emb is not None:
+            q, k = self.rotary_emb(q, k, seq_dimension=-3)
         ctx = self.inner_attn.attend(q, k, v, causal=self.causal,
+                                     key_padding_mask=key_padding_mask,
                                      deterministic=deterministic,
                                      generator=generator)
         return linear(ctx.reshape(b, s, self.embed_dim), self.out_proj, dtype)

@@ -8,38 +8,65 @@ from __future__ import annotations
 import torch
 
 from flash_attn_tpu_torch.kernels import prng
-from flash_attn_tpu_torch.kernels.common import kernel_operand
+from flash_attn_tpu_torch.kernels.common import Segments, kernel_operand
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel K1 with a saved lse; backward kernel K2. Saves q, k,
-    v, out, lse and the integer dropout seed: no RNG state. Differentiable
+    v, out, lse, the integer dropout seed and the segments (with the card's
+    tile plan, made once by the forward): no RNG state. Differentiable
     through both outputs; the lse cotangent folds into K2's di."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, softmax_scale, dropout_p, seed):
+    def forward(ctx, q, k, v, causal, softmax_scale, dropout_p, seed,
+                segments):
         out, lse = flash_attention_fwd(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
-            save_lse=True, dropout_p=dropout_p, seed=seed)
+            save_lse=True, dropout_p=dropout_p, seed=seed, segments=segments)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, softmax_scale, dropout_p, seed)
+        ctx.args = (causal, softmax_scale, dropout_p, seed, segments)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, softmax_scale, dropout_p, seed = ctx.args
+        causal, softmax_scale, dropout_p, seed, segments = ctx.args
         # dout is a view of the caller's (b, s, h, d) gradient, taken in
         # place, or absent when only the lse was used.
         dout = torch.zeros_like(out) if dout is None else kernel_operand(dout)
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, dout, lse, causal=causal,
             softmax_scale=softmax_scale, dropout_p=dropout_p, seed=seed,
-            dlse=None if dlse is None else dlse.contiguous())
-        return dq, dk, dv, None, None, None, None
+            dlse=None if dlse is None else dlse.contiguous(),
+            segments=segments)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _segments(q_segment_ids, kv_segment_ids, q_positions, kv_positions,
+              b, sq, sk, device):
+    """The four (b, s) vectors as int32 on the tensors' device, positions
+    defaulting to arange (JAX ``ops/attention.py:644-651``); None without
+    segment ids. As in JAX, positions alone (without ids) are ignored."""
+    if q_segment_ids is None:
+        return None
+    if kv_segment_ids is None:
+        raise ValueError("q_segment_ids requires kv_segment_ids")
+
+    def vec(x, s, name):
+        if x is None:
+            x = torch.arange(s, device=device).expand(b, s)
+        x = torch.as_tensor(x, device=device)
+        if tuple(x.shape) != (b, s):
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, need {(b, s)}")
+        return x.to(torch.int32).contiguous()
+
+    return Segments(vec(q_segment_ids, sq, "q_segment_ids"),
+                    vec(kv_segment_ids, sk, "kv_segment_ids"),
+                    vec(q_positions, sq, "q_positions"),
+                    vec(kv_positions, sk, "kv_positions"))
 
 
 def flash_attention(
@@ -78,25 +105,29 @@ def flash_attention(
     ``dropout_seed`` (an int or a 0-dim integer tensor), and the same seed
     gives the same mask in the forward and the backward, on any tiling.
 
+    ``q_segment_ids`` / ``kv_segment_ids`` ((b, sq) / (b, sk) int, -1 =
+    padding): tokens attend only within equal non-negative ids; with
+    ``q_positions`` / ``kv_positions`` (per-segment local positions,
+    default arange) causal compares positions, so it is top-left inside
+    each segment. Rows with no visible key give out = 0 and lse = -inf. The
+    dropout mask keeps the (b, h, row, col) coordinates of the padded
+    layout.
+
     Differentiable in q, k and v (through both outputs with ``return_lse``)
     when grad is enabled and an input requires it; otherwise the forward
     runs alone and skips the lse. The other arguments of the JAX signature
     raise NotImplementedError naming the item that ports them.
     """
     # Arguments of the JAX signature that the port does not run yet, each
-    # with the ROADMAP port item that brings it.
+    # with the ROADMAP queue item that brings it.
     for name, is_set, item in (
-        ("window_size", window_size is not None, "P2 (window/ALiBi/...)"),
-        ("alibi_slopes", alibi_slopes is not None, "P2 (window/ALiBi/...)"),
-        ("softcap", softcap is not None, "P2 (window/ALiBi/softcap/...)"),
-        ("q_segment_ids", q_segment_ids is not None, "P2 (.../segments)"),
-        ("kv_segment_ids", kv_segment_ids is not None, "P2 (.../segments)"),
-        ("q_positions", q_positions is not None, "P2 (.../segments)"),
-        ("kv_positions", kv_positions is not None, "P2 (.../segments)"),
-        ("num_sinks", num_sinks != 0, "P2 (window/sinks/band routing)"),
+        ("window_size", window_size is not None, "M4 (window/ALiBi/...)"),
+        ("alibi_slopes", alibi_slopes is not None, "M4 (window/ALiBi/...)"),
+        ("softcap", softcap is not None, "M4 (window/ALiBi/softcap/...)"),
+        ("num_sinks", num_sinks != 0, "M4 (window/sinks/band routing)"),
         ("window_cell", window_cell is not None,
-         "P2 (window/sinks/band routing)"),
-        ("qk_quant", qk_quant is not None, "P11 (int8 QK, K9)"),
+         "M4 (window/sinks/band routing)"),
+        ("qk_quant", qk_quant is not None, "M8 (int8 QK, K9)"),
     ):
         if is_set:
             raise NotImplementedError(
@@ -122,6 +153,8 @@ def flash_attention(
     seed = None if dropout_seed is None else prng.seed_value(dropout_seed)
     if softmax_scale is None:
         softmax_scale = d ** -0.5
+    segments = _segments(q_segment_ids, kv_segment_ids, q_positions,
+                         kv_positions, b, sq, sk, q.device)
 
     # The kernels take (b, h, s, d) views with 16-byte row strides in place
     # (views of a packed qkv included); only misaligned rows are copied.
@@ -130,11 +163,12 @@ def flash_attention(
     q, k, v = kernel_operand(q), kernel_operand(k), kernel_operand(v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v, causal, softmax_scale,
-                                         dropout_p, seed)
+                                         dropout_p, seed, segments)
     else:
         out, lse = flash_attention_fwd(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
-            save_lse=return_lse, dropout_p=dropout_p, seed=seed)
+            save_lse=return_lse, dropout_p=dropout_p, seed=seed,
+            segments=segments)
     if layout == "bshd":
         out = out.transpose(1, 2)
     return (out, lse) if return_lse else out

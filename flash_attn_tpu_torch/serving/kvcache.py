@@ -18,6 +18,7 @@ from flash_attn_tpu_torch.kernels.chunk import (
     paged_chunk_attention,
 )
 from flash_attn_tpu_torch.kernels.common import check_ported
+from flash_attn_tpu_torch.ops.rotary import apply_rotary_at_positions
 from flash_attn_tpu_torch.serving.cache import PagedKVCache, append_span
 
 
@@ -57,14 +58,15 @@ def flash_attn_with_kvcache(q, cache: PagedKVCache, page_table,
     ``flash_attn_with_kvcache.split_appends``: a choice by shape, the same
     result either way.
 
-    ``apply_rotary`` needs ``ops/rotary.py`` (ROADMAP port item P6);
+    ``apply_rotary=True`` rotates q (and the new k, when given) at their
+    global cache positions before the write and the attention
+    (``ops/rotary.py`` ``apply_rotary_at_positions``, base
+    ``rotary_base``): the upstream in-place rotary convention, for models
+    whose cache holds post-rotary keys.
+
     ``window_left``, ``alibi_slopes``, ``softcap`` (P2) and ``qk_quant``
-    (P11) are not ported either. Each raises before the cache is touched.
+    (P11) are not ported. Each raises before the cache is touched.
     """
-    if apply_rotary:
-        raise NotImplementedError(
-            "apply_rotary: apply_rotary_at_positions (ops/rotary.py) is "
-            "ROADMAP port item P6")
     check_ported(window_left=window_left, alibi_slopes=alibi_slopes,
                  softcap=softcap, qk_quant=qk_quant)
     if (k is None) != (v is None):
@@ -75,6 +77,17 @@ def flash_attn_with_kvcache(q, cache: PagedKVCache, page_table,
                               device=q.device)
     new_lens = new_lens.to(torch.int32)
     cache_seqlens = cache_seqlens.to(torch.int32)
+    if apply_rotary:
+        # Chunk row t sits at global position total - chunk + t: with k/v
+        # cache_seqlens + t (padding rows past new_lens get positions too;
+        # they are neither written nor output).
+        base = cache_seqlens if k is not None else cache_seqlens - new_lens
+        pos = (base[:, None] + torch.arange(sq, dtype=torch.int32,
+                                            device=q.device)).clamp(min=0)
+        q = apply_rotary_at_positions(q, pos[:, :, None], base=rotary_base)
+        if k is not None:
+            k = apply_rotary_at_positions(k, pos[:, :, None],
+                                          base=rotary_base)
     total, new = cache_seqlens, {}
     if k is not None:
         total = cache_seqlens + new_lens

@@ -47,3 +47,68 @@ def packed_views(qkv, h, h_kv, d):
     return (qkv[..., : h * d].reshape(b, s, h, d),
             qkv[..., h * d: (h + h_kv) * d].reshape(b, s, h_kv, d),
             qkv[..., (h + h_kv) * d:].reshape(b, s, h_kv, d))
+
+
+def cu_seqlens(lengths) -> np.ndarray:
+    """(n + 1,) int32 offsets of packed sequences of these lengths."""
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+
+
+def packed_segments(lengths, total: int):
+    """Segment ids and local positions (total,) int32 of sequences of
+    ``lengths`` packed from token 0 on; tokens past them get id -1 and
+    position 0 (``ops/packing.py`` ``cu_seqlens_to_segments``)."""
+    ids = np.full(total, -1, np.int32)
+    pos = np.zeros(total, np.int32)
+    for i, (start, n) in enumerate(zip(cu_seqlens(lengths), lengths)):
+        ids[start:start + n] = i
+        pos[start:start + n] = np.arange(n)
+    return ids, pos
+
+
+# Segment layouts for the kernels' segment form: (kind, b, sq, sk).
+#   padding   each row a prefix of valid tokens (id 0), lengths drawn in
+#             [s/3, s] as the reference's generate_random_padding_mask,
+#             the rest padding (-1): the BERT path;
+#   packed    one row of sequences of mixed lengths (short ones beside
+#             long ones, so at sq = 1000 whole query tiles are dead for
+#             some key tiles), the same on both sides;
+#   packed_qk one row of sequences whose query and key lengths differ,
+#             keys up to 2 sk / sq times the queries (causal is top-left
+#             inside each);
+#   random    ids drawn per token from {-1, 0, 1, 2}: non-contiguous
+#             segments, positions arange;
+#   allpad    padding layout whose first row is all padding.
+def segment_layout(rng: np.random.Generator, kind: str, b: int, sq: int,
+                   sk: int):
+    """(q_seg, kv_seg, q_pos, kv_pos) int32 numpy arrays, (b, sq) and
+    (b, sk)."""
+    if kind in ("padding", "allpad"):
+        assert sq == sk
+        lengths = rng.integers(max(1, sq // 3), sq + 1, size=b)
+        if kind == "allpad":
+            lengths[0] = 0
+        seg = np.where(np.arange(sq)[None] < lengths[:, None], 0,
+                       -1).astype(np.int32)
+        pos = np.broadcast_to(np.arange(sq, dtype=np.int32), (b, sq))
+        return seg, seg.copy(), pos.copy(), pos.copy()
+    if kind == "random":
+        seg_q = rng.integers(-1, 3, size=(b, sq)).astype(np.int32)
+        seg_k = rng.integers(-1, 3, size=(b, sk)).astype(np.int32)
+        return (seg_q, seg_k,
+                np.broadcast_to(np.arange(sq, dtype=np.int32), (b, sq)).copy(),
+                np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk)).copy())
+    assert b == 1 and kind in ("packed", "packed_qk")
+    lens_q, lens_k = [], []
+    while True:  # long (sq/7..sq/2.5) and short (1..sq/25) sequences in turn
+        n = int(rng.integers(sq // 7, sq * 2 // 5)) if len(lens_q) % 2 == 0 \
+            else int(rng.integers(1, sq // 25 + 2))
+        m = n if kind == "packed" else int(rng.integers(1, 2 * n * sk // sq
+                                                         + 2))
+        if sum(lens_q) + n > sq - 7 or sum(lens_k) + m > sk - 7:
+            break
+        lens_q.append(n)
+        lens_k.append(m)
+    q_seg, q_pos = packed_segments(lens_q, sq)
+    k_seg, k_pos = packed_segments(lens_k, sk)
+    return q_seg[None], k_seg[None], q_pos[None], k_pos[None]

@@ -124,10 +124,6 @@ def test_paged_block_live_and_unported_arguments():
                {"alibi_slopes": [1.0]}, {"qk_quant": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP port item"):
             paged_chunk_attention(q, kp, vp, lens, table, **kw)
-    with pytest.raises(NotImplementedError, match="P6"):
-        torch_kvcache.flash_attn_with_kvcache(
-            q, torch_cache.PagedKVCache(kp, vp), table, lens,
-            apply_rotary=True)
 
 
 H, D, PS, NUM_PAGES = 2, 64, 16, 13
@@ -221,6 +217,43 @@ def test_flash_attn_with_kvcache_matches_jax(with_kv):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL,
                                rtol=RTOL)
     _assert_equal_outside_page0(jc, tc)
+
+
+@pytest.mark.parametrize("with_kv", [True, False])
+def test_flash_attn_with_kvcache_apply_rotary_matches_jax(with_kv):
+    """apply_rotary=True: q (and the new k) rotated at their global cache
+    positions before the write and the attention (base 500000, as Llama-3
+    has it); the output at the fp32 tolerance; outside page 0 the cache
+    within 1e-6 where rotated keys were written (sin and cos of the same
+    fp32 angles from two libraries), else bitwise."""
+    jc, tc = _caches(7)
+    rng = np.random.default_rng(8)
+    b, sq, hq = 3, 4, 4
+    seqlens = np.asarray([10, 20, 4], np.int32)
+    new_lens = np.asarray([4, 2, 1], np.int32)
+    q = rng.standard_normal((b, sq, hq, D)).astype(np.float32)
+    nk = rng.standard_normal((b, sq, H, D)).astype(np.float32)
+    nv = rng.standard_normal((b, sq, H, D)).astype(np.float32)
+    kv_j = (jnp.asarray(nk), jnp.asarray(nv)) if with_kv else (None, None)
+    kv_t = (torch.from_numpy(nk), torch.from_numpy(nv)) if with_kv \
+        else (None, None)
+    kw = dict(apply_rotary=True, rotary_base=500000.0)
+    out_j, jc = jax_kvcache.flash_attn_with_kvcache(
+        jnp.asarray(q), jc, jnp.asarray(TABLE[:b]), jnp.asarray(seqlens),
+        *kv_j, new_lens=jnp.asarray(new_lens), **kw)
+    out_t, tc = torch_kvcache.flash_attn_with_kvcache(
+        torch.from_numpy(q), tc, torch.from_numpy(TABLE[:b]),
+        torch.from_numpy(seqlens), *kv_t, new_lens=torch.from_numpy(new_lens),
+        **kw)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL,
+                               rtol=RTOL)
+    if with_kv:  # rotated keys, written as JAX writes them
+        for j, t in ((jc.k_pages, tc.k_pages), (jc.v_pages, tc.v_pages)):
+            np.testing.assert_allclose(t.numpy()[:, 1:],
+                                       np.asarray(j)[:, 1:], atol=1e-6,
+                                       rtol=1e-6)
+    else:
+        _assert_equal_outside_page0(jc, tc)
 
 
 # (cache_seqlens, new_lens, q heads): page edges crossed, a short row;

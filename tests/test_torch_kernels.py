@@ -43,7 +43,15 @@ from flash_attn_tpu_torch.kernels.chunk import (
     paged_chunk_attention,
     paged_chunk_attention_plain,
 )
-from flash_attn_tpu_torch.kernels.common import paged_num_splits, sm_count
+from flash_attn_tpu_torch.kernels.common import (
+    Segments,
+    paged_num_splits,
+    plan_sections,
+    segment_mask,
+    segment_plan,
+    segment_plan_plain,
+    sm_count,
+)
 from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -81,6 +89,7 @@ from flash_attn_tpu_torch.utils.testing import (
     assert_two_x_bound,
     max_err,
     packed_views,
+    segment_layout,
 )
 
 pytestmark = pytest.mark.gpu
@@ -1363,3 +1372,148 @@ def test_paged_kernels_are_bitwise_reproducible(cuda, dtype):
         paged_chunk_attention(q, kp2, vp2, lens, table, chunk_lens=cl,
                               new_k=nk, new_v=nv, cache_seqlens=lens - cl),
         kp2, vp2))
+
+
+# ------------------------------------------------------------- segments
+
+# (layout kind of utils/testing.py segment_layout, b, sq, sk, h, h_kv, d,
+# causal)
+SEG_CASES = [
+    ("padding", 4, 512, 512, 2, 2, 64, False),   # BERT's padding masks
+    ("padding", 2, 300, 300, 4, 2, 128, True),
+    # short sequences packed beside long ones: whole query tiles are dead
+    # for some key tiles (K2's dQ ranks count live pairs only)
+    ("packed", 1, 1000, 1000, 2, 2, 64, True),
+    ("packed", 1, 777, 777, 4, 1, 128, False),
+    ("packed_qk", 1, 500, 900, 2, 2, 64, True),  # per-segment sq != sk
+    ("packed_qk", 1, 900, 400, 2, 1, 128, True),
+    ("random", 2, 257, 257, 2, 2, 64, True),     # non-contiguous ids
+    ("allpad", 2, 200, 200, 2, 2, 64, False),    # a row of padding only
+]
+
+
+def _seg_inputs(case, dtype, device, seed=0):
+    kind, b, sq, sk, h, h_kv, d, _ = case
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = _qkv((b, sq, sk, h, h_kv, d, None), dtype, device, seed)
+    seg = Segments(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                     for x in segment_layout(rng, kind, b, sq, sk)))
+    return q, k, v, dout, seg
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", SEG_CASES, ids=str)
+def test_segment_plan_matches_plain(cuda, case, causal):
+    """The pre-pass's tile plan (csrc/segments.cu) equals the plain plan
+    word for word: rows, tile summaries, classes and dQ ranks, the interval
+    form's flag and bounds, and the lists up to their counts."""
+    _, b, sq, sk = case[:4]
+    *_, seg = _seg_inputs(case, torch.bfloat16, cuda)
+    got = plan_sections(segment_plan(seg, causal), b, sq, sk)
+    torch.cuda.synchronize()
+    want = segment_plan_plain(seg, causal)
+    for name in ("qsp", "ksp", "qsum", "ksum", "cls", "fwd_n", "bwd_n",
+                 "ivf", "qiv", "kiv"):
+        assert torch.equal(got[name], want[name]), name
+    for name, n in (("fwd", want["fwd_n"]), ("bwd", want["bwd_n"])):
+        live = torch.arange(got[name].shape[2], device=cuda) < n[..., None]
+        if name == "bwd":
+            live = live[..., None]
+        assert torch.equal(torch.where(live, got[name], 0), want[name]), name
+
+
+def _seg_oracle_grads(q, k, v, dout, mask, keep, p, upcast):
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = attention_ref(*leaves, mask=mask, upcast=upcast,
+                        dropout_mask=keep, dropout_p=p)
+    out.backward(dout.to(out.dtype))
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SEG_CASES, ids=str)
+def test_flash_segment_kernels_match_twin(cuda, case, dtype, dropout_p):
+    """K1 and K2 in segment form against their twins and, by the 2x rule,
+    against fp32 attention_ref (autograd for the gradients) under the
+    equivalent boolean mask; lse against the masked fp32 logsumexp, -inf
+    on rows that see no key, whose output and dq are 0."""
+    kind, b, sq, sk, h, h_kv, d, causal = case
+    q, k, v, dout, seg = _seg_inputs(case, dtype, cuda)
+    kw = dict(causal=causal, softmax_scale=d ** -0.5, dropout_p=dropout_p,
+              seed=21 if dropout_p else None, segments=seg)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    twin, _ = flash_attention_fwd_plain(q, k, v, save_lse=False, **kw)
+    twins = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    mask = segment_mask(seg, causal)
+    keep = (dropout_mask_dense(21, b, h, sq, sk, dropout_p, device=cuda)
+            if dropout_p else None)
+    ref = dict(mask=mask, dropout_mask=keep, dropout_p=dropout_p)
+    native = attention_ref(q, k, v, upcast=False, **ref)
+    label = f"{case} {dtype} p={dropout_p}"
+    assert_two_x_bound(out, twin.float(), native, label=f"out vs twin {label}")
+    assert_two_x_bound(out, attention_ref(q.float(), k.float(), v.float(),
+                                          **ref), native, label=f"out {label}")
+    s = (q.float() @ k.float().repeat_interleave(h // h_kv, 1).transpose(
+        -1, -2)) * d ** -0.5
+    want_lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    dead = ~mask.any(-1).expand_as(want_lse)
+    assert torch.equal(torch.isneginf(lse), dead), label
+    torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=1e-3,
+                               rtol=1e-3)
+    assert not out[dead].any(), label
+    oracle = _seg_oracle_grads(q.float(), k.float(), v.float(), dout.float(),
+                               mask, keep, dropout_p, True)
+    nat = _seg_oracle_grads(q, k, v, dout, mask, keep, dropout_p, False)
+    for name, g, tw, o, n in zip("qkv", grads, twins, oracle, nat):
+        assert g.dtype == dtype and g.shape == tw.shape
+        assert_two_x_bound(g, o, n, atol=1e-4, label=f"d{name} {label}")
+        assert_two_x_bound(g, tw.float(), n, atol=1e-4,
+                           label=f"d{name} vs twin {label}")
+    assert not grads[0][dead].any(), label
+
+
+@pytest.mark.parametrize("case", [SEG_CASES[2], SEG_CASES[5]], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_segment_kernels_are_bitwise_reproducible(cuda, dtype, case):
+    """K1 + K2 in segment form with dropout, where whole query tiles are
+    dead for some key tiles (blocks skip them; the dQ ranks count live
+    pairs): out, lse, dq, dk and dv bit for bit over 10 seeded reruns."""
+    q, k, v, dout, seg = _seg_inputs(case, dtype, cuda, seed=4)
+    kw = dict(causal=case[-1], softmax_scale=case[6] ** -0.5,
+              dropout_p=0.1, seed=3)
+
+    def run():
+        s = Segments(seg.q_seg, seg.kv_seg, seg.q_pos, seg.kv_pos)
+        out, lse = flash_attention_fwd(q, k, v, save_lse=True, segments=s,
+                                       **kw)
+        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse,
+                                               segments=s, **kw))
+    _reruns_equal(run)
+
+
+def test_flash_attention_segments_on_cuda_match_cpu(cuda):
+    """The op with segment ids and positions (packed, causal, GQA,
+    dropout, a loss on both outputs): the card's outputs and gradients
+    equal the CPU plain path's (fp32)."""
+    rng = np.random.default_rng(6)
+    q_seg, kv_seg, q_pos, kv_pos = segment_layout(rng, "packed_qk", 1, 500,
+                                                  700)
+    shapes = [(1, 500, 4, 64), (1, 700, 2, 64), (1, 700, 2, 64)]
+    host = [torch.from_numpy(rng.standard_normal(s)).float() for s in shapes]
+    g_out = torch.from_numpy(rng.standard_normal(shapes[0])).float()
+    g_lse = torch.from_numpy(rng.standard_normal((1, 4, 500))).float()
+    results = []
+    for dev in ("cpu", cuda):
+        leaves = [x.to(dev, copy=True).requires_grad_() for x in host]
+        out, lse = flash_attention(
+            *leaves, causal=True, return_lse=True, dropout_p=0.1,
+            dropout_seed=9, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+            q_positions=q_pos, kv_positions=kv_pos)
+        torch.autograd.backward([out, lse], [g_out.to(dev), g_lse.to(dev)])
+        results.append([out.detach().cpu(), lse.detach().cpu()]
+                       + [x.grad.cpu() for x in leaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
