@@ -38,13 +38,33 @@ paths with random weights from torch.Generator seed 0:
     carrying MLM labels, dropout 0.1: falling finite loss, K1 and K2
     launched 12 times per step each in their segment form (padding masked
     inside the kernels by segment ids; no unpad), no SDPA op in a traced
-    step, one dropout-0 step held to the 2x rule against fp32 compute.
+    step, one dropout-0 step held to the 2x rule against fp32 compute;
+  - GPT-2 remat policies: one backward each with remat off, full remat,
+    "dots" and "dots_flash" on the training phase's model and batch: the
+    same loss, every gradient within the 2x rule of the no-remat step
+    against fp32 compute, K1 launched 12, 24, 24 and 12 times (under
+    "dots_flash" its output and lse are kept), a timed step each;
+  - ViT training: 4 AdamW steps of ViTClassifier(ViTConfig(dtype=bf16))
+    at ViT-B/16's published widths (224/16, 12 layers x 768, 12 heads,
+    MLP 3072, 1000 classes, 2-D rotary; fp32 weights) on b=64 seeded
+    random images, dropout 0.1: falling finite loss, K1 and K2 12 times per
+    step each (non-causal over 196 tokens), no SDPA op in a traced step,
+    one dropout-0 step held to the 2x rule against fp32 compute;
+  - Llama training at Llama-3-8B's widths cut to 2 layers (fp32 weights,
+    about 1.5 B parameters, bf16 compute), b=4 s=2048, the head and loss
+    in chunks of 512: 3 AdamW steps with falling finite loss, K1 and K2
+    twice per step; at the same weights remat gives the same loss and
+    gradient norm and 4 K1 launches; a traced and timed step each way.
 K1 and K2 in segment form are held to their twins and the 2x rule at
 BERT's attention shape (b=32 h=12 s=512 d=64), and the cu_seqlens
 interface on the same tokens packed (qkvpacked; kvpacked with per-sequence
 sq != sk, causal) against the padded segment-id route.
+K1 and K2 are held to their twins and the 2x rule at the attention shapes
+of every training path (GPT-2, ViT-B/16, the Llama train step), before
+the paths run.
 A determinism phase requires 10 seeded reruns to agree bit for bit: K1 + K2
-at the train shape with dropout 0.1 and in segment form at BERT's shape,
+at GPT-2's, ViT-B/16's and the Llama train step's shapes and in segment
+form at BERT's shape,
 K8a-c at BS_SHAPES (i), K5 and K6 at
 Llama-3-8B's decode and chunk shapes, and K5 and K6 with the append at
 Llama's decode and at the verify shape; each paged shape prints the split
@@ -152,10 +172,21 @@ from flash_attn_tpu_torch.models.blocksparse_modules import (
 from flash_attn_tpu_torch.models.gpt2 import (
     GPT2Config,
     GPT2LMHeadModel,
+    chunked_lm_loss,
     cross_entropy_loss,
     make_train_step,
 )
-from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from flash_attn_tpu_torch.models.llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    make_train_step as make_llama_step,
+)
+from flash_attn_tpu_torch.models.vit import (
+    ViTClassifier,
+    ViTConfig,
+    classification_loss,
+    make_train_step as make_vit_step,
+)
 from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
 from flash_attn_tpu_torch.ops.interface import (
     flash_attn_unpadded_kvpacked_func,
@@ -561,20 +592,23 @@ def phase_kernels(gen):
     return errs
 
 
-# (b, h, h_kv, s, d, dropout_p): the train step's attention, then ragged,
-# GQA 12/4 and head_dim 128.
+# (b, h, h_kv, s, d, dropout_p, causal): the GPT-2 train step's attention,
+# then ragged, GQA 12/4 and head_dim 128; ViT-B/16's (non-causal over 196
+# patches: the last q and key tiles cut at the edge); the Llama-3-8B-width
+# train step's (GQA 32/8, d=128, s=2048).
 TRAIN_KERNEL_CASES = [
-    (8, 12, 12, 1024, 64, 0.0), (8, 12, 12, 1024, 64, 0.1),
-    (8, 12, 12, 1000, 64, 0.1), (8, 12, 4, 1024, 64, 0.1),
-    (8, 6, 6, 1024, 128, 0.1),
+    (8, 12, 12, 1024, 64, 0.0, True), (8, 12, 12, 1024, 64, 0.1, True),
+    (8, 12, 12, 1000, 64, 0.1, True), (8, 12, 4, 1024, 64, 0.1, True),
+    (8, 6, 6, 1024, 128, 0.1, True),
+    (64, 12, 12, 196, 64, 0.0, False), (64, 12, 12, 196, 64, 0.1, False),
+    (4, 32, 8, 2048, 128, 0.0, True),
 ]
 
 
-def ref_grads(q, k, v, dout, keep, p, upcast):
-    """dq, dk, dv of attention_ref by autograd (causal, dropout mask
-    ``keep``)."""
+def ref_grads(q, k, v, dout, keep, p, upcast, causal=True):
+    """dq, dk, dv of attention_ref by autograd (dropout mask ``keep``)."""
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    out = attention_ref(*leaves, causal=True, upcast=upcast,
+    out = attention_ref(*leaves, causal=causal, upcast=upcast,
                         dropout_mask=keep, dropout_p=p)
     out.backward(dout.to(out.dtype))
     return [x.grad for x in leaves]
@@ -584,12 +618,12 @@ def phase_train_kernels(gen, errs):
     """K1 with dropout and K2 against their twins and the 2x rule (oracle:
     fp32 attention_ref, by autograd for the gradients; baseline: the
     same-dtype attention_ref, atol 1e-4 for the gradients' fp32 sums),
-    causal bf16, on the main path's strided operands (packed_inputs). Adds
-    the max errors vs the twins to ``errs``."""
+    bf16, on the main path's strided operands (packed_inputs), at
+    TRAIN_KERNEL_CASES. Adds the max errors vs the twins to ``errs``."""
     errs["flash_bwd"] = 0.0
-    for b, h, h_kv, s, d, p in TRAIN_KERNEL_CASES:
+    for b, h, h_kv, s, d, p, causal in TRAIN_KERNEL_CASES:
         q, k, v, dout = packed_inputs(gen, b, h, h_kv, s, d)
-        kw = dict(causal=True, softmax_scale=d ** -0.5, dropout_p=p,
+        kw = dict(causal=causal, softmax_scale=d ** -0.5, dropout_p=p,
                   seed=SEED if p else None)
         out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
         grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
@@ -598,18 +632,19 @@ def phase_train_kernels(gen, errs):
         twin_grads = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
         keep = dropout_mask_dense(SEED, b, h, s, s, p, device=DEV) if p \
             else None
-        label = f"b={b} h={h} h_kv={h_kv} s={s} d={d} p={p}"
+        label = (f"b={b} h={h} h_kv={h_kv} s={s} d={d} p={p}"
+                 + ("" if causal else " non-causal"))
         err, base = assert_two_x_bound(
-            out, attention_ref(q, k, v, causal=True, dropout_mask=keep,
+            out, attention_ref(q, k, v, causal=causal, dropout_mask=keep,
                                dropout_p=p),
-            attention_ref(q, k, v, causal=True, upcast=False,
+            attention_ref(q, k, v, causal=causal, upcast=False,
                           dropout_mask=keep, dropout_p=p),
             label=f"flash_fwd {label}")
         fwd_twin = max_err(out, twin)
         errs["flash_fwd"] = max(errs["flash_fwd"], fwd_twin)
         oracle = ref_grads(q.float(), k.float(), v.float(), dout.float(),
-                           keep, p, True)
-        native = ref_grads(q, k, v, dout, keep, p, False)
+                           keep, p, True, causal)
+        native = ref_grads(q, k, v, dout, keep, p, False, causal)
         parts, bwd_twin = [], 0.0
         for name, g, tw, o, n in zip("qkv", grads, twin_grads, oracle,
                                      native):
@@ -858,8 +893,9 @@ def phase_fused_kernels():
 
 def phase_determinism(gen, n=10):
     """Each kernel ``n`` times on the same inputs and seed: every rerun
-    bit for bit the first. K1 + K2 at the train shape with dropout 0.1 (out,
-    lse, dq, dk, dv), K8a-c at BS_SHAPES (i) (the same), K5 at "Llama
+    bit for bit the first. K1 + K2 (out, lse, dq, dk, dv) at GPT-2's train
+    shape with dropout 0.1, at ViT-B/16's with dropout 0.1 and at the
+    Llama-3-8B-width train step's, K8a-c at BS_SHAPES (i) (the same), K5 at "Llama
     decode" and K6 at "Llama chunk" (out; split-KV merged in split order),
     K5 and K6 with the append at "Llama decode" and "verify" (out and
     pages: each rerun stores the same rows again)."""
@@ -873,14 +909,20 @@ def phase_determinism(gen, n=10):
                       f"determinism {label}: output {i} differs between runs")
         print(f"determinism {label}: {n} seeded reruns bit for bit equal")
 
-    q, k, v, dout = packed_inputs(gen, 8, 12, 12, 1024, 64)
-    kw = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
+    for b, h, h_kv, s, d, p, causal in (
+            (8, 12, 12, 1024, 64, 0.1, True), (64, 12, 12, 196, 64, 0.1, False),
+            (4, 32, 8, 2048, 128, 0.0, True)):
+        q, k, v, dout = packed_inputs(gen, b, h, h_kv, s, d)
+        kw = dict(causal=causal, softmax_scale=d ** -0.5, dropout_p=p,
+                  seed=SEED if p else None)
 
-    def dense():
-        out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
-        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse, **kw))
-    same("flash_fwd + flash_bwd b=8 h=12 s=1024 d=64 p=0.1 (out, lse, dq, "
-         "dk, dv)", dense)
+        def dense(q=q, k=k, v=v, dout=dout, kw=kw):
+            out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+            return (out, lse,
+                    *flash_attention_bwd(q, k, v, out, dout, lse, **kw))
+        same(f"flash_fwd + flash_bwd b={b} h={h}/{h_kv} s={s} d={d} p={p}"
+             f"{'' if causal else ' non-causal'} (out, lse, dq, dk, dv)",
+             dense)
     seg = padding_segments()
     q, k, v, dout = packed_inputs(gen, BERT_B, 12, 12, BERT_S, 64)
     kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
@@ -1513,23 +1555,21 @@ def kernel_timing(gen):
     bound_by, library_backend)}."""
     card = card_line()
     # K1 at the serving bucket (b=8, s=768, no lse) and at the train step
-    # (s=1024, dropout 0.1 and 0, lse saved); K2 at the train step.
+    # (s=1024, dropout 0.1, lse saved); K2 at the train step.
     q = randn(gen, (8, 12, 768, 64))
     k, v = randn(gen, (8, 12, 768, 64)), randn(gen, (8, 12, 768, 64))
     fwd = dict(causal=True, softmax_scale=0.125, save_lse=False)
     qt, kt, vt, dt = (randn(gen, (8, 12, 1024, 64)) for _ in range(4))
     train = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
-    train0 = dict(causal=True, softmax_scale=0.125)
     ot, lt = flash_attention_fwd(qt, kt, vt, save_lse=True, **train)
-    # K1 and K2 at Llama-3-8B's attention widths (GQA 32/8, d=128), b=2,
-    # s=2048: not on a path (Llama serving prefills through K6).
-    qa, da = randn(gen, (2, 32, 2048, 128)), randn(gen, (2, 32, 2048, 128))
-    ka, va = randn(gen, (2, 8, 2048, 128)), randn(gen, (2, 8, 2048, 128))
+    # K1 and K2 at the Llama-3-8B-width train step's attention (GQA 32/8,
+    # d=128, b=4, s=2048; Llama serving prefills through K6).
+    qa, da = randn(gen, (4, 32, 2048, 128)), randn(gen, (4, 32, 2048, 128))
+    ka, va = randn(gen, (4, 8, 2048, 128)), randn(gen, (4, 8, 2048, 128))
     wide = dict(causal=True, softmax_scale=128 ** -0.5)
     oa, la = flash_attention_fwd(qa, ka, va, save_lse=True, **wide)
     qd, kp, vp, dl, tbl = decode_inputs(gen)
     ql, kl, vl, ll, tl = decode_inputs(gen, "Llama decode")
-    qg, kg, vg, lg, tg = decode_inputs(gen, "Llama decode long")
     # K7c on dense_timing's inputs: GPT-2's prompt, and one layer of
     # Llama-3-8B's chunk (8 rows x 512 tokens into 4 pages each) on four
     # input sets in turn, 137 MB, so that the timed calls miss L2.
@@ -1561,32 +1601,25 @@ def kernel_timing(gen):
             sdpa_fwd(qt, kt, vt, p=0.1),
             nbytes(qt, kt, vt, qt, lt),
             4 * 8 * 12 * causal_pairs(1024) * 64),
-        "flash_fwd (train step, dropout 0, lse)": (
-            lambda: flash_attention_fwd(qt, kt, vt, save_lse=True, **train0),
-            lambda: flash_attention_fwd_plain(qt, kt, vt, save_lse=True,
-                                              **train0),
-            sdpa_fwd(qt, kt, vt),
-            nbytes(qt, kt, vt, qt, lt),
-            4 * 8 * 12 * causal_pairs(1024) * 64),
         "flash_bwd": (
             lambda: flash_attention_bwd(qt, kt, vt, ot, dt, lt, **train),
             lambda: flash_attention_bwd_plain(qt, kt, vt, ot, dt, lt, **train),
             sdpa_bwd(qt, kt, vt, dt, p=0.1),
             nbytes(qt, kt, vt, ot, dt, lt) + nbytes(qt, kt, vt),
             10 * 8 * 12 * causal_pairs(1024) * 64),
-        "flash_fwd (Llama-3-8B widths, lse)": (
+        "flash_fwd (Llama train, lse)": (
             lambda: flash_attention_fwd(qa, ka, va, save_lse=True, **wide),
             lambda: flash_attention_fwd_plain(qa, ka, va, save_lse=True,
                                               **wide),
             sdpa_fwd(qa, ka, va),
             nbytes(qa, ka, va, qa, la),
-            4 * 2 * 32 * causal_pairs(2048) * 128),
-        "flash_bwd (Llama-3-8B widths)": (
+            4 * 4 * 32 * causal_pairs(2048) * 128),
+        "flash_bwd (Llama train)": (
             lambda: flash_attention_bwd(qa, ka, va, oa, da, la, **wide),
             lambda: flash_attention_bwd_plain(qa, ka, va, oa, da, la, **wide),
             sdpa_bwd(qa, ka, va, da),
             nbytes(qa, ka, va, oa, da, la) + nbytes(qa, ka, va),
-            10 * 2 * 32 * causal_pairs(2048) * 128),
+            10 * 4 * 32 * causal_pairs(2048) * 128),
         "paged_decode": (
             lambda: paged_decode_attention(qd, kp, vp, dl, tbl),
             lambda: paged_decode_attention_plain(qd, kp, vp, dl, tbl,
@@ -1597,11 +1630,6 @@ def kernel_timing(gen):
             lambda: paged_decode_attention_plain(ql, kl, vl, ll, tl,
                                                  softmax_scale=128 ** -0.5),
             None, *decode_work(ql, kl, ll, tl)),
-        "paged_decode (Llama decode long)": (
-            lambda: paged_decode_attention(qg, kg, vg, lg, tg),
-            lambda: paged_decode_attention_plain(qg, kg, vg, lg, tg,
-                                                 softmax_scale=128 ** -0.5),
-            None, *decode_work(qg, kg, lg, tg)),
         "append_token": (
             lambda: cache.append_token(pages, nk, nv, tbl8, l8),
             lambda: cache.append_token_plain(pages, nk, nv, tbl8, l8),
@@ -1634,18 +1662,7 @@ def kernel_timing(gen):
             lambda a=args: paged_chunk_attention_plain(
                 *a[:5], chunk_lens=a[5], softmax_scale=a[0].shape[-1] ** -0.5),
             None, *chunk_work(shape))
-    # K6 at sq = 1 on K5's inputs: decode through K6.
-    for shape, inputs, k5 in (
-            ("GPT-2 decode", (qd, kp, vp, dl, tbl), "paged_decode"),
-            ("Llama decode", (ql, kl, vl, ll, tl),
-             "paged_decode (Llama decode)")):
-        a = (inputs[0][:, None].contiguous(), *inputs[1:])
-        one = (a[3] > 0).to(torch.int32)
-        specs[f"paged_chunk (sq=1, {shape})"] = (
-            lambda a=a, one=one: paged_chunk_attention(*a, chunk_lens=one),
-            lambda a=a, one=one: paged_chunk_attention_plain(
-                *a, chunk_lens=one, softmax_scale=a[0].shape[-1] ** -0.5),
-            None, *specs[k5][3:])
+    specs.update(vit_timing_specs(gen))
     specs.update(append_timing_specs())
     specs.update(bs_timing_specs())
     bert_specs, plan_call = bert_timing_specs(gen)
@@ -1684,10 +1701,12 @@ def kernel_timing(gen):
               f"{time.perf_counter() - t_row:.1f} s")
     print("shapes: flash_fwd b=8 h=12 s=768 d=64 causal (the serving "
           "bucket), library = SDPA forward; flash_fwd (train step) and "
-          "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1 (and the "
-          "forward at dropout 0), library = SDPA forward / backward with the "
-          "same dropout; the Llama-3-8B widths rows b=2 h=32/8 s=2048 d=128 "
-          "causal, not on a path, library = SDPA with enable_gqa; every "
+          "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1, library = SDPA "
+          "forward / backward with the "
+          "same dropout; the Llama train rows b=4 h=32/8 s=2048 d=128 "
+          "causal (the Llama-3-8B-width train step), library = SDPA with "
+          "enable_gqa; the ViT-B/16 rows b=64 h=12 s=196 d=64 non-causal, "
+          "dropout 0.1; every "
           "library time is the fastest of SDPA's flash, cuDNN and efficient "
           "backends pinned in turn (graph built under the pin), named in "
           "brackets; kernel, plain and library times are device busy time "
@@ -1695,8 +1714,7 @@ def kernel_timing(gen):
           "the host's time to issue one kernel call; "
           "paged_decode at "
           "DECODE_SHAPES (GPT-2 decode b=8 h=12 d=64 page 128, lengths "
-          "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020; "
-          "Llama decode long b=1 h=32/8 d=128, 16384 keys); "
+          "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020); "
           "append_token b=8 h=12; write_pages 768 tokens into 6 pages "
           "(h=12 d=64) and, as on Llama-3-8B's chunked path, 8 rows x 512 "
           "tokens into 4 pages each (h_kv=8 d=128) in one launch, each call "
@@ -1709,8 +1727,7 @@ def kernel_timing(gen):
           "already in page layout (write_pages) or index_put_ (append_*), "
           "one call each for K and V, indices made outside the timed call; "
           "paged_chunk at CHUNK_SHAPES (GPT-2 chunk b=8 sq=256 h=12 d=64, "
-          "Llama chunk b=8 sq=512 h=32/8 d=128, verify b=8 sq=5 h=12 d=64) "
-          "and at sq=1 on paged_decode's inputs at both DECODE_SHAPES; "
+          "Llama chunk b=8 sq=512 h=32/8 d=128, verify b=8 sq=5 h=12 d=64); "
           "blocksparse_* at BS_SHAPES (i) (b=8 h=12 s=1024 d=64 causal "
           "LocalGlobalSparsityConfig(window=256), dropout 0.1) and (ii) "
           "(config 4: b=1 h=8 s=8192 d=64 causal, 25% random cells), the "
@@ -1744,6 +1761,14 @@ def train_batch(cfg):
     return {"input_ids": ids, "labels": ids}
 
 
+def check_fp32_training(model, opt, label):
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          f"non-fp32 {label} parameters")
+    check(all(v.dtype == torch.float32 for st in opt.state.values()
+              for v in st.values() if v.dim() > 0),
+          f"non-fp32 {label} AdamW state")
+
+
 def phase_train(n_steps=6):
     """The training main path: GPT2Config(dropout=0.1) at full width, fp32
     weights and AdamW state, bf16 compute, n_steps on one b=8, s=1024 batch
@@ -1769,11 +1794,7 @@ def phase_train(n_steps=6):
         check(launches[name] == cfg.n_layer * n_steps,
               f"{name}: {launches[name]} launches in {n_steps} steps, want "
               f"{cfg.n_layer} per step")
-    check(all(p.dtype == torch.float32 for p in model.parameters()),
-          "non-fp32 parameters")
-    check(all(v.dtype == torch.float32 for st in opt.state.values()
-              for v in st.values() if v.dim() > 0),
-          "non-fp32 AdamW state")
+    check_fp32_training(model, opt, "GPT-2")
     print(f"train: GPT-2 full width, b=8 s=1024, dropout 0.1, {n_steps} "
           f"AdamW steps in {dt:.2f} s; losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory "
@@ -1820,23 +1841,30 @@ def device_summary(wall, events):
             f"events; device time by class: {shares}")
 
 
-def phase_trace(step, batch, gen):
-    """Two traced train steps. The first: no SDPA op may appear, and the
-    device time is broken down by kernel class. The second names the op
-    behind each of the largest kernels (print_top_kernels)."""
-    step(batch, gen)
+def trace_step(label, call, k1, k2, segments=False):
+    """A traced step: no SDPA op, ``k1`` K1 and ``k2`` K2 kernels, all in
+    the dense form (or all in the segment form), device busy time, idle
+    share and time by class; then the largest kernels by op."""
+    call()
     torch.cuda.synchronize()
-    wall, names, events = trace_call(lambda: step(batch, gen))
+    wall, names, events = trace_call(call)
     sdpa = sorted(n for n in names if n.startswith(
-        ("aten::_scaled_dot_product", "aten::_efficient_attention")))
-    check(not sdpa, f"SDPA ops in the train step: {sdpa}")
-    dev = device_events(events)
-    per_step = [sum(key in e["name"] for e in dev)
-                for key in ("flash_fwd_wgmma", "flash_bwd_wgmma")]
-    check(per_step == [12, 12], f"K1, K2 kernels in a traced step: {per_step}")
-    print(f"train step trace: {device_summary(wall, events)}; K1 and K2 12 "
-          f"kernels each; no SDPA op [{card_line()}]")
-    print_top_kernels("train", lambda: step(batch, gen))
+        ("aten::_scaled_dot_product", "aten::_efficient_attention",
+         "aten::_flash_attention")))
+    check(not sdpa, f"SDPA ops in the {label} step: {sdpa}")
+    kernels = [e["name"] for e in device_events(events)
+               if "flash_fwd_wgmma" in e["name"]
+               or "flash_bwd_wgmma" in e["name"]]
+    got = [sum(key in n for n in kernels)
+           for key in ("flash_fwd_wgmma", "flash_bwd_wgmma")]
+    form = ", true>" if segments else ", false>"  # the kSeg template flag
+    check(got == [k1, k2] and all(form in n for n in kernels),
+          f"K1, K2 kernels in a traced {label} step: {got}, want "
+          f"{[k1, k2]}, all {'in segment' if segments else 'in dense'} form")
+    print(f"{label} step trace: {device_summary(wall, events)}; K1 {k1} and "
+          f"K2 {k2} kernels{' in segment form' if segments else ''}; no SDPA "
+          f"op [{card_line()}]")
+    print_top_kernels(label, call)
 
 
 def print_top_kernels(label, call, n=8):
@@ -1874,10 +1902,13 @@ def phase_train_timing(step, batch, gen, warmup=2, n=5, label="train",
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    tokens = batch["input_ids"].numel()
+    if "images" in batch:
+        rate = f"{len(batch['images']) / med * 1e3:.0f} images/s"
+    else:
+        rate = f"{batch['input_ids'].numel() / med * 1e3:.0f} tokens/s"
     print(f"{label} step {shape}: median {med:.2f} ms (min "
           f"{min(times):.2f}, max {max(times):.2f}, {n} steps after "
-          f"{warmup} warm-ups), {tokens / med * 1e3:.0f} tokens/s, peak "
+          f"{warmup} warm-ups), {rate}, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[{card_line()}]")
     return med
@@ -1902,40 +1933,317 @@ def reference_attention(q, k, v, *, causal, softmax_scale=None,
                             softmax_scale=softmax_scale, upcast=False))
 
 
-def loss_and_grad_norm(model, batch):
+def loss_and_norm(loss_fn, model):
+    """Loss and global gradient norm of one backward of ``loss_fn()``."""
     model.zero_grad(set_to_none=True)
-    loss = cross_entropy_loss(model(batch["input_ids"]), batch["labels"])
+    loss = loss_fn()
     loss.backward()
     norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
-                          for p in model.parameters()))
-    return torch.stack([loss.detach(), norm])
+                          for p in model.parameters() if p.grad is not None))
+    return torch.stack([loss.detach().float(), norm])
 
 
-def phase_train_check(batch):
-    """One step at dropout 0, its loss and global gradient norm: the bf16
-    model through K1/K2 against the same step in fp32 compute, by the 2x
-    rule. Baseline: the bf16 model with attention through the same-dtype
-    attention_ref in autograd. Tolerance floor 1e-4 of the fp32 value."""
-    model16 = train_model(GPT2Config())
-    got = loss_and_grad_norm(model16, batch)
+def check_step_two_x(label, make_model, cfg, cfg32, loss_fn):
+    """One step's loss and global gradient norm: the bf16 model through
+    K1/K2 against the same step in fp32 compute, by the 2x rule. Baseline:
+    the bf16 model with attention through the same-dtype attention_ref in
+    autograd. Floor 1e-4 of the fp32 value."""
+    model16 = make_model(cfg)
+    got = loss_and_norm(lambda: loss_fn(model16), model16)
     original = modules.flash_attention
     modules.flash_attention = reference_attention
     try:
-        base = loss_and_grad_norm(model16, batch)
+        base = loss_and_norm(lambda: loss_fn(model16), model16)
     finally:
         modules.flash_attention = original
     del model16
     torch.cuda.empty_cache()
-    want = loss_and_grad_norm(train_model(GPT2Config(dtype=torch.float32)),
-                              batch)
+    model32 = make_model(cfg32)
+    want = loss_and_norm(lambda: loss_fn(model32), model32)
+    del model32
+    torch.cuda.empty_cache()
     for i, what in enumerate(("loss", "grad norm")):
         err, b = assert_two_x_bound(got[i], want[i], base[i],
                                     atol=1e-4 * float(want[i].abs()),
-                                    label=f"train step {what}")
-        print(f"train step at dropout 0, {what}: bf16 + kernels "
+                                    label=f"{label} step {what}")
+        print(f"{label} step at dropout 0, {what}: bf16 + kernels "
               f"{float(got[i]):.6f}, fp32 compute {float(want[i]):.6f}, bf16 "
               f"+ attention_ref {float(base[i]):.6f}: err {err:.3e} (bf16 "
               f"baseline {b:.3e})")
+
+
+def loss_and_grad_norm(model, batch):
+    return loss_and_norm(lambda: cross_entropy_loss(
+        model(batch["input_ids"]), batch["labels"]), model)
+
+
+def phase_train_check(batch):
+    """One GPT-2 step at dropout 0 against fp32 compute
+    (check_step_two_x)."""
+    check_step_two_x(
+        "train", train_model, GPT2Config(), GPT2Config(dtype=torch.float32),
+        lambda m: cross_entropy_loss(m(batch["input_ids"]), batch["labels"]))
+
+
+# ---------------------------------------------------------------- ViT
+
+# ViT-B/16 (Dosovitskiy et al. 2020, Table 1: 12 layers, 12 heads, hidden
+# 768, MLP 3072; 224 x 224 images in 16 x 16 patches, 196 tokens; 1000
+# classes), bf16 compute over fp32 weights; one b=64 batch.
+VIT_B16 = ViTConfig(dtype=BF16)
+VIT_B = 64
+
+
+def vit_batch(cfg):
+    """b=64 standard-normal images (b, 224, 224, 3) and labels in [0,
+    1000) from numpy's default_rng(2)."""
+    rng = np.random.default_rng(2)
+    images = rng.standard_normal(
+        (VIT_B, cfg.image_size, cfg.image_size, cfg.num_channels),
+        dtype=np.float32)
+    labels = rng.integers(0, cfg.num_classes, VIT_B)
+    return {"images": torch.from_numpy(images).to(DEV),
+            "labels": torch.from_numpy(labels).to(DEV)}
+
+
+def vit_model(cfg):
+    return ViTClassifier(cfg, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(0))
+
+
+def phase_vit_train(n_steps=4):
+    """The ViT main path: ViTClassifier(VIT_B16) with dropout 0.1, fp32
+    weights and AdamW state, bf16 compute in the patch convolution,
+    FlashMHA and the MLP, n_steps on one b=64 batch. Each step launches K1
+    and K2 once per layer (non-causal over 196 tokens). Returns (launches,
+    step, batch, generator)."""
+    cfg = dataclasses.replace(VIT_B16, dropout=0.1)
+    batch = vit_batch(cfg)
+    model = vit_model(cfg)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    step = make_vit_step(model, opt)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(batch, gen) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(KERNELS)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"ViT losses {losses}")
+    check(losses[-1] < losses[0], f"ViT loss did not fall: {losses}")
+    for name in TRAIN_KERNELS:
+        check(launches[name] == cfg.n_layer * n_steps,
+              f"ViT {name}: {launches[name]} launches in {n_steps} steps, "
+              f"want {cfg.n_layer} per step")
+    check_fp32_training(model, opt, "ViT")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vit train: ViT-B/16 ({n_params / 1e6:.1f} M parameters), "
+          f"b={VIT_B} {cfg.image_size}x{cfg.image_size} images, "
+          f"{cfg.seq_len} tokens, dropout 0.1, {n_steps} AdamW steps in "
+          f"{dt:.2f} s; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {launches} [{card_line()}]")
+    return launches, step, batch, gen
+
+
+def phase_vit_check(batch):
+    """A dropout-0 ViT-B/16 step against fp32 compute (check_step_two_x);
+    the fp32 model computes the patch convolution, attention and MLP in
+    fp32 from the same weights."""
+    check_step_two_x(
+        "vit", vit_model, VIT_B16, dataclasses.replace(VIT_B16, dtype=None),
+        lambda m: classification_loss(m(batch["images"]), batch["labels"]))
+
+
+def vit_timing_specs(gen):
+    """kernel_timing rows of K1 and K2 at ViT-B/16's attention (b=64 h=12
+    s=196 d=64, non-causal, dropout 0.1, lse saved)."""
+    q, k, v, do = (randn(gen, (VIT_B, 12, 196, 64)) for _ in range(4))
+    kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    pairs = VIT_B * 12 * 196 * 196
+    return {
+        "flash_fwd (ViT-B/16, dropout 0.1, lse)": (
+            lambda: flash_attention_fwd(q, k, v, save_lse=True, **kw),
+            lambda: flash_attention_fwd_plain(q, k, v, save_lse=True, **kw),
+            sdpa_fwd(q, k, v, p=0.1, causal=False),
+            nbytes(q, k, v, q, lse), 4 * pairs * 64),
+        "flash_bwd (ViT-B/16, dropout 0.1)": (
+            lambda: flash_attention_bwd(q, k, v, out, do, lse, **kw),
+            lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, **kw),
+            sdpa_bwd(q, k, v, do, p=0.1, causal=False),
+            nbytes(q, k, v, out, do, lse) + nbytes(q, k, v),
+            10 * pairs * 64),
+    }
+
+
+# ---------------------------------------------------------------- Llama train
+
+# Llama-3-8B's widths (LLAMA3_8B) cut to 2 layers, fp32 weights and AdamW
+# state (about 1.5 B parameters: 24 GB with gradients and both moments),
+# bf16 compute; one b=4 x s=2048 batch, the head and loss in chunks of 512
+# tokens.
+LLAMA_TRAIN = dataclasses.replace(LLAMA3_8B, n_layer=2,
+                                  param_dtype=torch.float32)
+LLAMA_TRAIN_B, LLAMA_TRAIN_S, LLAMA_LOSS_CHUNK = 4, 2048, 512
+
+
+def llama_train_batch(cfg):
+    """One b=4, s=2048 batch from numpy's default_rng(3)."""
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (LLAMA_TRAIN_B, LLAMA_TRAIN_S))).to(DEV)
+    return {"input_ids": ids, "labels": ids}
+
+
+def llama_loss(model, batch):
+    """The train step's loss: the hidden state through chunked_lm_loss."""
+    x, head = model(batch["input_ids"], return_hidden=True)
+    return chunked_lm_loss(x, head, batch["labels"], chunk=LLAMA_LOSS_CHUNK,
+                           dtype=model.config.dtype)
+
+
+def phase_llama_train(n_steps=3):
+    """The Llama training path at LLAMA_TRAIN: n_steps AdamW steps with
+    remat off (falling finite loss, K1 and K2 once per layer per step),
+    then at the same weights one backward with remat off and one with remat
+    on (the model's config switched: the same module and weights): the same
+    loss and gradient norm, and K1 twice per layer with remat. Each setting
+    then gets a traced step (busy time; K1/K2 kernels) and timed steps
+    (host ms, peak memory). Returns {path: launches}."""
+    cfg = LLAMA_TRAIN
+    batch = llama_train_batch(cfg)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"llama train: Llama-3-8B widths cut to {cfg.n_layer} layers, "
+          f"{n_params / 1e9:.3f} B parameters (fp32) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    step = make_llama_step(model, opt, lm_loss_chunk=LLAMA_LOSS_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(batch) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"llama_train": read_launches(KERNELS)}
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"Llama losses {losses}")
+    check(losses[-1] < losses[0], f"Llama loss did not fall: {losses}")
+    for name in TRAIN_KERNELS:
+        got = launches["llama_train"][name]
+        check(got == cfg.n_layer * n_steps,
+              f"Llama {name}: {got} launches in {n_steps} steps, want "
+              f"{cfg.n_layer} per step")
+    check_fp32_training(model, opt, "Llama")
+    print(f"llama train: b={LLAMA_TRAIN_B} s={LLAMA_TRAIN_S}, "
+          f"lm_loss_chunk={LLAMA_LOSS_CHUNK}, remat off, {n_steps} AdamW "
+          f"steps in {dt:.2f} s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches['llama_train']} [{card_line()}]")
+
+    reset_launches()
+    plain = loss_and_norm(lambda: llama_loss(model, batch), model)
+    counts = read_launches(TRAIN_KERNELS)
+    model.config = dataclasses.replace(cfg, remat=True)
+    reset_launches()
+    remat = loss_and_norm(lambda: llama_loss(model, batch), model)
+    launches["llama_train_remat"] = read_launches(KERNELS)
+    got = [launches["llama_train_remat"][name] for name in TRAIN_KERNELS]
+    n = cfg.n_layer
+    check([counts[name] for name in TRAIN_KERNELS] == [n, n]
+          and got == [2 * n, n], f"Llama K1, K2 launches in one backward: "
+          f"{counts} without remat, {got} with")
+    check(torch.equal(plain[0], remat[0]),
+          f"Llama loss with remat {float(remat[0])} != {float(plain[0])}")
+    rel = float((remat[1] - plain[1]).abs() / plain[1])
+    check(rel <= 1e-6, f"Llama grad norm with remat off by {rel:.3e}")
+    print(f"llama train remat at the same weights: loss {float(plain[0]):.6f}"
+          f" both, grad norm {float(plain[1]):.6f} vs {float(remat[1]):.6f} "
+          f"(rel {rel:.3e}); K1, K2 launches {got} with remat, "
+          f"{[counts[n] for n in TRAIN_KERNELS]} without")
+    model.zero_grad(set_to_none=True)
+    shape = f"b={LLAMA_TRAIN_B} s={LLAMA_TRAIN_S} chunk {LLAMA_LOSS_CHUNK}"
+    for flag in (False, True):
+        model.config = dataclasses.replace(cfg, remat=flag)
+        label = f"llama train (remat {'on' if flag else 'off'})"
+        trace_step(label, lambda: step(batch), n * (2 if flag else 1), n)
+        phase_train_timing(step, batch, None, warmup=1, n=3, label=label,
+                           shape=shape)
+    return launches
+
+
+# ---------------------------------------------------------------- remat
+
+# (remat, remat_policy) and the K1 launches each gives per GPT-2 step.
+REMAT_SETTINGS = [(False, None, 12), (True, None, 24), (True, "dots", 24),
+                  (True, "dots_flash", 12)]
+
+
+def gpt2_loss_and_grads(model, batch):
+    """Loss and every gradient (one fp32 vector) of one backward with
+    dropout seeded from 0."""
+    model.zero_grad(set_to_none=True)
+    loss = cross_entropy_loss(
+        model(batch["input_ids"], deterministic=False,
+              generator=torch.Generator().manual_seed(0)), batch["labels"])
+    loss.backward()
+    return loss.detach(), torch.cat([p.grad.float().flatten()
+                                     for p in model.parameters()])
+
+
+def phase_gpt2_remat(batch):
+    """GPT-2 at full width, dropout 0.1, the train phase's batch and
+    initial weights, under each of REMAT_SETTINGS: the same loss as without
+    remat, every gradient within the 2x rule of the no-remat step against
+    the fp32-compute step (same dropout masks), K1 launched the expected
+    number of times (once per layer under "dots_flash": its output and lse
+    are kept), K2 once per layer; then timed steps (host ms, peak memory)
+    and a traced one (busy time, idle share).
+    Returns the launches summed over the four backwards."""
+    model32 = train_model(GPT2Config(dropout=0.1, dtype=torch.float32))
+    _, g32 = gpt2_loss_and_grads(model32, batch)
+    del model32
+    torch.cuda.empty_cache()
+    total, base, card = None, None, card_line()
+    for remat, policy, k1 in REMAT_SETTINGS:
+        label = f"remat {'on' if remat else 'off'}, policy {policy}"
+        model = train_model(GPT2Config(dropout=0.1, remat=remat,
+                                       remat_policy=policy))
+        reset_launches()
+        loss, g = gpt2_loss_and_grads(model, batch)
+        launches = read_launches(KERNELS)
+        total = launches if total is None else {
+            n: total[n] + launches[n] for n in launches}
+        got = [launches[name] for name in TRAIN_KERNELS]
+        check(got == [k1, 12], f"GPT-2 {label}: K1, K2 launches {got}, want "
+              f"{[k1, 12]}")
+        if base is None:
+            base = (loss, g)
+        check(torch.equal(loss, base[0]),
+              f"GPT-2 {label}: loss {float(loss)} != {float(base[0])}")
+        err, b = assert_two_x_bound(g, g32, base[1], atol=1e-6,
+                                    label=f"GPT-2 {label} gradients")
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                weight_decay=1e-4)
+        step = make_train_step(model, opt)
+        gen = torch.Generator().manual_seed(0)
+        ms = phase_train_timing(step, batch, gen, warmup=1, n=3,
+                                label=f"gpt2 train ({label})")
+        wall, _, events = trace_call(lambda: step(batch, gen))
+        print(f"gpt2 {label}: loss {float(loss):.6f}; K1 {got[0]} and K2 "
+              f"{got[1]} launches per step; gradients vs fp32 compute max err "
+              f"{err:.3e} (no remat {b:.3e}), vs no remat "
+              f"{max_err(g, base[1]):.3e}; step {ms:.2f} ms; traced step: "
+              f"{device_summary(wall, events)} [{card}]")
+        del model, opt, step, g
+        torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------- BERT
@@ -2131,67 +2439,16 @@ def phase_bert_train(n_steps=4):
     return launches, step, batch, gen
 
 
-def phase_bert_trace(step, batch, gen):
-    """A traced BERT step: no SDPA op; K1 and K2 12 kernels each, all in
-    their segment form; device busy time, idle share and time by class."""
-    step(batch, gen)
-    torch.cuda.synchronize()
-    wall, names, events = trace_call(lambda: step(batch, gen))
-    sdpa = sorted(n for n in names if n.startswith(
-        ("aten::_scaled_dot_product", "aten::_efficient_attention",
-         "aten::_flash_attention")))
-    check(not sdpa, f"SDPA ops in the BERT step: {sdpa}")
-    dev = device_events(events)
-    per_step = [sum(key in e["name"] and ", true>" in e["name"]
-                    for e in dev)
-                for key in ("flash_fwd_wgmma", "flash_bwd_wgmma")]
-    dense = sum(("flash_fwd_wgmma" in e["name"] or "flash_bwd_wgmma"
-                 in e["name"]) and ", false>" in e["name"] for e in dev)
-    check(per_step == [12, 12] and dense == 0,
-          f"K1, K2 segment kernels in a traced BERT step: {per_step}, dense "
-          f"ones {dense}")
-    print(f"bert train step trace: {device_summary(wall, events)}; K1 and "
-          f"K2 12 segment-form kernels each; no SDPA op [{card_line()}]")
-    print_top_kernels("bert train", lambda: step(batch, gen))
-
-
 def phase_bert_check(batch):
-    """One BERT step at dropout 0, its loss and global gradient norm: bf16
-    compute through K1/K2's segment form against the same step in fp32
-    compute (the fp32 segment kernels), by the 2x rule. Baseline: the bf16
-    model with attention through the bf16 masked attention_ref. Floor:
-    1e-4 of the fp32 value."""
-    def loss_and_norm(model):
-        model.zero_grad(set_to_none=True)
-        loss = mlm_loss(model(batch["input_ids"],
-                              attention_mask=batch["attention_mask"]),
-                        batch["labels"], batch["label_mask"])
-        loss.backward()
-        norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
-                              for p in model.parameters()
-                              if p.grad is not None))  # the pooler: none
-        return torch.stack([loss.detach(), norm])
-
-    model16 = bert_model(BERT_BASE)
-    got = loss_and_norm(model16)
-    original = modules.flash_attention
-    modules.flash_attention = reference_attention
-    try:
-        base = loss_and_norm(model16)
-    finally:
-        modules.flash_attention = original
-    del model16
-    torch.cuda.empty_cache()
-    want = loss_and_norm(bert_model(dataclasses.replace(BERT_BASE,
-                                                        dtype=None)))
-    for i, what in enumerate(("loss", "grad norm")):
-        err, b = assert_two_x_bound(got[i], want[i], base[i],
-                                    atol=1e-4 * float(want[i].abs()),
-                                    label=f"BERT step {what}")
-        print(f"bert step at dropout 0, {what}: bf16 + kernels "
-              f"{float(got[i]):.6f}, fp32 compute {float(want[i]):.6f}, bf16 "
-              f"+ masked attention_ref {float(base[i]):.6f}: err {err:.3e} "
-              f"(bf16 baseline {b:.3e})")
+    """One BERT step at dropout 0 against fp32 compute (the fp32 segment
+    kernels; check_step_two_x), the baseline's attention_ref masked by
+    the segment ids."""
+    check_step_two_x(
+        "bert", bert_model, BERT_BASE,
+        dataclasses.replace(BERT_BASE, dtype=None),
+        lambda m: mlm_loss(m(batch["input_ids"],
+                             attention_mask=batch["attention_mask"]),
+                           batch["labels"], batch["label_mask"]))
     torch.cuda.empty_cache()
 
 
@@ -2602,16 +2859,31 @@ def main():
 
     with phase_time("GPT-2 training"):
         launches["train"], step, batch, dgen, *held = phase_train()
-        phase_trace(step, batch, dgen)
+        trace_step("train", lambda: step(batch, dgen), 12, 12)
         dense_ms = phase_train_timing(step, batch, dgen)
         del step, held
         torch.cuda.empty_cache()
         phase_train_check(batch)
         torch.cuda.empty_cache()
 
+    with phase_time("GPT-2 remat policies"):
+        launches["gpt2_remat"] = phase_gpt2_remat(batch)
+        torch.cuda.empty_cache()
+
+    with phase_time("ViT training"):
+        launches["vit_train"], vstep, vbatch, vgen = phase_vit_train()
+        trace_step("vit train", lambda: vstep(vbatch, vgen), 12, 12)
+        phase_train_timing(vstep, vbatch, vgen, label="vit train",
+                           shape=f"b={VIT_B} 224x224 dropout 0.1")
+        del vstep
+        torch.cuda.empty_cache()
+        phase_vit_check(vbatch)
+        torch.cuda.empty_cache()
+
     with phase_time("BERT training"):
         launches["bert_train"], bstep, bbatch, bgen = phase_bert_train()
-        phase_bert_trace(bstep, bbatch, bgen)
+        trace_step("bert train", lambda: bstep(bbatch, bgen), 12, 12,
+                   segments=True)
         phase_train_timing(bstep, bbatch, bgen, label="bert train",
                            shape=f"b={BERT_B} s={BERT_S} padding masks "
                            "dropout 0.1")
@@ -2631,6 +2903,9 @@ def main():
 
     with phase_time("Llama serving"):
         launches["llama_chunked"] = phase_llama(rng)
+    with phase_time("Llama training"):
+        launches.update(phase_llama_train())
+        torch.cuda.empty_cache()
     with phase_time("kernel timing"):
         times = kernel_timing(gen)
 
@@ -2678,6 +2953,19 @@ def main():
                 "unmasked_ms": times[
                     f"{name} (BERT shape, no mask, dropout 0.1"
                     + (", lse)" if name == "flash_fwd" else ")")][0]}
+            entry["model_shapes"] = {}
+            for shape, row in (
+                    ("vit_train: b64 h12 s196 d64 non-causal, dropout 0.1",
+                     "ViT-B/16, dropout 0.1" + (", lse" if name == "flash_fwd"
+                                                else "")),
+                    ("llama_train: b4 h32/8 s2048 d128 causal",
+                     "Llama train" + (", lse" if name == "flash_fwd"
+                                      else ""))):
+                ms_, plain_, lib_, b_, by_, backend_ = times[f"{name} ({row})"]
+                entry["model_shapes"][shape] = {
+                    "ms": ms_, "plain_ms": plain_, "bound_ms": b_,
+                    "bound_by": by_, "library_ms": lib_,
+                    "library_backend": backend_}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"phase total: {time.perf_counter() - t_start:.1f} s")

@@ -11,10 +11,31 @@ from flash_attn_tpu_torch.ops.blocksparse import (
     blocksparse_attention,
     flash_blocksparse_attn_func,
 )
+from flash_attn_tpu_torch.ops.interface import (
+    flash_attn_func,
+    flash_attn_unpadded_func,
+    flash_attn_unpadded_kvpacked_func,
+    flash_attn_unpadded_qkvpacked_func,
+    flash_attn_varlen_func,
+    flash_attn_varlen_kvpacked_func,
+    flash_attn_varlen_qkvpacked_func,
+)
+from flash_attn_tpu_torch.ops.packing import pad_input, unpad_input
+
+__version__ = "0.1.0"
 
 __all__ = [
     "blocksparse_attention",
     "flash_attention",
+    "flash_attn_func",
+    "flash_attn_unpadded_func",
+    "flash_attn_unpadded_kvpacked_func",
+    "flash_attn_unpadded_qkvpacked_func",
+    "flash_attn_varlen_func",
+    "flash_attn_varlen_kvpacked_func",
+    "flash_attn_varlen_qkvpacked_func",
     "flash_blocksparse_attn_func",
+    "pad_input",
+    "unpad_input",
+    "__version__",
 ]
-__version__ = "0.1.0"

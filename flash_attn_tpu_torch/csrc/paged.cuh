@@ -7,7 +7,7 @@
 // flash_attn_tpu_torch/kernels/common.py. Key position j of a sequence is
 // visible from a query at global position qpos iff it is cached (j < length)
 // and causal (j <= qpos). Decode is the case qpos = length - 1. The window
-// and sink terms are ROADMAP port item P2.
+// and sink terms are ROADMAP port item M4.
 #pragma once
 
 namespace fattn {

@@ -30,11 +30,11 @@ import torch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _UNPORTED = {
-    "k_scales": "P3 (quantized KV)", "v_scales": "P3 (quantized KV)",
-    "window_left": "P2 (window in K5/K6)",
-    "num_sinks": "P2 (window in K5/K6)",
-    "alibi_slopes": "P2 (ALiBi/softcap)", "softcap": "P2 (ALiBi/softcap)",
-    "qk_quant": "P11 (int8 QK, K9)",
+    "k_scales": "M5 (quantized KV)", "v_scales": "M5 (quantized KV)",
+    "window_left": "M4 (window in K5/K6)",
+    "num_sinks": "M4 (window in K5/K6)",
+    "alibi_slopes": "M4 (ALiBi/softcap)", "softcap": "M4 (ALiBi/softcap)",
+    "qk_quant": "M8 (int8 QK, K9)",
 }
 
 
@@ -52,10 +52,10 @@ def paged_block_live(j, bk, *, length, window_left=None,
                      first_band_pos=None):
     """Liveness of key block ``j`` (width ``bk``) for the paged kernels
     (common.py:245): some key of it is in-sequence. ``length`` may be a
-    tensor. The window band and sinks are ROADMAP port item P2."""
+    tensor. The window band and sinks are ROADMAP port item M4."""
     if window_left is not None or first_band_pos is not None:
         raise NotImplementedError(
-            "paged_block_live(window_left=...): ROADMAP port item P2 "
+            "paged_block_live(window_left=...): ROADMAP port item M4 "
             "(window in K5/K6)")
     return j * bk < length
 
@@ -64,7 +64,7 @@ def paged_visibility_mask(kpos, qpos, *, length):
     """(rows, bk) True = key visible: in-sequence and causal against the
     row's query position. ``qpos`` and ``length`` may be scalars or tensors
     that broadcast against ``kpos`` (common.py:266; the window and sink
-    terms are ROADMAP port item P2)."""
+    terms are ROADMAP port item M4)."""
     return (kpos < length) & (kpos <= qpos)
 
 

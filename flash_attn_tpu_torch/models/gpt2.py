@@ -17,7 +17,19 @@ the MLP's ``c_proj``; there is none after ``out_proj``.
 
 The serving path (``gpt2_decode``) runs ``Block.qkv`` / ``Block.finish`` and
 ``lm_head`` (an fp32 head, as the JAX decode path has); it wants the weights
-stored in ``cfg.dtype``, so that its casts are no-ops.
+stored in ``cfg.dtype``, so that its casts are no-ops. The training block
+is the same three steps with the attention op between them.
+
+``remat`` recomputes each block in the backward (``torch.utils.checkpoint``)
+and ``remat_policy`` chooses what it keeps (JAX ``_resolve_remat_policy``):
+None keeps only the block's input; "dots" also every matmul's output
+(selective checkpointing), so the norms, gelu, dropout and attention
+recompute; "dots_flash" also the attention output and its lse, so the
+forward kernel does not run again in the backward. The attention op is a
+ctypes launch that the selective-checkpoint dispatch cannot see, so
+"dots_flash" runs it between two recomputed regions, the projection before
+it and the rest of the block after, and its autograd node keeps what the
+backward kernel reads.
 """
 
 from __future__ import annotations
@@ -28,7 +40,11 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from flash_attn_tpu_torch.models.modules import FlashMHA, draw_seeds, linear
 
@@ -44,10 +60,12 @@ class GPT2Config:
     layer_norm_epsilon: float = 1e-5
     dtype: Any = torch.bfloat16  # compute: activations and the KV cache
     param_dtype: Any = torch.float32  # stored weights
-    # Sliding-window attention: ROADMAP port item P2; must stay None.
+    # Sliding-window attention: ROADMAP port item M4; must stay None.
     window: Any = None
-    # Per-block recompute in the backward (torch.utils.checkpoint); the
-    # "dots" / "dots_flash" save policies are ROADMAP port item P8.
+    # Per-block recompute in the backward (torch.utils.checkpoint), and
+    # what it keeps with remat=True: None (the block's input only),
+    # "dots" (and every matmul output) or "dots_flash" (and the attention
+    # output and lse: the forward kernel does not run again).
     remat: bool = False
     remat_policy: str | None = None
 
@@ -155,41 +173,68 @@ class Block(nn.Module):
         """Training / full-sequence block. ``seeds`` (attention, MLP) turn
         dropout on; the attention seed comes from a generator seeded here,
         so a recompute under checkpoint draws the same one."""
-        cfg = self.config
+        ctx = self.attend(*self.qkv(x), seeds)
+        return self.finish(x, ctx, None if seeds is None else seeds[1])
+
+    def remat_forward(self, x, seeds, policy: str | None):
+        """``forward`` under ``torch.utils.checkpoint`` with ``policy``
+        (``GPT2Config.remat_policy``)."""
+        if policy is None:
+            return checkpoint(self, x, seeds, use_reentrant=False)
+        kw = dict(use_reentrant=False, context_fn=_save_dots)
+        if policy == "dots":
+            return checkpoint(self, x, seeds, **kw)
+        q, k, v = checkpoint(self.qkv, x, **kw)
+        ctx = self.attend(q, k, v, seeds)
+        return checkpoint(self.finish, x, ctx,
+                          None if seeds is None else seeds[1], **kw)
+
+    def attend(self, q, k, v, seeds):
+        """The attention op on (b, s, n_head, head_dim) q, k, v -> (b, s,
+        n_embd) context; dropout is on when ``seeds`` is given."""
         gen = None if seeds is None else torch.Generator().manual_seed(
             seeds[0])
-        h = layer_norm(x, self.ln_1, cfg.dtype)
-        x = x + self.attention(h, gen)
-        h = layer_norm(x, self.ln_2, cfg.dtype)
-        return x + self.mlp(h, None if seeds is None else seeds[1])
-
-    def attention(self, h, gen: torch.Generator | None):
-        """The attention sublayer; dropout is on when ``gen`` is given."""
         if self.attn_impl is None:
-            return self.attn(h, deterministic=gen is None, generator=gen)
-        cfg = self.config
-        b, s, e = h.shape
-        q, k, v = linear(h, self.attn.Wqkv, cfg.dtype).reshape(
-            b, s, 3, cfg.n_head, cfg.head_dim).unbind(dim=2)
-        seed = None if gen is None else draw_seeds(gen, 1)[0]
-        ctx = self.attn_impl(q, k, v, dropout_seed=seed)
-        return linear(ctx.reshape(b, s, e), self.attn.out_proj, cfg.dtype)
+            ctx = self.attn.inner_attn.attend(q, k, v, causal=True,
+                                              deterministic=gen is None,
+                                              generator=gen)
+        else:
+            seed = None if gen is None else draw_seeds(gen, 1)[0]
+            ctx = self.attn_impl(q, k, v, dropout_seed=seed)
+        return ctx.flatten(2)
 
     def qkv(self, x):
-        """Serving: (..., n_embd) -> q, k, v (..., n_head, head_dim), split
-        as flax splits the fused projection (reshape to (..., 3, n_head,
-        hd))."""
+        """ln_1 and the fused projection: (..., n_embd) -> q, k, v (...,
+        n_head, head_dim), split as flax splits it (reshape to (..., 3,
+        n_head, hd))."""
         cfg = self.config
         h = layer_norm(x, self.ln_1, cfg.dtype)
         qkv = linear(h, self.attn.Wqkv, cfg.dtype).unflatten(
             -1, (3, cfg.n_head, cfg.head_dim))
         return qkv.unbind(dim=-3)
 
-    def finish(self, x, ctx):
-        """Serving: residual stream after attention context ``ctx``
-        (..., n_embd): output projection, then the MLP."""
+    def finish(self, x, ctx, mlp_seed: int | None = None):
+        """Residual stream after attention context ``ctx`` (..., n_embd):
+        output projection, then the MLP (dropout after it with
+        ``mlp_seed``)."""
         x = x + linear(ctx, self.attn.out_proj, self.config.dtype)
-        return x + self.mlp(layer_norm(x, self.ln_2, self.config.dtype))
+        return x + self.mlp(layer_norm(x, self.ln_2, self.config.dtype),
+                            mlp_seed)
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _keep_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep every matmul's output (JAX
+    ``dots_saveable``), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_keep_matmuls)
 
 
 class GPT2LMHeadModel(nn.Module):
@@ -204,11 +249,10 @@ class GPT2LMHeadModel(nn.Module):
         super().__init__()
         if cfg.window is not None:
             raise NotImplementedError(
-                "GPT2Config.window: sliding windows are ROADMAP port item P2")
-        if cfg.remat_policy is not None:
-            raise NotImplementedError(
-                f"GPT2Config.remat_policy={cfg.remat_policy!r}: save "
-                "policies are ROADMAP port item P8 (None recomputes all)")
+                "GPT2Config.window: sliding windows are ROADMAP port item M4")
+        if cfg.remat and cfg.remat_policy not in (None, "dots", "dots_flash"):
+            raise ValueError("remat_policy must be None, 'dots', or "
+                             f"'dots_flash'; got {cfg.remat_policy!r}")
         self.config = cfg
         factory = dict(device=device, dtype=cfg.param_dtype)
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
@@ -268,7 +312,7 @@ class GPT2LMHeadModel(nn.Module):
             block_seeds = list(zip(seeds[1::2], seeds[2::2]))
         for block, seeds in zip(self.h, block_seeds):
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, seeds, use_reentrant=False)
+                x = block.remat_forward(x, seeds, cfg.remat_policy)
             else:
                 x = block(x, seeds)
         x = layer_norm(x, self.ln_f, cfg.dtype)

@@ -1,6 +1,6 @@
 """Llama-family causal LM over the port's flash attention (port of
-``flash_attn_tpu/models/llama.py``: config, rotary, modules and the
-full-sequence forward).
+``flash_attn_tpu/models/llama.py``: config, rotary, modules, the
+full-sequence forward, the training step and HF interop).
 
 RMSNorm, rotary position embeddings in the HF half-split layout,
 grouped-query attention (``n_kv_head`` < ``n_head``, served by the kernels'
@@ -13,9 +13,14 @@ after the flax parameter tree (``wte``, ``layers.{i}.input_layernorm``,
 Numerics follow the flax model: parameters stored in ``cfg.param_dtype``,
 every projection computed in ``cfg.dtype`` from a cast of them, RMSNorm
 statistics and rotary in fp32, and the head bf16 x bf16 -> fp32 (the
-product GPT-2's tied head computes). Serving forward only: the train step,
-``chunked_lm_loss``, remat and HF loading are ROADMAP port item P8;
-sliding windows (``window``, ``window_sinks``) are P2.
+product GPT-2's tied head computes). ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``). Sliding windows (``window``,
+``window_sinks``) raise: ROADMAP port item M4.
+
+HF interop: ``load_hf_llama`` / ``convert_hf_llama_state_dict`` map a
+``transformers`` ``LlamaForCausalLM`` (or Mistral) state dict onto this
+module's parameters. ``transformers`` is imported only to load a
+checkpoint by name or path.
 """
 
 from __future__ import annotations
@@ -25,8 +30,13 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from flash_attn_tpu_torch.models.gpt2 import tied_logits
+from flash_attn_tpu_torch.models.gpt2 import (
+    chunked_lm_loss,
+    cross_entropy_loss,
+    tied_logits,
+)
 from flash_attn_tpu_torch.models.modules import linear
 from flash_attn_tpu_torch.ops.attention import flash_attention
 
@@ -42,11 +52,11 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
-    window: Any = None  # sliding-window attention: ROADMAP port item P2
+    window: Any = None  # sliding-window attention: ROADMAP port item M4
     window_sinks: int = 0
     dtype: Any = torch.bfloat16  # compute: activations and the KV cache
     param_dtype: Any = torch.float32  # stored weights
-    remat: bool = False  # training: ROADMAP port item P8
+    remat: bool = False  # per-block recompute in the backward
 
     @property
     def head_dim(self) -> int:
@@ -193,10 +203,7 @@ class LlamaForCausalLM(nn.Module):
         if cfg.window is not None or cfg.window_sinks:
             raise NotImplementedError(
                 "LlamaConfig.window/window_sinks: sliding windows are "
-                "ROADMAP port item P2")
-        if cfg.remat:
-            raise NotImplementedError(
-                "LlamaConfig.remat: Llama training is ROADMAP port item P8")
+                "ROADMAP port item M4")
         self.config = cfg
         factory = dict(device=device, dtype=cfg.param_dtype)
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
@@ -224,13 +231,120 @@ class LlamaForCausalLM(nn.Module):
         return tied_logits(self.norm(x), self.lm_head.weight,
                            self.config.dtype)
 
-    def forward(self, input_ids, positions=None):
+    def forward(self, input_ids, positions=None, return_hidden: bool = False):
         """Full-sequence causal forward: (b, s) ids -> (b, s, vocab) fp32
-        logits."""
+        logits, or with ``return_hidden`` the final norm's output and the
+        head's weight (for ``chunked_lm_loss``)."""
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
         x = self.embed(input_ids)
         for block in self.layers:
-            x = block(x, positions)
+            if self.config.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, positions, use_reentrant=False)
+            else:
+                x = block(x, positions)
+        if return_hidden:
+            return self.norm(x), self.lm_head.weight
         return self.logits(x)
+
+
+def make_train_step(model: LlamaForCausalLM,
+                    optimizer: torch.optim.Optimizer,
+                    lm_loss_chunk: int | None = None):
+    """Returns ``step(batch, generator=None) -> loss``: one forward,
+    backward and optimizer step on ``batch = {"input_ids", "labels"}``
+    (b, s) int64 (the model has no dropout; ``generator`` is accepted for
+    the GPT-2 step's signature). The JAX step's ``optax.adamw(lr)`` is
+    ``torch.optim.AdamW(params, lr, weight_decay=1e-4)`` here.
+
+    ``lm_loss_chunk``: stream the head + CE over chunks of this many tokens
+    (``chunked_lm_loss``) instead of holding the (b, s, vocab) logits."""
+    dtype = model.config.dtype
+
+    def step(batch, generator: torch.Generator | None = None):
+        optimizer.zero_grad(set_to_none=True)
+        if lm_loss_chunk is not None:
+            x, head = model(batch["input_ids"], return_hidden=True)
+            loss = chunked_lm_loss(x, head, batch["labels"],
+                                   chunk=lm_loss_chunk, dtype=dtype)
+        else:
+            loss = cross_entropy_loss(model(batch["input_ids"]),
+                                      batch["labels"])
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+# ---------------------------------------------------------- HF interop
+
+
+def llama_config_from_hf(hf_cfg, **overrides) -> LlamaConfig:
+    """A ``LlamaConfig`` from a ``transformers`` Llama or Mistral config.
+    A Mistral ``sliding_window`` becomes ``window``, which the model
+    refuses (ROADMAP port item M4)."""
+    kw = dict(
+        vocab_size=hf_cfg.vocab_size,
+        n_layer=hf_cfg.num_hidden_layers,
+        n_head=hf_cfg.num_attention_heads,
+        n_kv_head=getattr(hf_cfg, "num_key_value_heads", None)
+        or hf_cfg.num_attention_heads,
+        n_embd=hf_cfg.hidden_size,
+        intermediate_size=hf_cfg.intermediate_size,
+        max_position_embeddings=hf_cfg.max_position_embeddings,
+        rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
+        rms_norm_eps=hf_cfg.rms_norm_eps,
+        window=getattr(hf_cfg, "sliding_window", None),
+    )
+    kw.update(overrides)
+    return LlamaConfig(**kw)
+
+
+def convert_hf_llama_state_dict(sd, cfg: LlamaConfig, dtype=torch.float32
+                                ) -> dict[str, torch.Tensor]:
+    """A ``transformers`` state dict (torch tensors or numpy arrays) -> the
+    state dict of the port's ``LlamaForCausalLM(cfg)``, in ``dtype`` on the
+    CPU. HF's ``nn.Linear`` weights are (out, in), as the port's. Without
+    ``lm_head.weight`` the head is tied to the embedding (e.g. TinyLlama
+    1.1B). A missing layer raises ``KeyError``, as in JAX."""
+
+    def a(name):
+        return torch.as_tensor(sd[name]).detach().to("cpu", dtype)
+
+    out = {"wte.weight": a("model.embed_tokens.weight"),
+           "norm.weight": a("model.norm.weight"),
+           "lm_head.weight": a("lm_head.weight" if "lm_head.weight" in sd
+                               else "model.embed_tokens.weight")}
+    names = {"input_layernorm": "input_layernorm",
+             "post_attention_layernorm": "post_attention_layernorm",
+             **{f"self_attn.{n}": f"attn.{n}"
+                for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+             **{f"mlp.{n}": f"mlp.{n}"
+                for n in ("gate_proj", "up_proj", "down_proj")}}
+    for i in range(cfg.n_layer):
+        for hf, port in names.items():
+            out[f"layers.{i}.{port}.weight"] = a(
+                f"model.layers.{i}.{hf}.weight")
+    return out
+
+
+def load_hf_llama(name_or_model, dtype=torch.float32, device="cuda"
+                  ) -> tuple[LlamaConfig, LlamaForCausalLM]:
+    """A ``transformers`` model, or a checkpoint name or local directory
+    for ``AutoModelForCausalLM.from_pretrained``, -> ``(cfg, model)``: the
+    port's ``LlamaForCausalLM`` on ``device`` with its weights stored in
+    ``dtype`` (``cfg.param_dtype``)."""
+    if isinstance(name_or_model, str):
+        from transformers import AutoModelForCausalLM
+
+        hf = AutoModelForCausalLM.from_pretrained(name_or_model)
+    else:
+        hf = name_or_model
+    cfg = llama_config_from_hf(hf.config, param_dtype=dtype)
+    model = LlamaForCausalLM(cfg, device=device,
+                             generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(convert_hf_llama_state_dict(hf.state_dict(), cfg,
+                                                      dtype))
+    return cfg, model

@@ -32,7 +32,7 @@ def _check(cfg: LlamaConfig):
     if cfg.window is not None or cfg.window_sinks:
         raise NotImplementedError(
             "LlamaConfig.window/window_sinks: rolling-window serving is "
-            "ROADMAP port item P2")
+            "ROADMAP port item M4")
 
 
 def _last(x, idx):

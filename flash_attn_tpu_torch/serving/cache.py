@@ -27,7 +27,7 @@ from flash_attn_tpu_torch.kernels import _build
 @dataclasses.dataclass
 class PagedKVCache:
     """Per-layer paged cache in the model dtype (quantized payloads with
-    per-token scales are ROADMAP port item P3)."""
+    per-token scales are ROADMAP port item M5)."""
 
     k_pages: torch.Tensor  # (n_kv_heads, num_pages, page_size, d)
     v_pages: torch.Tensor
@@ -43,7 +43,7 @@ def init_cache(n_kv_heads: int, num_pages: int, page_size: int,
     if quantization is not None:
         raise NotImplementedError(
             f"quantization={quantization!r}: quantized KV is ROADMAP port "
-            "item P3")
+            "item M5")
     shape = (n_kv_heads, num_pages, page_size, head_dim)
     return PagedKVCache(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),

@@ -26,7 +26,7 @@ the port's kernels:
 The model's phases come from ``model_fns`` (default ``gpt2_decode``; pass
 ``llama_decode`` with a ``LlamaForCausalLM``). Quantized KV
 (``kv_quantization``) and sliding windows (``cfg.window``) are ROADMAP port
-items P3 and P2.
+items M5 and M4.
 """
 
 from __future__ import annotations
@@ -95,10 +95,10 @@ class ServingEngine:
                 f"page_size={page_size}, got {prefill_chunk}")
         if kv_quantization is not None:
             raise NotImplementedError(
-                "kv_quantization: quantized KV is ROADMAP port item P3")
+                "kv_quantization: quantized KV is ROADMAP port item M5")
         if cfg.window is not None:
             raise NotImplementedError(
-                "cfg.window: sliding-window serving is ROADMAP port item P2")
+                "cfg.window: sliding-window serving is ROADMAP port item M4")
         first = next(model.parameters())
         if first.dtype != cfg.dtype:
             # Serve a copy stored in the compute dtype, cast once here, so

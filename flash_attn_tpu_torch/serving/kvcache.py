@@ -64,8 +64,8 @@ def flash_attn_with_kvcache(q, cache: PagedKVCache, page_table,
     ``rotary_base``): the upstream in-place rotary convention, for models
     whose cache holds post-rotary keys.
 
-    ``window_left``, ``alibi_slopes``, ``softcap`` (P2) and ``qk_quant``
-    (P11) are not ported. Each raises before the cache is touched.
+    ``window_left``, ``alibi_slopes``, ``softcap`` (M4) and ``qk_quant``
+    (M8) are not ported. Each raises before the cache is touched.
     """
     check_ported(window_left=window_left, alibi_slopes=alibi_slopes,
                  softcap=softcap, qk_quant=qk_quant)

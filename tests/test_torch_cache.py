@@ -152,7 +152,7 @@ def test_page_allocator_op_sequence_matches_jax():
 
 
 def test_quantized_cache_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP port item P3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP port item M5"):
         torch_cache.init_cache(H, 4, PS, D, quantization="int8")
 
 

@@ -113,7 +113,7 @@ def test_paged_block_live_and_unported_arguments():
     lengths = torch.tensor([0, 16, 17])
     assert paged_block_live(1, 16, length=lengths).tolist() == [
         False, False, True]
-    with pytest.raises(NotImplementedError, match="ROADMAP port item P2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP port item M4"):
         paged_block_live(0, 16, length=lengths, window_left=4)
     rng = np.random.default_rng(2)
     kp, vp, table = (torch.from_numpy(x) for x in _paged(

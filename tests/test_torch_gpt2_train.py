@@ -194,9 +194,16 @@ def test_dropout_is_seeded(setup):
 
 @pytest.mark.parametrize("policy", ["dots", "dots_flash"])
 def test_remat_policies_raise(policy):
-    with pytest.raises(NotImplementedError, match="P8"):
-        GPT2LMHeadModel(GPT2Config.tiny(remat=True, remat_policy=policy),
+    """Each policy builds; a name that is not one raises the JAX
+    ValueError (with remat=False the policy is ignored, as in JAX)."""
+    GPT2LMHeadModel(GPT2Config.tiny(remat=True, remat_policy=policy),
+                    generator=torch.Generator(), device="cpu")
+    bad = policy.upper()
+    with pytest.raises(ValueError, match="remat_policy"):
+        GPT2LMHeadModel(GPT2Config.tiny(remat=True, remat_policy=bad),
                         generator=torch.Generator(), device="cpu")
+    GPT2LMHeadModel(GPT2Config.tiny(remat_policy=bad),
+                    generator=torch.Generator(), device="cpu")
 
 
 @pytest.mark.parametrize("num_kv_heads", [None, 2])

@@ -12,7 +12,9 @@ Tolerances: attention, decode and chunk attention are held to the repo's
 implementation's, plus 1e-5); cache writes are bitwise equal outside the
 scratch page 0 (the span append writes nothing there: all pages), and
 the paged kernels that append inside their launch (K5 and K6 with new
-k/v) are bit for bit the standalone append followed by the kernel. The
+k/v) are bit for bit the standalone append followed by the kernel. K1
+and K2 are also held at the attention shapes of ViT-B/16 and of the
+Llama-3-8B-width train step (``MODEL_SHAPES``). The
 backward kernels' gradients (K2, and K8b/K8c of blocksparse attention) are
 held to the 2x rule against fp32 autograd through ``attention_ref`` (the
 same-dtype ``attention_ref(upcast=False)`` in autograd is the baseline),
@@ -1305,6 +1307,67 @@ def test_blocksparse_gpt2_train_step_on_card_matches_cpu(cuda):
                                    msg=name)
 
 
+# (b, sq, sk, h, h_kv, d, causal): ViT-B/16's attention (non-causal over
+# 196 patches: the last 64-row and 128-key tiles cut at the edge) and the
+# Llama-3-8B-width train step's (GQA 32/8, d=128, causal, s=2048), at a
+# smaller batch than chip_smoke.py's.
+MODEL_SHAPES = {"vit-b16": (4, 196, 196, 12, 12, 64, False),
+                "llama-train": (1, 2048, 2048, 32, 8, 128, True)}
+
+
+def _packed(case, dtype, device, seed=0):
+    """q, k, v as (b, h, s, d) views of one fused projection and dout, as
+    the models hand them to the kernels."""
+    b, s, _, h, h_kv, d, _ = case
+    rng = np.random.default_rng(seed)
+    qkv = _randn(rng, (b, s, (h + 2 * h_kv) * d), dtype, device)
+    views = [x.transpose(1, 2) for x in packed_views(qkv, h, h_kv, d)]
+    return (*views, _randn(rng, (b, h, s, d), dtype, device))
+
+
+@pytest.mark.parametrize("save_lse", [True, False], ids=["lse", "no-lse"])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", MODEL_SHAPES)
+def test_flash_kernels_at_model_shapes(cuda, shape, dtype, dropout_p,
+                                       save_lse):
+    """K1 (with and without the lse) and K2 at the model shapes, on views
+    of a fused projection: against their twins and, by the 2x rule,
+    against fp32 attention_ref (by autograd for the gradients)."""
+    case = MODEL_SHAPES[shape]
+    b, s, _, h, _, d, causal = case
+    q, k, v, dout = _packed(case, dtype, cuda)
+    kw = dict(causal=causal, softmax_scale=d ** -0.5, dropout_p=dropout_p,
+              seed=9 if dropout_p else None)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=save_lse, **kw)
+    torch.cuda.synchronize()
+    assert (lse is None) != save_lse
+    keep = (dropout_mask_dense(9, b, h, s, s, dropout_p, device=cuda)
+            if dropout_p else None)
+    ref = dict(causal=causal, dropout_mask=keep, dropout_p=dropout_p)
+    native = attention_ref(q, k, v, upcast=False, **ref)
+    label = f"{shape} {dtype} p={dropout_p}"
+    assert_two_x_bound(out, attention_ref(q, k, v, **ref), native,
+                       label=f"out {label}")
+    twin, _ = flash_attention_fwd_plain(q, k, v, save_lse=False, **kw)
+    assert_two_x_bound(out, twin.float(), native, label=f"out vs twin {label}")
+    if not save_lse:
+        return
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, v, causal=causal),
+                               atol=1e-3, rtol=1e-3)
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    twins = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    oracle = _ref_grads(q.float(), k.float(), v.float(), dout.float(),
+                        causal, keep, dropout_p, True)
+    native = _ref_grads(q, k, v, dout, causal, keep, dropout_p, False)
+    for name, g, tw, o, n in zip("qkv", grads, twins, oracle, native):
+        assert g.dtype == dtype and g.shape == tw.shape
+        assert_two_x_bound(g, o, n, atol=1e-4, label=f"d{name} {label}")
+        assert_two_x_bound(g, tw.float(), n, atol=1e-4,
+                           label=f"d{name} vs twin {label}")
+
+
 # ------------------------------------------------------------ determinism
 
 RERUNS = 10
@@ -1329,6 +1392,24 @@ def test_flash_kernels_are_bitwise_reproducible(cuda, dtype, heads):
     h, h_kv = heads
     q, k, v, dout = _qkv((2, 640, 640, h, h_kv, 64, True), dtype, cuda)
     kw = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=3)
+
+    def run():
+        out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse, **kw))
+    _reruns_equal(run)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", MODEL_SHAPES)
+def test_flash_kernels_at_model_shapes_are_bitwise_reproducible(cuda, shape,
+                                                                dtype):
+    """K1 + K2 with dropout at the model shapes: out, lse, dq, dk and dv
+    bit for bit over 10 seeded reruns (K2's GQA dK/dV summed in-kernel at
+    d=128 for Llama)."""
+    case = MODEL_SHAPES[shape]
+    q, k, v, dout = _packed(case, dtype, cuda)
+    kw = dict(causal=case[-1], softmax_scale=case[5] ** -0.5, dropout_p=0.1,
+              seed=3)
 
     def run():
         out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)

@@ -74,8 +74,8 @@ def test_model_defaults_and_unported_options():
     model = LlamaForCausalLM(cfg, generator=gen, device="cpu")
     assert torch.equal(model.norm.weight, torch.ones(cfg.n_embd))
     assert abs(float(model.lm_head.weight.detach().std()) - 0.02) < 2e-3
-    for kw in ({"window": 16}, {"remat": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP port item"):
+    for kw in ({"window": 16}, {"window_sinks": 4}):
+        with pytest.raises(NotImplementedError, match="ROADMAP port item M4"):
             LlamaForCausalLM(LlamaConfig.tiny(**kw), generator=gen,
                              device="cpu")
 
