@@ -54,7 +54,22 @@ paths with random weights from torch.Generator seed 0:
     about 1.5 B parameters, bf16 compute), b=4 s=2048, the head and loss
     in chunks of 512: 3 AdamW steps with falling finite loss, K1 and K2
     twice per step; at the same weights remat gives the same loss and
-    gradient norm and 4 K1 launches; a traced and timed step each way.
+    gradient norm and 4 K1 launches; a traced and timed step each way;
+  - sliding windows (M4): Mistral-7B-v0.1's published widths and depth
+    (7.24 B parameters, bf16, window 4096) serving 8 requests (prompts
+    1000..7000) chunked with and without streaming page release (the same
+    tokens; pages freed and peak pages printed), a 5000-token prompt held
+    to the 2x rule against fp32, no SDPA op in a traced admission or
+    decode step; its widths cut to 2 layers training 3 steps at b=2
+    s=8192 (windowed K1 + K2 twice a step, a step held to fp32 compute);
+    GPT-2 decoding with a 256 window and 4 StreamingLLM sinks against a
+    dense band-plus-sinks reference.
+K1 and K2 with windows, sinks, ALiBi and softcap (bf16 and fp32, the
+segment form included) and K5 and K6 with the same terms at Mistral's
+decode and chunk shapes are held to their twins and the 2x rule; K5 and
+K6 are run again with every page wholly below the band set to NaN (bit
+for bit the same output), and 10 reruns of the windowed K2 with sinks
+agree bit for bit.
 K1 and K2 in segment form are held to their twins and the 2x rule at
 BERT's attention shape (b=32 h=12 s=512 d=64), and the cu_seqlens
 interface on the same tokens packed (qkvpacked; kvpacked with per-sequence
@@ -108,7 +123,10 @@ import torch.nn.functional as F
 
 from dense_timing import (
     APPEND_SHAPES,
+    MISTRAL_TRAIN,
+    MISTRAL_WINDOW,
     append_inputs,
+    band_pairs,
     bert_lengths,
     bert_padding,
     busy_ms,
@@ -120,6 +138,7 @@ from dense_timing import (
     rotating,
     trace_call,
     union_us,
+    window_inputs,
 )
 from flash_attn_tpu_torch import flash_attention
 from flash_attn_tpu_torch.kernels import _build
@@ -139,7 +158,9 @@ from flash_attn_tpu_torch.kernels.chunk import (
     paged_chunk_attention_plain,
 )
 from flash_attn_tpu_torch.kernels.common import (
+    Band,
     Segments,
+    paged_live_span,
     paged_num_splits,
     segment_mask,
     segment_plan,
@@ -160,6 +181,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
 )
 from flash_attn_tpu_torch.kernels.prng import dropout_mask_dense
 from flash_attn_tpu_torch.models import gpt2_decode, llama_decode, modules
+from flash_attn_tpu_torch.models import llama as llama_module
 from flash_attn_tpu_torch.models.bert import (
     BertConfig,
     BertForMaskedLM,
@@ -187,6 +209,7 @@ from flash_attn_tpu_torch.models.vit import (
     classification_loss,
     make_train_step as make_vit_step,
 )
+from flash_attn_tpu_torch.ops.attention import alibi_slopes
 from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
 from flash_attn_tpu_torch.ops.interface import (
     flash_attn_unpadded_kvpacked_func,
@@ -197,7 +220,12 @@ from flash_attn_tpu_torch.ops.packing import (
     pad_input,
     unpad_input,
 )
-from flash_attn_tpu_torch.reference import attention_ref, paged_chunk_ref
+from flash_attn_tpu_torch.reference import (
+    alibi_bias,
+    attention_ref,
+    build_mask,
+    paged_chunk_ref,
+)
 from flash_attn_tpu_torch.serving import cache
 from flash_attn_tpu_torch.serving.engine import ServingEngine
 from flash_attn_tpu_torch.serving.kvcache import flash_attn_with_kvcache
@@ -349,7 +377,7 @@ def causal_pairs(s: int) -> int:
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 
 
-def sdpa_fastest(make):
+def sdpa_fastest(make, n=10):
     """The library yardstick through scaled_dot_product_attention under each
     backend of SDPA_BACKENDS pinned in turn: ``make()`` builds the call (for
     a backward, its autograd graph too) under the pin, and busy_ms times it
@@ -366,7 +394,7 @@ def sdpa_fastest(make):
             except RuntimeError:
                 times[name] = None
                 continue
-            times[name] = busy_ms(fn)
+            times[name] = busy_ms(fn, n=n)
     ok = {k: v for k, v in times.items() if v is not None}
     check(ok, "no SDPA backend accepts the library call")
     best = min(ok, key=ok.get)
@@ -439,10 +467,18 @@ def kernel_label(mangled: str) -> str | None:
         return None
     dtype = ("bf16" if "nv_bfloat16" in mangled else
              "fp16" if "half" in mangled else "fp32")
-    d = re.search(r"Li(\d+)E", mangled).group(1)
+    # The template arguments after the dtype: K1 <D, kSeg, kBand>, K2 <D,
+    # kSeg, kTerms>, K5/K6 <D, kAppend, kBand> (K5's fp32 kernel <D,
+    # kAppend>).
+    d, *terms = re.findall(r"Li(\d+)E", mangled)
+    flags = re.findall(r"Lb([01])E", mangled)
     form = ""
-    if "Lb1E" in mangled:
+    if flags[:1] == ["1"]:
         form = " segments" if kernel in ("K1", "K2") else " with the append"
+    if flags[1:2] == ["1"] or terms[:1] == ["1"]:
+        form += " band"
+    elif terms[:1] == ["2"]:
+        form += " band+softcap"
     return f"{kernel} {dtype} d={d}{form}"
 
 
@@ -489,7 +525,7 @@ def phase_build_report():
             name = kernel_label(name) if "wgmma" in name else None
         elif name and "HGMMA" in line:
             counts[name] = counts.get(name, 0) + 1
-    check(len(counts) == 36 and all(counts.values()),
+    check(len(counts) == 68 and all(counts.values()),
           f"HGMMA instructions missing from the wgmma kernels: {counts}")
     print("HGMMA instructions in the SASS (cuobjdump): " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
@@ -702,10 +738,13 @@ def decode_inputs(gen, shape="GPT-2 decode"):
     return randn(gen, (len(lengths), h, d)), kp, vp, int32(lengths), table
 
 
-def decode_splits(q, kp, table) -> int:
-    """The split count the K5 wrapper chooses for these inputs."""
+def decode_splits(q, kp, table, window=None, sinks=0) -> int:
+    """The split count the K5 wrapper chooses for these inputs (with a
+    window: over the band and the sinks)."""
     return paged_num_splits(q.shape[0], kp.shape[0], table.shape[1],
-                            kp.shape[2], sm_count(q.device.index))
+                            kp.shape[2], sm_count(q.device.index),
+                            paged_live_span(table.shape[1], kp.shape[2],
+                                            window, sinks))
 
 
 def chunk_splits(q, kp, table) -> int:
@@ -1549,7 +1588,8 @@ def append_timing_specs():
 def kernel_timing(gen):
     """Each kernel against its twin and, where one exists, a single PyTorch
     call computing the same function, at the main paths' shapes, in turns
-    (kernel, plain, kernel: the plain twin, 10-1000x slower, is timed once;
+    (kernel, plain, kernel: the plain twin, 10-1000x slower, is timed once,
+    over 3 calls;
     the library call last, under each pinned
     SDPA backend). Returns {name: (ms, plain_ms, library_ms, bound_ms,
     bound_by, library_backend)}."""
@@ -1674,7 +1714,9 @@ def kernel_timing(gen):
     times = {}
     for name, (kern, plain, library, n_bytes, flops, *tiles) in specs.items():
         t_row = time.perf_counter()
-        k1, p1, k2 = busy_ms(kern), busy_ms(plain), busy_ms(kern)
+        # The plain twins launch hundreds of small kernels a call, whose
+        # trace dominates a row's time: three calls of them suffice.
+        k1, p1, k2 = busy_ms(kern), busy_ms(plain, n=3), busy_ms(kern)
         host = host_ms(kern)
         lib_ms = backend = None
         lib = "none"
@@ -1734,11 +1776,10 @@ def kernel_timing(gen):
           "dkv and dq rows' plain = the whole plain backward, library = SDPA "
           "with the element mask as attn_mask (forward; backward for k, v "
           "and for q), bound by operations over visible pairs (4d forward, "
-          "8d dK/dV, 6d dQ); dense K1/K2 on config 4's inputs, library = "
-          "causal SDPA; flash_fwd / flash_bwd (BERT, segments) at b=32 h=12 "
-          "s=512 d=64, the BERT batch's padding masks (lengths uniform in "
-          "[171, 512]), non-causal, dropout 0.1, lse, beside the same "
-          "kernels with no mask on the same tensors; their bound counts the "
+          "8d dK/dV, 6d dQ); flash_fwd / flash_bwd (BERT, segments) at b=32 "
+          "h=12 s=512 d=64, the BERT batch's padding masks (lengths uniform "
+          "in [171, 512]), non-causal, dropout 0.1, lse; their bound counts "
+          "the "
           "real rows of q, k, v (and o, dout) read, the outputs written "
           "whole and the visible pairs' products, library = SDPA with the "
           "key-padding mask as attn_mask; all bf16")
@@ -1841,10 +1882,11 @@ def device_summary(wall, events):
             f"events; device time by class: {shares}")
 
 
-def trace_step(label, call, k1, k2, segments=False):
+def trace_step(label, call, k1, k2, segments=False, band=False):
     """A traced step: no SDPA op, ``k1`` K1 and ``k2`` K2 kernels, all in
-    the dense form (or all in the segment form), device busy time, idle
-    share and time by class; then the largest kernels by op."""
+    the dense form (or all in the segment form), all with the band terms
+    or all without, device busy time, idle share and time by class; then
+    the largest kernels by op."""
     call()
     torch.cuda.synchronize()
     wall, names, events = trace_call(call)
@@ -1857,10 +1899,17 @@ def trace_step(label, call, k1, k2, segments=False):
                or "flash_bwd_wgmma" in e["name"]]
     got = [sum(key in n for n in kernels)
            for key in ("flash_fwd_wgmma", "flash_bwd_wgmma")]
-    form = ", true>" if segments else ", false>"  # the kSeg template flag
-    check(got == [k1, k2] and all(form in n for n in kernels),
+    # The template flags <T, D, kSeg, kBand> of each kernel's name.
+    # (K2's last argument is its kTerms: 0 without the band terms.)
+    flags = [re.search(r"wgmma_kernel<[^<>]*?, \d+, (true|false), "
+                       r"(true|false|\d)>", n) for n in kernels]
+    want = ("true" if segments else "false", band)
+    check(got == [k1, k2] and all(
+        f and (f.group(1), f.group(2) not in ("false", "0")) == want
+        for f in flags),
           f"K1, K2 kernels in a traced {label} step: {got}, want "
-          f"{[k1, k2]}, all {'in segment' if segments else 'in dense'} form")
+          f"{[k1, k2]}, all {'in segment' if segments else 'in dense'} form"
+          f"{' with the band' if band else ''}")
     print(f"{label} step trace: {device_summary(wall, events)}; K1 {k1} and "
           f"K2 {k2} kernels{' in segment form' if segments else ''}; no SDPA "
           f"op [{card_line()}]")
@@ -1917,20 +1966,39 @@ def phase_train_timing(step, batch, gen, warmup=2, n=5, label="train",
 def reference_attention(q, k, v, *, causal, softmax_scale=None,
                         dropout_p=0.0, dropout_seed=None, q_segment_ids=None,
                         kv_segment_ids=None, q_positions=None,
-                        kv_positions=None):
+                        kv_positions=None, window_size=None,
+                        alibi_slopes=None, softcap=None):
     """flash_attention's signature over the same-dtype attention_ref
-    (bshd), segment ids as the equivalent boolean mask, differentiable by
-    autograd: the train checks' baseline."""
-    def tr(x):
-        return x.transpose(1, 2)
-
+    (bshd), segment ids and the window as the equivalent boolean mask,
+    differentiable by autograd: the train checks' baseline (whose models
+    use no ALiBi or softcap). Past 4096 x 4096 scores it runs one query
+    head at a time under torch.utils.checkpoint (the scores are recomputed
+    in the backward), so Mistral's s = 8192 fits."""
+    check(alibi_slopes is None and softcap is None,
+          "reference_attention: no ALiBi or softcap")
     mask = None
     if q_segment_ids is not None:
         mask = segment_mask(Segments(q_segment_ids, kv_segment_ids,
                                      q_positions, kv_positions), causal)
         causal = False
-    return tr(attention_ref(tr(q), tr(k), tr(v), causal=causal, mask=mask,
-                            softmax_scale=softmax_scale, upcast=False))
+    if window_size is not None:
+        band = build_mask(q.shape[1], k.shape[1], window_left=window_size[0],
+                          window_right=window_size[1], device=q.device)
+        mask = band if mask is None else mask & band
+
+    def attend(qh, kh, vh):
+        return attention_ref(qh, kh, vh, causal=causal, mask=mask,
+                             softmax_scale=softmax_scale, upcast=False)
+
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    if q.shape[2] * k.shape[2] <= 4096 * 4096:
+        return attend(q, k, v).transpose(1, 2)
+    group = q.shape[1] // k.shape[1]
+    heads = [torch.utils.checkpoint.checkpoint(
+        attend, q[:, i:i + 1], k[:, i // group:i // group + 1],
+        v[:, i // group:i // group + 1], use_reentrant=False)
+        for i in range(q.shape[1])]
+    return torch.cat(heads, dim=1).transpose(1, 2)
 
 
 def loss_and_norm(loss_fn, model):
@@ -1943,19 +2011,21 @@ def loss_and_norm(loss_fn, model):
     return torch.stack([loss.detach().float(), norm])
 
 
-def check_step_two_x(label, make_model, cfg, cfg32, loss_fn):
+def check_step_two_x(label, make_model, cfg, cfg32, loss_fn,
+                     module=modules):
     """One step's loss and global gradient norm: the bf16 model through
     K1/K2 against the same step in fp32 compute, by the 2x rule. Baseline:
     the bf16 model with attention through the same-dtype attention_ref in
-    autograd. Floor 1e-4 of the fp32 value."""
+    autograd (``reference_attention`` in place of ``module``'s
+    flash_attention). Floor 1e-4 of the fp32 value."""
     model16 = make_model(cfg)
     got = loss_and_norm(lambda: loss_fn(model16), model16)
-    original = modules.flash_attention
-    modules.flash_attention = reference_attention
+    original = module.flash_attention
+    module.flash_attention = reference_attention
     try:
         base = loss_and_norm(lambda: loss_fn(model16), model16)
     finally:
-        modules.flash_attention = original
+        module.flash_attention = original
     del model16
     torch.cuda.empty_cache()
     model32 = make_model(cfg32)
@@ -2456,8 +2526,8 @@ def bert_timing_specs(gen):
     """kernel_timing rows of K1 and K2 in segment form at BERT's attention
     shape (the BERT batch's padding masks, dropout 0.1, lse saved; K1's row
     includes its tile plan, made inside the call as on the path, K2 reuses
-    the forward's), the same kernels without a mask on the same tensors,
-    and the plan alone. Bound: the real rows of q, k, v (and o, dout for
+    the forward's) and the plan alone (the same kernels without a mask are
+    dense_timing.py's "BERT" rows). Bound: the real rows of q, k, v (and o, dout for
     K2) read once, o (dq, dk, dv) written whole; products over the visible
     pairs only (4 d flops each forward, 10 d backward). Library: SDPA with
     the boolean key-padding mask (b, 1, 1, s) as attn_mask (every query row
@@ -2468,7 +2538,6 @@ def bert_timing_specs(gen):
     kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
     plan = Segments(seg.q_seg, seg.kv_seg, seg.q_pos, seg.kv_pos)
     o, lse = flash_attention_fwd(q, k, v, save_lse=True, segments=plan, **kw)
-    od, lsed = flash_attention_fwd(q, k, v, save_lse=True, **kw)
     pairs = visible_pairs(seg) * 12
     real = int((seg.q_seg >= 0).sum()) / (BERT_B * BERT_S)
     row = nbytes(q)  # one (b, h, s, d) bf16 operand
@@ -2485,11 +2554,6 @@ def bert_timing_specs(gen):
                                               segments=seg, **kw),
             sdpa_fwd(q, k, v, p=0.1, mask=key_mask),
             3 * real * row + row + nbytes(lse), 4 * 64 * pairs),
-        "flash_fwd (BERT shape, no mask, dropout 0.1, lse)": (
-            lambda: flash_attention_fwd(q, k, v, save_lse=True, **kw),
-            lambda: flash_attention_fwd_plain(q, k, v, save_lse=True, **kw),
-            sdpa_fwd(q, k, v, p=0.1, causal=False),
-            4 * row + nbytes(lse), 4 * 64 * 12 * BERT_B * BERT_S ** 2),
         "flash_bwd (BERT, segments, dropout 0.1)": (
             lambda: flash_attention_bwd(q, k, v, o, dout, lse,
                                         segments=plan, **kw),
@@ -2497,11 +2561,6 @@ def bert_timing_specs(gen):
                                               segments=seg, **kw),
             sdpa_bwd(q, k, v, dout, p=0.1, mask=key_mask),
             5 * real * row + 3 * row + nbytes(lse), 10 * 64 * pairs),
-        "flash_bwd (BERT shape, no mask, dropout 0.1)": (
-            lambda: flash_attention_bwd(q, k, v, od, dout, lsed, **kw),
-            lambda: flash_attention_bwd_plain(q, k, v, od, dout, lsed, **kw),
-            sdpa_bwd(q, k, v, dout, p=0.1, causal=False),
-            8 * row + nbytes(lse), 10 * 64 * 12 * BERT_B * BERT_S ** 2),
     }, lambda: segment_plan(fresh(), False)
 
 
@@ -2791,39 +2850,602 @@ def bs_timing_specs():
             sdpa_bwd(q, k, v, dout, p=p, mask=mask, wrt="q"),
             nbytes(q, k, v, dout, lse, di, q) + kv_lists, 6 * pairs * d,
             (tiles, 6 * tile_pairs * d))
-    # Dense K1 and K2 on config 4's q, k, v: does the sparsity pay?
-    dense = dict(causal=True, softmax_scale=d ** -0.5)
-    o_dense, l_dense = flash_attention_fwd(q, k, v, save_lse=True, **dense)
-    specs["flash_fwd (config 4 shape, dense)"] = (
-        lambda: flash_attention_fwd(q, k, v, save_lse=True, **dense),
-        lambda: flash_attention_fwd_plain(q, k, v, save_lse=True, **dense),
-        sdpa_fwd(q, k, v), nbytes(q, k, v, q, l_dense),
-        4 * b * h * causal_pairs(s) * d)
-    specs["flash_bwd (config 4 shape, dense)"] = (
-        lambda: flash_attention_bwd(q, k, v, o_dense, dout, l_dense, **dense),
-        lambda: flash_attention_bwd_plain(q, k, v, o_dense, dout, l_dense,
-                                          **dense),
-        sdpa_bwd(q, k, v, dout), nbytes(q, k, v, o_dense, dout, l_dense, q, k,
-                                        v),
-        10 * b * h * causal_pairs(s) * d)
     return specs
 
 
 def print_sparsity_pays(times):
-    """K8 against dense K1/K2 on the same inputs, at both shapes."""
+    """K8 against dense K1/K2 at the GPT-2 train step's shape (config 4's
+    dense rows are dense_timing.py's "config 4" rows)."""
     def ms(name):
         return times[name][0]
 
     for label, suffix, fwd, bwd in (
             ("(i) GPT-2 train, dropout 0.1", "",
-             "flash_fwd (train step, dropout 0.1, lse)", "flash_bwd"),
-            ("(ii) config 4", " (config 4)",
-             "flash_fwd (config 4 shape, dense)",
-             "flash_bwd (config 4 shape, dense)")):
+             "flash_fwd (train step, dropout 0.1, lse)", "flash_bwd"),):
         k8_bwd = ms("blocksparse_dkv" + suffix) + ms("blocksparse_dq" + suffix)
         print(f"sparsity at {label}: K8a {ms('blocksparse_fwd' + suffix):.4f}"
               f" ms vs dense K1 {ms(fwd):.4f} ms; K8b + K8c {k8_bwd:.4f} ms "
               f"vs dense K2 {ms(bwd):.4f} ms [{card_line()}]")
+
+
+# ---------------------------------------------------------------- M4
+
+# Mistral-7B-v0.1 (mistralai/Mistral-7B-v0.1 config.json: vocab 32000, 32
+# layers, hidden 4096, 32/8 heads of 128, intermediate 14336,
+# sliding_window 4096, rope_theta 10000, 32768 positions, rms_norm_eps
+# 1e-5, untied head), bf16.
+MISTRAL_7B = LlamaConfig(
+    vocab_size=32000, n_layer=32, n_embd=4096, n_head=32, n_kv_head=8,
+    intermediate_size=14336, rope_theta=10000.0,
+    max_position_embeddings=32768, rms_norm_eps=1e-5, window=MISTRAL_WINDOW,
+    dtype=BF16, param_dtype=BF16)
+# K1/K2's band checks: label, (b, h, h_kv, s, d, causal), (left, right,
+# sinks, ALiBi, softcap), segment form (BERT's padding masks).
+WINDOW_KERNEL_CASES = [
+    ("Mistral train: causal window 4096", (2, 32, 8, 8192, 128, True),
+     (4096, None, 0, False, None), False),
+    ("BERT segments: window (128, 128) + ALiBi", (32, 12, 12, 512, 64, False),
+     (128, 128, 0, True, None), True),
+    ("GPT-2 train: ALiBi alibi_slopes(12)", (8, 12, 12, 1024, 64, True),
+     (None, None, 0, True, None), False),
+    ("softcap 50 on a causal window 512", (2, 16, 4, 2048, 128, True),
+     (512, None, 0, False, 50.0), False),
+    ("causal window 1024 + 4 sinks", (2, 8, 8, 4096, 64, True),
+     (1024, None, 4, False, None), False),
+]
+
+
+def band_of(spec, b, h, scale):
+    """The kernels' Band of a (left, right, sinks, ALiBi, softcap) spec and
+    the slopes (h,) it was made from (None without ALiBi)."""
+    left, right, sinks, alibi, softcap = spec
+    slopes = alibi_slopes(h).to(DEV) if alibi else None
+    return Band(left, right, sinks, softcap, None if slopes is None else (
+        slopes / scale)[None].expand(b, h).contiguous()), slopes
+
+
+def band_slice(band, group):
+    """``band`` on batch row 0 and query heads [0, group)."""
+    return dataclasses.replace(band, alibi=None if band.alibi is None
+                               else band.alibi[:1, :group].contiguous())
+
+
+def band_oracle(q, k, v, causal, spec, slopes, seg, dout=None, upcast=True):
+    """attention_ref on (1, group, s, d) slices under the band's mask,
+    ALiBi bias and softcap (segment ids and positions by ``seg``): the
+    output, or with ``dout`` the gradients by autograd."""
+    left, right, sinks, _, softcap = spec
+    s = q.shape[2]
+    pos = {} if seg is None else dict(
+        q_positions=seg.q_pos, kv_positions=seg.kv_pos)
+    mask = build_mask(s, s, causal=causal, window_left=left,
+                      window_right=right, num_sinks=sinks, device=DEV,
+                      **({} if seg is None else dict(
+                          q_segment_ids=seg.q_seg, kv_segment_ids=seg.kv_seg,
+                          **pos)))
+    if mask.dim() == 3:
+        mask = mask[:, None]
+    bias = None if slopes is None else alibi_bias(
+        slopes[:q.shape[1]], s, s, causal=causal, **pos)
+    leaves = [(x.float() if upcast else x).detach().requires_grad_(
+        dout is not None) for x in (q, k, v)]
+    out = attention_ref(*leaves, causal=causal and seg is None, mask=mask,
+                        bias=bias, softcap=softcap, upcast=upcast)
+    if dout is None:
+        return out
+    out.backward(dout.to(out.dtype))
+    return [x.grad for x in leaves]
+
+
+def phase_window_kernels(gen, errs):
+    """K1 and K2 with the band terms (WINDOW_KERNEL_CASES), bf16 and fp32,
+    launched on the whole shape and held on batch row 0 and the first kv
+    head's query group to their twins and the 2x rule (oracle: fp32
+    attention_ref under the same mask, bias and softcap, by autograd for
+    the gradients; baseline: the same-dtype attention_ref); then K5 and K6
+    with a window, sinks, softcap and ALiBi at Mistral's decode and chunk
+    shapes, and with every page wholly below each sequence's band (sink
+    pages aside) poisoned with NaN: finite and bit for bit the same, as
+    those pages are never fetched. Adds the max errors vs the twins to
+    ``errs`` ("window <kernel>")."""
+    for name in ("flash_fwd", "flash_bwd", "paged_decode", "paged_chunk"):
+        errs[f"window {name}"] = 0.0
+    for label, (b, h, h_kv, s, d, causal), spec, segmented in \
+            WINDOW_KERNEL_CASES:
+        group, scale = h // h_kv, d ** -0.5
+        seg = padding_segments() if segmented else None
+        for dtype in (BF16, torch.float32):
+            q, k, v, dout = (randn(gen, (b, n, s, d), dtype)
+                             for n in (h, h_kv, h_kv, h))
+            band, slopes = band_of(spec, b, h, scale)
+            kw = dict(causal=causal, softmax_scale=scale)
+            out, lse = flash_attention_fwd(q, k, v, save_lse=True,
+                                           segments=seg, band=band, **kw)
+            grads = flash_attention_bwd(q, k, v, out, dout, lse,
+                                        segments=seg, band=band, **kw)
+            torch.cuda.synchronize()
+            qs, ks, vs, ds, os_ = (x[:1, :n] for x, n in (
+                (q, group), (k, 1), (v, 1), (dout, group), (out, group)))
+            seg1 = None if seg is None else Segments(
+                *(x[:1].contiguous() for x in (seg.q_seg, seg.kv_seg,
+                                               seg.q_pos, seg.kv_pos)))
+            kws = dict(kw, segments=seg1, band=band_slice(band, group))
+            twin, _ = flash_attention_fwd_plain(qs, ks, vs, save_lse=False,
+                                                **kws)
+            twins = flash_attention_bwd_plain(
+                qs, ks, vs, os_, ds, lse[:1, :group].contiguous(), **kws)
+            tag = f"{label} {str(dtype)[6:]}"
+            err, base = assert_two_x_bound(
+                os_, band_oracle(qs, ks, vs, causal, spec, slopes, seg1),
+                band_oracle(qs, ks, vs, causal, spec, slopes, seg1,
+                            upcast=False), label=f"window flash_fwd {tag}")
+            fwd_twin = max_err(os_, twin)
+            oracle = band_oracle(qs, ks, vs, causal, spec, slopes, seg1, ds)
+            native = band_oracle(qs, ks, vs, causal, spec, slopes, seg1, ds,
+                                 upcast=False)
+            parts, bwd_twin = [], 0.0
+            for name, g, tw, o, n in zip(
+                    "qkv", [x[:1, :m] for x, m in zip(grads, (group, 1, 1))],
+                    twins, oracle, native):
+                e, be = assert_two_x_bound(
+                    g, o, n, atol=1e-4, label=f"window flash_bwd d{name} "
+                    f"{tag}")
+                bwd_twin = max(bwd_twin, max_err(g, tw))
+                parts.append(f"d{name} {e:.3e} ({be:.3e})")
+            errs["window flash_fwd"] = max(errs["window flash_fwd"], fwd_twin)
+            errs["window flash_bwd"] = max(errs["window flash_bwd"], bwd_twin)
+            print(f"window flash_fwd+bwd {tag} b={b} h={h}/{h_kv} s={s} "
+                  f"d={d}: out err vs fp32 {err:.3e} (baseline {base:.3e}); "
+                  f"grads (baseline) {', '.join(parts)}; vs twins fwd "
+                  f"{fwd_twin:.3e} bwd {bwd_twin:.3e}")
+            del q, k, v, dout, out, lse, grads, twin, twins, oracle, native
+            torch.cuda.empty_cache()
+
+    _, (qd, pages, lens, table), (qc, _, _, _, chunk) = window_inputs(DEV)
+    kp, vp = pages.k_pages, pages.v_pages
+    h = qd.shape[1]
+    for terms in (dict(window_left=MISTRAL_WINDOW),
+                  dict(window_left=MISTRAL_WINDOW, num_sinks=4),
+                  dict(window_left=MISTRAL_WINDOW, num_sinks=4, softcap=50.0,
+                       alibi_slopes=alibi_slopes(h).to(DEV))):
+        # Sinks are decode-only: K6 takes the other terms.
+        terms6 = {k: x for k, x in terms.items() if k != "num_sinks"}
+        tt = (terms["window_left"], terms.get("num_sinks", 0),
+              terms.get("alibi_slopes"), terms.get("softcap"))
+        tag, tag6 = (", ".join(t) for t in (terms, terms6))
+        k5 = paged_decode_attention(qd, kp, vp, lens, table, **terms)
+        k6 = paged_chunk_attention(qc, kp, vp, lens, table, chunk_lens=chunk,
+                                   **terms6)
+        torch.cuda.synchronize()
+        one = torch.ones_like(lens)
+        err5, base5 = assert_two_x_bound(
+            k5, paged_chunk_ref(qd[:, None], kp, vp, lens, table, one,
+                                **terms)[:, 0],
+            paged_chunk_ref(qd[:, None], kp, vp, lens, table, one,
+                            upcast=False, **terms)[:, 0],
+            label=f"window paged_decode ({tag})")
+        err6, base6 = assert_two_x_bound(
+            k6, paged_chunk_ref(qc, kp, vp, lens, table, chunk, **terms6),
+            paged_chunk_ref(qc, kp, vp, lens, table, chunk, upcast=False,
+                            **terms6), label=f"window paged_chunk ({tag6})")
+        scale = qd.shape[-1] ** -0.5
+        t5 = max_err(k5, paged_decode_attention_plain(
+            qd, kp, vp, lens, table, softmax_scale=scale, terms=tt))
+        t6 = max_err(k6, paged_chunk_attention_plain(
+            qc, kp, vp, lens, table, chunk_lens=chunk, softmax_scale=scale,
+            terms=(tt[0], 0, *tt[2:])))
+        errs["window paged_decode"] = max(errs["window paged_decode"], t5)
+        errs["window paged_chunk"] = max(errs["window paged_chunk"], t6)
+        print(f"window paged_decode Mistral decode ({tag}), "
+              f"{decode_splits(qd, kp, table, MISTRAL_WINDOW)} splits: err "
+              f"vs fp32 {err5:.3e} (bf16 baseline {base5:.3e}), vs twin "
+              f"{t5:.3e}; paged_chunk Mistral chunk sq={qc.shape[1]} "
+              f"({tag6}): err {err6:.3e} (baseline {base6:.3e}), vs twin "
+              f"{t6:.3e}")
+        if terms.get("num_sinks") and "softcap" not in terms:
+            poisoned_k, poisoned_v = kp.clone(), vp.clone()
+            n_pages = 0
+            for i, n in enumerate(lens.tolist()):
+                floor = n - int(chunk[i]) - MISTRAL_WINDOW  # K6's first row
+                for j in range(1, max(0, floor) // kp.shape[2]):
+                    poisoned_k[:, table[i, j]] = float("nan")
+                    poisoned_v[:, table[i, j]] = float("nan")
+                    n_pages += 1
+            p5 = paged_decode_attention(qd, poisoned_k, poisoned_v, lens,
+                                        table, **terms)
+            p6 = paged_chunk_attention(qc, poisoned_k, poisoned_v, lens,
+                                       table, chunk_lens=chunk, **terms6)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(p5).all()) and torch.equal(p5, k5),
+                  "K5 read a page below the band")
+            check(bool(torch.isfinite(p6).all()) and torch.equal(p6, k6),
+                  "K6 read a page below the band")
+            print(f"window NaN poison: {n_pages} pages wholly below the "
+                  "bands (sink pages aside) set to NaN; K5 and K6 outputs "
+                  "finite and bit for bit the unpoisoned ones")
+            del poisoned_k, poisoned_v
+    del qd, qc, pages, kp, vp
+    torch.cuda.empty_cache()
+
+
+def phase_window_determinism(gen, n=10):
+    """K1 + K2 with Mistral's window and 4 sinks at its train shape: out,
+    lse, dq, dk and dv bit for bit over ``n`` seeded reruns (the dQ ranks
+    follow the band's walks)."""
+    b, h, h_kv, s, d = MISTRAL_TRAIN
+    q, k, v, dout = packed_inputs(gen, b, h, h_kv, s, d)
+    kw = dict(causal=True, softmax_scale=d ** -0.5,
+              band=Band(MISTRAL_WINDOW, None, 4))
+
+    def run():
+        out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse,
+                                               **kw))
+    first = [x.clone() for x in run()]
+    for _ in range(n - 1):
+        again = run()
+        torch.cuda.synchronize()
+        for i, (a, b_) in enumerate(zip(first, again)):
+            check(torch.equal(a, b_), f"determinism windowed K2: output {i} "
+                  "differs between runs")
+    print(f"determinism flash_fwd + flash_bwd Mistral train b={b} h={h}/"
+          f"{h_kv} s={s} d={d}, window {MISTRAL_WINDOW} + 4 sinks: {n} "
+          "seeded reruns bit for bit equal (out, lse, dq, dk, dv)")
+
+
+def check_no_sdpa(label, names):
+    sdpa = sorted(n for n in names if n.startswith(
+        ("aten::_scaled_dot_product", "aten::_efficient_attention",
+         "aten::_flash_attention", "aten::scaled_dot_product")))
+    check(not sdpa, f"SDPA ops in {label}: {sdpa}")
+
+
+def phase_mistral_serving(rng, prompts=(1000, 7000), tf_prompt=5000):
+    """Mistral-7B-v0.1's published widths and depth, bf16, random weights:
+    8 requests (prompts 1000..7000, past the 4096 window) x 32 tokens
+    through the chunked engine (chunks of 512, page 128), once with
+    stream_free_pages and once without: every request finishes, the tokens
+    are the same, pages freed and peak pages printed for each; a traced
+    admission and decode step launch K6, K7c and K5 and no SDPA op; then a
+    5000-token prompt in chunks of 512 + 16 decode steps held to the 2x
+    rule against the same weights in fp32 (the full forward: 32 windowed
+    K1 launches). Returns {path: launches}."""
+    cfg = MISTRAL_7B
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"mistral: Mistral-7B-v0.1 widths, {n_params / 1e9:.3f} B "
+          f"parameters (bf16), window {cfg.window}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    lens = np.linspace(*prompts, 8).astype(int)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    pages_per_seq = -(-(int(lens.max()) + 40) // 128)
+    kw = dict(model_fns=llama_decode, max_batch=8, page_size=128,
+              pages_per_seq=pages_per_seq, num_pages=8 * pages_per_seq + 1,
+              prefill_chunk=512)
+    tokens, launches = {}, {}
+    for stream in (True, False):
+        engine = ServingEngine(model, cfg, stream_free_pages=stream, **kw)
+        for p in prompts:
+            engine.submit(p, max_new_tokens=32)
+        reset_launches()
+        t1 = time.perf_counter()
+        finished = engine.run(max_steps=1000)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        counts = read_launches(KERNELS)
+        label = f"mistral chunked, stream_free_pages={stream}"
+        check_finished(label, finished, len(prompts), cfg, 32,
+                       pages_per_seq * 128)
+        for name in CHUNKED_KERNELS:
+            check(counts[name] > 0, f"{label}: kernel {name} not launched")
+        check(counts["flash_fwd"] == 0, f"{label}: the dense forward ran")
+        check_fused_appends(label, counts, decode=True)
+        tokens[stream] = {r.seq_id: r.generated for r in finished}
+        print(f"{label}: 8 requests (prompts {lens.min()}..{lens.max()}, "
+              f"chunks of 512) x 32 tokens in {dt:.2f} s; pages freed "
+              f"mid-flight {engine.pages_freed}, peak pages in use "
+              f"{engine.peak_pages} of {engine.alloc.capacity}; launches "
+              f"{counts} [{card_line()}]")
+        if stream:
+            launches["mistral_serve"] = counts
+            check(engine.pages_freed > 0, "no page freed by the stream")
+            peak_stream = engine.peak_pages
+        else:
+            check(engine.pages_freed == 0, "pages freed with the stream off")
+            check(peak_stream < engine.peak_pages,
+                  f"streaming release peak {peak_stream} not below "
+                  f"{engine.peak_pages}")
+        del engine
+        torch.cuda.empty_cache()
+    check(tokens[True] == tokens[False],
+          "tokens differ with stream_free_pages on and off")
+    print("mistral chunked: the same 256 tokens with streaming release on "
+          "and off")
+
+    engine = ServingEngine(model, cfg, **kw)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=8)
+    wall, names, events = trace_call(engine._admit)
+    check_no_sdpa("the Mistral admission", names)
+    dev_names = [e["name"] for e in device_events(events)]
+    check(any("paged_chunk_wgmma" in n for n in dev_names)
+          and any("write_pages" in n for n in dev_names),
+          "Mistral admission trace: no K6 / K7c kernel")
+    print(f"mistral admission of 8 traced: {device_summary(wall, events)}; "
+          "K6 and K7c kernels, no SDPA op")
+    engine.step()
+    wall, names, events = trace_call(engine.step)
+    check_no_sdpa("a Mistral decode step", names)
+    check(any("paged_decode" in e["name"] for e in device_events(events)),
+          "Mistral decode trace: no K5 kernel")
+    print(f"mistral decode step at batch 8 traced: "
+          f"{device_summary(wall, events)}; K5 kernels, no SDPA op "
+          f"[{card_line()}]")
+    del engine
+    torch.cuda.empty_cache()
+
+    prompt_len, n_decode = tf_prompt, 16
+    ids = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, prompt_len + n_decode))).to(DEV)
+    positions, served = serve_teacher_forced(model, cfg, llama_decode, ids,
+                                             prompt_len, 512, n_decode)
+    reset_launches()
+    with torch.no_grad():
+        full16 = model(ids)[0, positions]
+        k1 = read_launches(KERNELS)["flash_fwd"]
+        check(k1 == cfg.n_layer, f"Mistral full forward: {k1} K1 launches")
+        launches["mistral_forward"] = read_launches(KERNELS)
+        model32 = llama_fp32(model)
+        del model
+        torch.cuda.empty_cache()
+        full32 = model32(ids)[0, positions]
+    del model32
+    torch.cuda.empty_cache()
+    result = check_teacher_forced("mistral chunked teacher forcing", served,
+                                  full32, full16)
+    print(f"mistral chunked teacher forcing: {prompt_len}-token prompt in "
+          f"chunks of 512 + {n_decode} decode steps (window {cfg.window}), "
+          f"{result}; the reference forward launched K1 {k1} times")
+    return launches
+
+
+MISTRAL_TRAIN_CFG = dataclasses.replace(MISTRAL_7B, n_layer=2,
+                                        param_dtype=torch.float32)
+MISTRAL_TRAIN_B, MISTRAL_TRAIN_S = MISTRAL_TRAIN[0], MISTRAL_TRAIN[3]
+
+
+def phase_mistral_train(n_steps=3):
+    """Mistral-7B's widths cut to 2 layers (fp32 weights, bf16 compute),
+    b=2 s=8192 so that the 4096 window bites, the head and loss in chunks
+    of 512: n_steps AdamW steps with falling finite loss, K1 and K2 twice
+    per step (windowed), no SDPA op in a traced step; one step's loss and
+    gradient norm at the initial weights held to the 2x rule against fp32
+    compute (baseline: bf16 with attention through the windowed
+    attention_ref). Returns {path: launches}."""
+    cfg = MISTRAL_TRAIN_CFG
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (MISTRAL_TRAIN_B, MISTRAL_TRAIN_S))).to(DEV)
+    batch = {"input_ids": ids, "labels": ids}
+    model = LlamaForCausalLM(
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    step = make_llama_step(model, opt, lm_loss_chunk=LLAMA_LOSS_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(step(batch)) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"mistral_train": read_launches(KERNELS)}
+    check(all(math.isfinite(x) for x in losses), f"Mistral losses {losses}")
+    check(losses[-1] < losses[0], f"Mistral loss did not fall: {losses}")
+    for name in TRAIN_KERNELS:
+        got = launches["mistral_train"][name]
+        check(got == cfg.n_layer * n_steps, f"Mistral {name}: {got} "
+              f"launches in {n_steps} steps, want {cfg.n_layer} per step")
+    check_fp32_training(model, opt, "Mistral")
+    print(f"mistral train: Mistral-7B widths cut to {cfg.n_layer} layers, "
+          f"b={MISTRAL_TRAIN_B} s={MISTRAL_TRAIN_S} window {cfg.window}, "
+          f"lm_loss_chunk={LLAMA_LOSS_CHUNK}, {n_steps} AdamW steps in "
+          f"{dt:.2f} s; losses {', '.join(f'{x:.4f}' for x in losses)}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {launches['mistral_train']} [{card_line()}]")
+    trace_step("mistral train", lambda: step(batch), cfg.n_layer, cfg.n_layer,
+               band=True)
+    del step, opt, model
+    torch.cuda.empty_cache()
+
+    # The check at the initial weights: three steps on one batch take its
+    # loss near 0, where the comparison says little.
+    check_step_two_x(
+        "mistral train",
+        lambda c: LlamaForCausalLM(c, device=DEV, generator=torch.Generator(
+            device=DEV).manual_seed(0)),
+        cfg, dataclasses.replace(cfg, dtype=torch.float32),
+        lambda m: llama_loss(m, batch), module=llama_module)
+    return launches
+
+
+# GPT-2 at full width with a window of 256 and StreamingLLM's 4 sinks.
+GPT2_STREAM = GPT2Config(param_dtype=BF16, window=256, window_sinks=4)
+
+
+def phase_gpt2_stream(rng, n_req=8, prompt_len=500, new_tokens=64):
+    """GPT-2 at full width (bf16) with window 256 and 4 StreamingLLM sinks
+    (decode only): 8 requests of 500-token prompts x 64 tokens through the
+    engine with streaming release (every request finishes, pages freed);
+    then one prompt served (chunks of 256, then 64 decode steps) and held
+    to the 2x rule against a dense reference whose mask is the band for
+    the prompt's rows and the band plus the sinks for the decoded rows
+    (fp32 oracle; bf16 baseline), not against teacher forcing through the
+    full forward (sinks are decode-only). Returns its launches."""
+    cfg = GPT2_STREAM
+    model = GPT2LMHeadModel(
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len).tolist()
+               for _ in range(n_req)]
+    kw = dict(max_batch=8, page_size=128, pages_per_seq=8, num_pages=65,
+              prefill_chunk=256)
+    engine = ServingEngine(model, cfg, **kw)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=new_tokens)
+    reset_launches()
+    finished = engine.run(max_steps=1000)
+    torch.cuda.synchronize()
+    launches = read_launches(KERNELS)
+    check_finished("gpt2 stream", finished, n_req, cfg, new_tokens,
+                   cfg.max_position_embeddings)
+    check(engine.pages_freed > 0, "gpt2 stream: no page freed")
+    check_fused_appends("gpt2 stream", launches, decode=True)
+    print(f"gpt2 stream: window 256 + 4 sinks, {n_req} requests x "
+          f"{prompt_len}-token prompts x {new_tokens} tokens; pages freed "
+          f"{engine.pages_freed}, peak pages {engine.peak_pages}; launches "
+          f"{launches}")
+    del engine
+
+    ids = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, prompt_len + new_tokens))).to(DEV)
+    positions, served = serve_teacher_forced(model, cfg, gpt2_decode, ids,
+                                             prompt_len, 256, new_tokens)
+    s = ids.shape[1]
+    i = torch.arange(s, device=DEV)[:, None]
+    j = torch.arange(s, device=DEV)[None]
+    mask = (j <= i) & ((j >= i - cfg.window)
+                       | ((i >= prompt_len) & (j < cfg.window_sinks)))
+
+    def reference(upcast):
+        def attn(q, k, v, dropout_seed=None):
+            tr = lambda x: x.transpose(1, 2)  # noqa: E731
+            return tr(attention_ref(tr(q), tr(k), tr(v), mask=mask,
+                                    upcast=upcast))
+        return attn
+
+    full = {}
+    for dtype in (BF16, torch.float32):
+        ref = GPT2LMHeadModel(
+            dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype),
+            device=DEV, generator=torch.Generator(device=DEV).manual_seed(0),
+            attn_impl=reference(dtype == torch.float32))
+        ref.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            full[dtype] = ref(ids)[0, positions]
+        del ref
+    result = check_teacher_forced("gpt2 stream vs band+sinks reference",
+                                  served, full[torch.float32], full[BF16])
+    print(f"gpt2 stream: a {prompt_len}-token prompt in chunks of 256 + "
+          f"{new_tokens} decode steps against the dense band+sinks "
+          f"reference, {result}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def window_timing(gen):
+    """The window rows (dense_timing.window_rows' shapes): each kernel with
+    Mistral's window, the same kernel without it on the same tensors, and
+    for K1 / K2 SDPA with the band as a boolean attn_mask built outside the
+    timed call (K5 and K6 have no one-call library equivalent); bounds over
+    the visible pairs and the keys the band holds. Returns {kernel:
+    record} for the kernels' JSON ``window`` entries."""
+    card = card_line()
+    (q, k, v, dout, o, lse), (qd, pages, lens, table), \
+        (qc, _, _, _, chunk) = window_inputs(DEV)
+    b, h, h_kv, s, d = MISTRAL_TRAIN
+    L = MISTRAL_WINDOW
+    kw = dict(causal=True, softmax_scale=d ** -0.5)
+    band = Band(L)
+    mask = build_mask(s, s, causal=True, window_left=L, device=DEV)
+    pairs = b * h * band_pairs(s, s, L)
+    kp, vp = pages.k_pages, pages.v_pages
+    n = lens.tolist()
+    keys5 = sum(min(x, L + 1) for x in n)
+    c = int(chunk[0])
+    keys6 = sum(x - max(0, x - c - L) for x in n)
+    pairs6 = sum(min(x - c + t, L) + 1 for x in n for t in range(c))
+    tables = nbytes(lens, table, chunk)
+    scale = d ** -0.5
+    terms = (L, 0, None, None)
+    # name: (kernel, the kernel without the window, plain twin or None (the
+    # dense twins' fp32 scores at this shape would not fit on the card),
+    # library call or None, bytes, operations, shape)
+    specs = {
+        "flash_fwd": (
+            lambda: flash_attention_fwd(q, k, v, save_lse=True, band=band,
+                                        **kw),
+            lambda: flash_attention_fwd(q, k, v, save_lse=True, **kw),
+            None, sdpa_fwd(q, k, v, mask=mask),
+            nbytes(q, k, v, o, lse), 4 * pairs * d,
+            f"Mistral train b{b} h{h}/{h_kv} s{s} d{d} causal, window {L}, "
+            "lse"),
+        "flash_bwd": (
+            lambda: flash_attention_bwd(q, k, v, o, dout, lse, band=band,
+                                        **kw),
+            lambda: flash_attention_bwd(q, k, v, o, dout, lse, **kw),
+            None, sdpa_bwd(q, k, v, dout, mask=mask),
+            nbytes(q, k, v, o, dout, lse) + nbytes(q, k, v), 10 * pairs * d,
+            f"Mistral train b{b} h{h}/{h_kv} s{s} d{d} causal, window {L}"),
+        "paged_decode": (
+            lambda: paged_decode_attention(qd, kp, vp, lens, table,
+                                           window_left=L),
+            lambda: paged_decode_attention(qd, kp, vp, lens, table),
+            lambda: paged_decode_attention_plain(
+                qd, kp, vp, lens, table, softmax_scale=scale, terms=terms),
+            None, 2 * nbytes(qd) + 2 * keys5 * h_kv * d * 2 + tables,
+            4 * keys5 * h * d,
+            f"Mistral decode b{len(n)} h{h}/{h_kv} d{d} page 128, contexts "
+            f"{n[0]}..{n[-1]}, window {L}"),
+        "paged_chunk": (
+            lambda: paged_chunk_attention(qc, kp, vp, lens, table,
+                                          chunk_lens=chunk, window_left=L),
+            lambda: paged_chunk_attention(qc, kp, vp, lens, table,
+                                          chunk_lens=chunk),
+            lambda: paged_chunk_attention_plain(
+                qc, kp, vp, lens, table, chunk_lens=chunk,
+                softmax_scale=scale, terms=terms),
+            None, 2 * nbytes(qc) + 2 * keys6 * h_kv * d * 2 + tables,
+            4 * pairs6 * h * d,
+            f"Mistral chunk b{len(n)} sq{c} h{h}/{h_kv} d{d} page 128, "
+            f"lengths {n[0]}..{n[-1]}, window {L}"),
+    }
+    records = {}
+    for name, (kern, full, plain, library, n_bytes, flops, shape) in \
+            specs.items():
+        t_row = time.perf_counter()
+        n = 3 if library is not None else 10  # K1/K2 calls take ms each
+        k1, u1, k2 = (busy_ms(kern, n=n), busy_ms(full, n=n),
+                      busy_ms(kern, n=n))
+        p1 = None if plain is None else busy_ms(plain, n=3)
+        lib_ms = backend = None
+        lib = "none"
+        if library is not None:
+            lib_ms, backend, each = sdpa_fastest(library, n=n)
+            lib = f"{lib_ms:.4f} ms ({backend}; " + ", ".join(
+                f"{bk} {'refused' if t is None else f'{t:.4f}'}"
+                for bk, t in each.items()) + ")"
+        b_ms, b_by = bound(n_bytes, flops)
+        records[name] = {"shape": shape, "ms": min(k1, k2),
+                         "unwindowed_ms": u1, "plain_ms": p1,
+                         "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib_ms,
+                         "library_backend": backend}
+        plain_txt = ("not measured" if p1 is None else f"{p1:.4f} ms")
+        print(f"{name} ({shape}): kernel {k1:.4f} / {k2:.4f} ms, without "
+              f"the window {u1:.4f} ms (ratio {min(k1, k2) / u1:.3f}), "
+              f"plain {plain_txt}, library {lib}, bound {b_ms:.4f} ms ({b_by}: "
+              f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP over the "
+              f"visible pairs) [{card}]; row timed in "
+              f"{time.perf_counter() - t_row:.1f} s")
+    print("window rows: library = SDPA with the band as a boolean attn_mask "
+          "(enable_gqa), the fastest backend that accepts it; bounds count "
+          "each input read once (K5/K6: the keys the band holds), each "
+          "output written once and the products over the visible pairs; "
+          "the unwindowed time is the same kernel on the same tensors")
+    del q, k, v, dout, o, lse, qd, qc, pages, kp, vp, mask
+    torch.cuda.empty_cache()
+    return records
 
 
 def main():
@@ -2838,8 +3460,10 @@ def main():
         phase_fused_kernels()
         phase_train_kernels(gen, errs)
         phase_segment_kernels(gen, errs)
+        phase_window_kernels(gen, errs)
     with phase_time("determinism"):
         phase_determinism(gen)
+        phase_window_determinism(gen)
 
     # Serving GPT-2: full width, weights stored in bf16 (the serving dtype).
     with phase_time("GPT-2 serving"):
@@ -2908,6 +3532,15 @@ def main():
         torch.cuda.empty_cache()
     with phase_time("kernel timing"):
         times = kernel_timing(gen)
+        window = window_timing(gen)
+    with phase_time("Mistral serving"):
+        launches.update(phase_mistral_serving(rng))
+        torch.cuda.empty_cache()
+    with phase_time("Mistral training"):
+        launches.update(phase_mistral_train())
+        torch.cuda.empty_cache()
+    with phase_time("GPT-2 streaming decode"):
+        launches["gpt2_stream"] = phase_gpt2_stream(rng)
 
     # K7a and K7b run inside K5's and K6's launches on the paths: their
     # launches by path are those appends (and the standalone kernels',
@@ -2949,10 +3582,7 @@ def main():
                 "shape": "b32 h12 s512 d64, BERT padding masks, dropout 0.1",
                 "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": seg_b,
                 "bound_by": seg_by, "library_ms": seg_lib,
-                "library_backend": seg_backend,
-                "unmasked_ms": times[
-                    f"{name} (BERT shape, no mask, dropout 0.1"
-                    + (", lse)" if name == "flash_fwd" else ")")][0]}
+                "library_backend": seg_backend}
             entry["model_shapes"] = {}
             for shape, row in (
                     ("vit_train: b64 h12 s196 d64 non-causal, dropout 0.1",
@@ -2966,6 +3596,9 @@ def main():
                     "ms": ms_, "plain_ms": plain_, "bound_ms": b_,
                     "bound_by": by_, "library_ms": lib_,
                     "library_backend": backend_}
+        if name in window:  # the M4 branch at Mistral's shapes
+            entry["window"] = {**window[name],
+                               "max_abs_err": errs[f"window {name}"]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"phase total: {time.perf_counter() - t_start:.1f} s")

@@ -29,7 +29,11 @@ chunked admission of 8 prompts at Llama-3-8B's widths cut to 4 layers,
 traced for K7c's launches and device time, then 4 of its decode steps
 traced the same way; and two traced GPT-2 train steps through blocksparse
 attention (full width, b=8, s=1024, the LocalGlobal(256) mask), for their
-device busy time and K8a-c's share of it. To
+device busy time and K8a-c's share of it; and the sliding-window rows
+("W ..."; where the checkout has the window): K1 and K2 at Mistral-7B's
+train step (b=2 h=32/8 s=8192 d=128, window 4096) and K5 and K6 at its
+decode and chunked-prefill shapes (MISTRAL_DECODE, MISTRAL_CHUNK), each
+with and without the window on the same tensors. To
 compare two commits by the same method, unpack the other one with `git
 archive` into a git-ignored directory and run both in one session on the
 card (other, this, this, other). Needs a CUDA card; prints one JSON line.
@@ -209,6 +213,97 @@ def dense_rows(fwd, bwd, dev):
                     *a, causal=True, softmax_scale=d ** -0.5, save_lse=True))
         rows[f"K2 {label}, dropout {p}"] = (
             lambda a=(qt, kt, vt, ot, dt, lt), kw=kw: bwd(*a, **kw))
+    return rows
+
+
+# Mistral-7B-v0.1's attention: 32 query heads over 8 kv heads of d 128,
+# sliding_window 4096; its train step's b x s, and the decode and chunked
+# prefill (8 sequences, contexts 1000..7000, page 128) of the serving phase.
+MISTRAL_TRAIN = (2, 32, 8, 8192, 128)
+MISTRAL_WINDOW = 4096
+MISTRAL_DECODE = [int(x) for x in np.linspace(1000, 7000, 8)]
+MISTRAL_CHUNK = 512
+
+
+def band_pairs(sq: int, sk: int, left: int) -> int:
+    """Visible (query, key) pairs of causal attention with a left window:
+    row i sees keys [max(0, i - left), min(i, sk - 1)]."""
+    i = np.arange(sq)
+    return int((np.minimum(i, sk - 1) - np.maximum(0, i - left) + 1).clip(
+        min=0).sum())
+
+
+def window_inputs(dev):
+    """bf16 inputs of the window rows from torch.Generator seed 0: the
+    train step's (q, k, v, dout, o, lse) with the window, the decode's
+    (q, pages, lengths, table) and the chunk's (q, pages, lengths, table,
+    chunk_lens) (lengths include the chunk)."""
+    from flash_attn_tpu_torch.kernels.common import Band
+    from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
+    from flash_attn_tpu_torch.serving import cache
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = functools.partial(bf16_randn, gen)
+    b, h, h_kv, s, d = MISTRAL_TRAIN
+    q, dout = randn(b, h, s, d), randn(b, h, s, d)
+    k, v = randn(b, h_kv, s, d), randn(b, h_kv, s, d)
+    o, lse = flash_attention_fwd(q, k, v, causal=True,
+                                 softmax_scale=d ** -0.5, save_lse=True,
+                                 band=Band(MISTRAL_WINDOW))
+    ps = 128
+    lengths = MISTRAL_DECODE
+    pmax = -(-max(lengths) // ps)
+    pages = cache.init_cache(h_kv, 1 + len(lengths) * pmax, ps, d,
+                             dtype=torch.bfloat16, device=dev)
+    pages.k_pages.copy_(randn(*pages.k_pages.shape))
+    pages.v_pages.copy_(randn(*pages.v_pages.shape))
+    table = (1 + torch.randperm(len(lengths) * pmax, generator=gen,
+                                device=dev)).reshape(len(lengths), pmax).to(
+        torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    qd = randn(len(lengths), h, d)
+    qc = randn(len(lengths), MISTRAL_CHUNK, h, d)
+    chunk = torch.full((len(lengths),), MISTRAL_CHUNK, dtype=torch.int32,
+                       device=dev)
+    return ((q, k, v, dout, o, lse), (qd, pages, lens, table),
+            (qc, pages, lens, table, chunk))
+
+
+def window_rows(dev):
+    """{row: call} for the window rows ("W ..."), each kernel with the
+    window and without it on the same tensors; empty where the checkout
+    has no window."""
+    from flash_attn_tpu_torch.kernels import common
+    if not hasattr(common, "Band"):
+        return {}
+    from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
+    from flash_attn_tpu_torch.kernels.decode import paged_decode_attention
+    from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
+    from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
+    (q, k, v, dout, o, lse), dec, chk = window_inputs(dev)
+    b, h, h_kv, s, d = MISTRAL_TRAIN
+    train = f"Mistral train b{b} h{h}/{h_kv} s{s} d{d}"
+    kw = dict(causal=True, softmax_scale=d ** -0.5)
+    rows = {}
+    for label, band in ((f"window {MISTRAL_WINDOW}",
+                         common.Band(MISTRAL_WINDOW)),
+                        ("no window", common.NO_BAND)):
+        rows[f"W K1 {train}, {label}, lse"] = functools.partial(
+            flash_attention_fwd, q, k, v, save_lse=True, band=band, **kw)
+        rows[f"W K2 {train}, {label}"] = functools.partial(
+            flash_attention_bwd, q, k, v, o, dout, lse, band=band, **kw)
+    qd, pages, lens, table = dec
+    qc, _, _, _, chunk = chk
+    shape = f"b{len(MISTRAL_DECODE)} h{h}/{h_kv} d{d} contexts " \
+        f"{MISTRAL_DECODE[0]}..{MISTRAL_DECODE[-1]}"
+    for label, window in ((f"window {MISTRAL_WINDOW}", MISTRAL_WINDOW),
+                          ("no window", None)):
+        rows[f"W K5 Mistral decode {shape}, {label}"] = functools.partial(
+            paged_decode_attention, qd, pages.k_pages, pages.v_pages, lens,
+            table, window_left=window)
+        rows[f"W K6 Mistral chunk sq{MISTRAL_CHUNK} {shape}, {label}"] = (
+            functools.partial(paged_chunk_attention, qc, pages.k_pages,
+                              pages.v_pages, lens, table, chunk_lens=chunk,
+                              window_left=window))
     return rows
 
 
@@ -718,7 +813,8 @@ def main():
                                   dev),
                       **segment_rows(flash_attention_fwd, flash_attention_bwd,
                                      dev),
-                      **k7c_k8_rows(dev), **append_rows(dev)}.items():
+                      **k7c_k8_rows(dev), **append_rows(dev),
+                      **window_rows(dev)}.items():
         if not name.startswith(tuple(args.rows.split(","))):
             continue
         rows[name] = {"busy_ms": [busy_ms(fn, warm_s=warm_s),

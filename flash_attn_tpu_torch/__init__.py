@@ -6,7 +6,7 @@ use. Tensors on the CPU take each kernel's plain-torch twin. Importing this
 package imports no JAX.
 """
 
-from flash_attn_tpu_torch.ops.attention import flash_attention
+from flash_attn_tpu_torch.ops.attention import alibi_slopes, flash_attention
 from flash_attn_tpu_torch.ops.blocksparse import (
     blocksparse_attention,
     flash_blocksparse_attn_func,
@@ -25,6 +25,7 @@ from flash_attn_tpu_torch.ops.packing import pad_input, unpad_input
 __version__ = "0.1.0"
 
 __all__ = [
+    "alibi_slopes",
     "blocksparse_attention",
     "flash_attention",
     "flash_attn_func",

@@ -45,6 +45,15 @@
 // blocks launch first) and a slice's ranks count from the first block that
 // reaches it, so the additions come in the order the walks arrive and a
 // rank rarely waits.
+// The band terms (csrc/mask.cuh Band, as in the forward): a key tile walks
+// only the query tiles whose rows see it (rows_for_keys: the causal bound,
+// the band's, every row for a sink tile), and with a band the key tiles
+// launch last first. A query slice's contributors are then no longer a
+// prefix of the launch order: its rank is counted from the walks' own
+// bounds (dq_rank), so a wrong rank cannot arise from two formulas
+// drifting apart. The softcap multiplies dS by its gate 1 - tanh^2; ALiBi
+// only enters the recomputed p. Instances: kTerms 0 (no terms: every band
+// test folds away), 1, 2 (softcap).
 // Segments (flash_bwd.py:63-90 and :322-327 there; csrc/segments.cuh):
 // visibility by segment ids and per-segment positions, as in the forward.
 // A block walks only the query tiles its plan lists for its key tile (no
@@ -70,7 +79,13 @@
 //     elements); dV += P^T dO and dK += dS^T Q by register-A wgmma reading
 //     dO and Q as stored (transpose bit); dS^T through shared memory once,
 //     swizzled, for its dQ contribution dS K by wgmma with both operands
-//     transposed; each warp stages its 16 rows of that fp32 tile in shared
+//     transposed. That product reads dS as two 16-bit tiles, hi = dS
+//     rounded and its remainder dS - hi (in the warpgroup's dQ staging
+//     rows, free until then), dQ += hi K + rem K: dS rounded once to 16
+//     bits had cost dq up to 2 bf16 ulps at rows that see a few keys,
+//     twice the error of bf16 attention in autograd (2x rule); the second
+//     product costs a fifth more tensor work. Each warp stages its 16 rows
+//     of that fp32 tile in shared
 //     memory and, on the warpgroup's turn, adds them to dq_acc with one
 //     cp.reduce.async.bulk per row (no element atomics). Summing the two
 //     warpgroups' tiles in shared memory first halves that traffic but
@@ -112,6 +127,7 @@ struct BwdParams {
   Dropout drop;
   Strides st[kNumOps];  // q, k, v, o, dout, dk, dv, dq
   SegPlan seg;          // qsp == nullptr: no segments
+  Band band;            // window, sinks, softcap, ALiBi (csrc/mask.cuh)
 };
 
 constexpr int kStatRows = 64;  // the stats rows are padded to this
@@ -126,11 +142,21 @@ __device__ __forceinline__ int key_tile(bool last_first) {
 // This block's place among the blocks that add into dQ rows [m0, m0 + 16):
 // blocks count in launch order from the first one whose keys reach those
 // rows (under causal masking key tile kt reaches rows kt * keys_per_block
-// on).
+// on). With a band or sinks a query tile's walkers are no longer a prefix
+// of the launch order: csrc/mask.cuh dq_rank counts them from the walks'
+// own bounds (kt: this block's key tile, `rows`: the walk's query tile).
 __device__ __forceinline__ int dq_order(int m0, int keys_per_block,
                                         bool causal) {
   const int last = gridDim.x - 1;
   return blockIdx.x - (causal ? last - min(last, m0 / keys_per_block) : 0);
+}
+__device__ __forceinline__ int dense_dq_rank(const BwdParams& p,
+                                             const Band& band, int kt,
+                                             int m0, int keys, int rows,
+                                             bool last_first) {
+  if (!band.windowed()) return dq_order(m0, keys, p.causal);
+  return dq_rank(kt, m0 / rows, gridDim.x, keys, rows, p.sq, p.causal,
+                 last_first, band);
 }
 
 // The row stats, one warp per row of (b, h, sq_pad): di = rowsum(o * dout)
@@ -199,14 +225,18 @@ struct BwdLayout {
   static constexpr int kDS = kBwdN * kBwdM;    // dS^T, keys x queries
   static constexpr int kDQStride = D + 8;      // floats per dQ staging row
   static constexpr int kDQ = 2 * kBwdM * kDQStride;  // one per warpgroup
-  // K, V, the Q and dO rings, dS^T (16-bit); dQ staging (fp32); the row
-  // stats ring; kStages + 1 mbarriers, kStages release counts; alignment.
+  // K, V, the Q and dO rings, dS^T (16-bit); dQ staging (fp32; first the
+  // remainder of dS^T, 16-bit); the row stats ring; kStages + 1 mbarriers,
+  // kStages release counts; alignment.
   static constexpr int kBytes = 2 * (2 * kKV + 2 * kStages * kQ + kDS) +
                                 4 * kDQ + 16 * kStages * kBwdM +
                                 12 * (kStages + 1) + 1024;
 };
 
-template <typename T, int D, bool kSeg>
+// kTerms: 0 without the band terms (csrc/mask.cuh Band: every band test
+// folds away and the kernel is the plain causal one), 1 with them but no
+// softcap, 2 with a softcap (its own instance: see the dS pass below).
+template <typename T, int D, bool kSeg, int kTerms>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -215,6 +245,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const BwdParams p) {
   using L = BwdLayout<D>;
   constexpr int kStages = L::kStages;
+  constexpr bool kBand = kTerms > 0, kCap = kTerms == 2;
+  const Band band = kBand ? p.band : Band{};
   extern __shared__ uint8_t smem_raw[];
   uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_aligned(smem_raw));
   uint16_t* v_s = k_s + L::kKV;
@@ -228,8 +260,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t* released = reinterpret_cast<uint32_t*>(kv_full + 1);
 
   // The segment form launches the key tiles last first whatever the mask
-  // (csrc/segments.cuh: the plan's dQ ranks follow this order).
-  const int kt = key_tile(kSeg || p.causal);
+  // (csrc/segments.cuh: the plan's dQ ranks follow this order), and so does
+  // a band: a key tile shares query tiles with the next one at the start of
+  // its walk and with the previous one at the end of its own.
+  const bool last_first = kSeg || p.causal || band.windowed();
+  const int kt = key_tile(last_first);
   const int n0 = kt * kBwdN;
   const int hk = blockIdx.y, bb = blockIdx.z;
   const int group = p.h / p.h_kv;
@@ -243,8 +278,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     n_m = p.seg.bwd_n[e];
     list = reinterpret_cast<const int2*>(p.seg.bwd) + e * p.seg.n_q64;
   } else {
-    m_begin = first_row_for_keys(n0, p.causal) / kBwdM * kBwdM;
-    n_m = m_begin < p.sq ? (p.sq - m_begin + kBwdM - 1) / kBwdM : 0;
+    // The query tiles whose rows see a key of the tile: the causal bound,
+    // the band's, every row for a sink tile (csrc/mask.cuh).
+    const int2 w = row_tiles_for_keys(kt, kBwdN, kBwdM, p.sq, p.causal,
+                                      band);
+    m_begin = w.x * kBwdM;
+    n_m = w.y - w.x;
   }
   const int n_steps = group * n_m;
   auto step_row0 = [&](int it) -> int {
@@ -299,6 +338,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t ds_base = smem_u32(ds_s + wg * 64 * kBwdM);
   const uint32_t q_base = smem_u32(q_s), do_base = smem_u32(do_s);
   uint8_t* ds_wg = reinterpret_cast<uint8_t*>(ds_s + wg * 64 * kBwdM);
+  // The remainder of dS^T, laid out as dS^T, at the start of this
+  // warpgroup's dQ staging rows (a multiple of 1024 bytes in).
+  uint8_t* rem_wg =
+      reinterpret_cast<uint8_t*>(dq_s + wg * kBwdM * L::kDQStride);
+  const uint32_t rem_base = smem_u32(rem_wg);
   // dQ rows [16 warp, 16 warp + 16) of a tile are this warp's alone: it
   // stages them and its lanes 0-15 reduce one row each.
   float* dq_w = dq_s + (wg * kBwdM + warp * 16) * L::kDQStride;
@@ -310,12 +354,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Segments: this thread's two keys' queries [lo, hi) in the interval
   // form, else their (id, position).
   int2 kr[2];
+  int kpos[2] = {key0, key0 + 8};  // ALiBi's key coordinates
   bool iv = false;
   if constexpr (kSeg) {
     iv = p.seg.interval_form(bb);
     const int2* keys = iv ? p.seg.k_bounds(bb) : p.seg.k_rows(bb);
     kr[0] = keys[key0];
     kr[1] = keys[key0 + 8];
+    kpos[0] = p.seg.k_rows(bb)[key0].y;
+    kpos[1] = p.seg.k_rows(bb)[key0 + 8].y;
   }
   // The warpgroup's dQ addition of the last step, until it has completed
   // and its turn is passed on (nullptr: none).
@@ -367,30 +414,71 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // The last step's addition completes while the products run.
     finish_pending();
-    wgmma_wait<1>();
+    // With a softcap dS needs the cap's gate 1 - tanh^2 of each score
+    // (flash_bwd.py:215-227 there): both products are awaited and one pass
+    // makes p, the dropped p and dS. Otherwise p is made while dP^T runs.
+    // No accumulator of the dP^T product may be read while it is in flight
+    // (ptxas would serialize every wgmma of the kernel), hence an instance
+    // of its own rather than a branch.
+    if constexpr (kCap) {
+      wgmma_wait<0>();
+      fence_regs(dpt);
+    } else {
+      wgmma_wait<1>();
+    }
     fence_regs(st);
+    const float slope =
+        band.alibi != nullptr ? band.alibi[bb * p.h + hq] : 0.f;
+    // st <- dropped, rescaled p (for dV); dpt <- dS = p * (dP - di) * gate.
+    auto grad = [&](int nb, int e, float pv, float gate) {
+      const float4 r = st_t[nb * 8 + 2 * t + (e & 1)];
+      float pd = pv * p.drop.rp, dpd = dpt[4 * nb + e] * p.drop.rp;
+      if (p.drop.on() &&
+          !keep_elem(__float_as_uint(r.z), key0 + 8 * (e >> 1),
+                     p.drop.threshold)) {
+        pd = dpd = 0.f;
+      }
+      st[4 * nb + e] = pd;
+      dpt[4 * nb + e] = pv * (dpd - r.y) * gate;
+    };
 
-    // st <- p (pre-dropout); only tiles crossing the causal diagonal or
-    // sk's edge test elements (with segments: the plan's partial pairs).
-    // Row stats come in pairs of queries.
+    // st <- p (pre-dropout); only tiles crossing the causal diagonal, sk's
+    // edge or a band edge test elements (with segments: the plan's partial
+    // pairs). Row stats come in pairs of queries.
     bool edge;
     if constexpr (kSeg) {
       edge = ((uint32_t)__ldg(&list[it / group].x) >> 30) != kTileFull;
     } else {
-      edge = kw0 + 64 > p.sk || (p.causal && kw0 + 63 > m0);
+      edge = tile_masked(m0, m0 + kBwdM - 1, kw0, kw0 + 63, p.sk, p.causal,
+                         band);
     }
 #pragma unroll
     for (int nb = 0; nb < kBwdM / 8; ++nb) {
       const int ql = nb * 8 + 2 * t;
       const float lse2[2] = {st_t[ql].x, st_t[ql + 1].x};
       int4 qp;
+      int qpos[2] = {m0 + ql, m0 + ql + 1};  // ALiBi's query coordinates
       if constexpr (kSeg) {
-        if (edge && !iv) qp = seg_pair(p.seg.q_rows(bb), m0 + ql);
+        if ((edge && !iv) || band.alibi != nullptr) {
+          qp = seg_pair(p.seg.q_rows(bb), m0 + ql);
+          qpos[0] = qp.y;
+          qpos[1] = qp.w;
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float l2 = lse2[e & 1];
-        float pv = fast_exp2(fmaf(st[4 * nb + e], p.scale_log2, -l2));
+        float sv = st[4 * nb + e], gate = 1.f;
+        if constexpr (kCap) {
+          const float th = tanhf(sv * band.cap_in);
+          sv = band.cap_out * th;
+          gate = 1.f - th * th;
+        }
+        if (band.alibi != nullptr) {
+          const int q = qpos[e & 1], k = kpos[e >> 1];
+          sv += slope * (float)(p.causal ? k - q : -abs(q - k));
+        }
+        float pv = fast_exp2(fmaf(sv, p.scale_log2, -l2));
         bool vis;
         if constexpr (kSeg) {
           const int q = m0 + ql + (e & 1);
@@ -399,34 +487,26 @@ __global__ void __launch_bounds__(kThreads, 1)
                 (iv ? q >= kb.x && q < kb.y
                     : seg_visible((e & 1) ? make_int2(qp.z, qp.w)
                                           : make_int2(qp.x, qp.y),
-                                  kb, p.causal));
+                                  kb, p.causal, band));
         } else {
           vis = !edge || key_visible(m0 + ql + (e & 1), key0 + 8 * (e >> 1),
-                                     p.sk, p.causal);
+                                     p.sk, p.causal, band);
         }
         if (!vis) pv = 0.f;
-        st[4 * nb + e] = pv;
+        if constexpr (kCap) {
+          grad(nb, e, pv, gate);
+        } else {
+          st[4 * nb + e] = pv;
+        }
       }
     }
-    wgmma_wait<0>();
-    fence_regs(dpt);
-    // st <- dropped, rescaled p (for dV); dpt <- dS = p * (dP - di).
+    if constexpr (!kCap) {
+      wgmma_wait<0>();
+      fence_regs(dpt);
 #pragma unroll
-    for (int nb = 0; nb < kBwdM / 8; ++nb) {
-      const int ql = nb * 8 + 2 * t;
-      const float4 r0 = st_t[ql], r1 = st_t[ql + 1];
+      for (int nb = 0; nb < kBwdM / 8; ++nb) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4& r = (e & 1) ? r1 : r0;
-        const float pv = st[4 * nb + e];
-        float pd = pv * p.drop.rp, dpd = dpt[4 * nb + e] * p.drop.rp;
-        if (p.drop.on() && !keep_elem(__float_as_uint(r.z),
-                                      key0 + 8 * (e >> 1),
-                                      p.drop.threshold)) {
-          pd = dpd = 0.f;
-        }
-        st[4 * nb + e] = pd;
-        dpt[4 * nb + e] = pv * (dpd - r.y);
+        for (int e = 0; e < 4; ++e) grad(nb, e, st[4 * nb + e], 1.f);
       }
     }
 
@@ -442,15 +522,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     // dS^T to shared memory, [key][query] rows of 128 bytes with the
-    // 128-byte swizzle: the A operand of dQ = dS K, read transposed.
+    // 128-byte swizzle: the A operand of dQ = dS K, read transposed; its
+    // remainder dS - hi likewise into the staging rows (the last step's
+    // addition has completed).
 #pragma unroll
     for (int kk = 0; kk < kBwdM / 16; ++kk) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kl = warp * 16 + g + 8 * (j & 1);  // key within the 64
         const int nb = 2 * kk + (j >> 1);           // query chunk
-        *reinterpret_cast<uint32_t*>(
-            ds_wg + kl * 128 + ((nb ^ (kl & 7)) << 4) + 4 * t) = dsa[kk][j];
+        const int off = kl * 128 + ((nb ^ (kl & 7)) << 4) + 4 * t;
+        const float x0 = dpt[8 * kk + 2 * j], x1 = dpt[8 * kk + 2 * j + 1];
+        *reinterpret_cast<uint32_t*>(ds_wg + off) = dsa[kk][j];
+        *reinterpret_cast<uint32_t*>(rem_wg + off) = Mma<T>::pack(
+            x0 - Mma<T>::round(x0), x1 - Mma<T>::round(x1));
       }
     }
     fence_proxy_async();
@@ -480,18 +565,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_step(it + kStages);
     }
 
-    // dQ (64 queries x d) = dS K over this warpgroup's 64 keys; the
-    // warpgroup's turn for the tile (rank 2 order + wg) is awaited while
-    // the product runs.
+    // dQ (64 queries x d) = hi K + rem K over this warpgroup's 64 keys;
+    // the warpgroup's turn for the tile (rank 2 order + wg) is awaited
+    // while the product runs.
     float dqa[D / 2];
     {
       const uint32_t dsb = opaque(ds_base), kb = opaque(k_base);
+      const uint32_t rb = opaque(rem_base);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 64 / 16; ++kk) {
         Wgmma<T, D>::template ss<1, 1>(
             dqa, sw128_desc(dsb + kk * 16 * 128, 64 * 128, 1024),
             sw128_desc(kb + kk * 16 * 128, kBwdN * 128, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 64 / 16; ++kk) {
+        Wgmma<T, D>::template ss<1, 1>(
+            dqa, sw128_desc(rb + kk * 16 * 128, 64 * 128, 1024),
+            sw128_desc(kb + kk * 16 * 128, kBwdN * 128, 1024), 1);
       }
       wgmma_commit();
     }
@@ -500,17 +592,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (kSeg) {
       rank = __ldg(&list[it / group].y);
     } else {
-      rank = dq_order(m0, kBwdN, p.causal);
+      rank = dense_dq_rank(p, band, kt, m0, kBwdN, kBwdM, last_first);
     }
     if (tid == 0) wait_turn(turn, 2 * rank + wg);
-    named_barrier(1 + wg, 128);
     wgmma_wait<0>();
     fence_regs(dqa);
+    // The turn is ours, and every warp's product has read the remainder.
+    named_barrier(1 + wg, 128);
 
     // This warp's 16 rows through shared memory to dq_acc, one bulk
-    // reduce-add per row; the last step's addition has completed, so the
-    // staging rows are free. It completes, and the turn passes on, during
-    // the next step's first products.
+    // reduce-add per row, over the remainder tile. It completes, and the
+    // turn passes on, during the next step's first products.
 #pragma unroll
     for (int i = 0; i < D / 2; i += 2) {
       const int row = g + 8 * ((i >> 1) & 1);
@@ -570,9 +662,10 @@ __global__ void __launch_bounds__(256)
   // Segments: every block walks every query step (positions, not row
   // indices, decide visibility), so the dense causal order is off.
   const bool seg = p.seg.qsp != nullptr;
-  const bool tri = p.causal && !seg;
+  const bool tri = (p.causal || p.band.windowed()) && !seg;
 
-  const int n0 = key_tile(tri) * kN;
+  const int kt = key_tile(tri);
+  const int n0 = kt * kN;
   const int hk = blockIdx.y, bb = blockIdx.z;
   const int group = p.h / p.h_kv;
   const int i16 = threadIdx.x >> 4, j16 = threadIdx.x & 15;
@@ -593,12 +686,18 @@ __global__ void __launch_bounds__(256)
 
   const int col = n0 + j16;  // this thread's key in the score grid
   const int2 kr = seg ? p.seg.k_rows(bb)[col] : make_int2(0, 0);
-  const int m_begin = first_row_for_keys(n0, tri) / kM * kM;
+  // Dense: the query steps whose rows see a key of the block (csrc/mask.cuh);
+  // segments: every step.
+  const int2 w = seg ? make_int2(0, (p.sq + kM - 1) / kM)
+                     : row_tiles_for_keys(kt, kN, kM, p.sq, p.causal, p.band);
+  const int m_begin = w.x * kM;
   // Heads innermost, as the wgmma path.
-  const int n_m = m_begin < p.sq ? (p.sq - m_begin + kM - 1) / kM : 0;
+  const int n_m = w.y - w.x;
   for (int it = 0; it < group * n_m; ++it) {
     const int hq = hk * group + it % group;
     const int m0 = m_begin + (it / group) * kM;
+    const int rank = seg ? dq_order(m0, kN, false)
+                         : dense_dq_rank(p, p.band, kt, m0, kN, kM, tri);
     const uint32_t bh = bb * p.h + hq;
     const float* q =
         head_rows(static_cast<const float*>(p.q), p.st[kOpQ], bb, hq);
@@ -611,7 +710,7 @@ __global__ void __launch_bounds__(256)
     if (seg && p.seg.tile_class(bb, m0 / 64, n0 / 128) == kTileDead) {
       // Nothing loaded or computed; the turn is taken and passed on.
       if (threadIdx.x == 0) {
-        wait_turn(turn, dq_order(m0, kN, tri));
+        wait_turn(turn, rank);
         pass_turn(turn);
       }
       continue;
@@ -635,12 +734,22 @@ __global__ void __launch_bounds__(256)
       sc += q_s[i16 * kS + c] * k_s[j16 * kS + c];
       dpv += do_s[i16 * kS + c] * v_s[j16 * kS + c];
     }
-    float pv = 0.f, di_row = 0.f;
+    float pv = 0.f, di_row = 0.f, gate = 1.f;
     if (row < p.sq) {
       const float4 st4 = stats[row];  // lse2 = +inf where lse = -inf
       di_row = st4.y;
-      if (seg ? seg_visible(qseg_s[i16], kr, p.causal)
-              : key_visible(row, col, p.sk, p.causal)) {
+      if (seg ? seg_visible(qseg_s[i16], kr, p.causal, p.band)
+              : key_visible(row, col, p.sk, p.causal, p.band)) {
+        if (p.band.cap_in != 0.f) {
+          const float th = tanhf(sc * p.band.cap_in);
+          sc = p.band.cap_out * th;
+          gate = 1.f - th * th;  // d(capped) / d(score)
+        }
+        if (p.band.alibi != nullptr) {
+          const int q = seg ? qseg_s[i16].y : row, k = seg ? kr.y : col;
+          sc += p.band.alibi[bb * p.h + hq] *
+                (float)(p.causal ? k - q : -abs(q - k));
+        }
         pv = exp2f(sc * p.scale_log2 - st4.x);
       }
     }
@@ -650,7 +759,7 @@ __global__ void __launch_bounds__(256)
       pd = dpd = 0.f;
     }
     p_s[i16 * (kN + 1) + j16] = pd;
-    ds_s[i16 * (kN + 1) + j16] = pv * (dpd - di_row);
+    ds_s[i16 * (kN + 1) + j16] = pv * (dpd - di_row) * gate;
     __syncthreads();
 
     // dV, dK for key i16; dQ for query i16.
@@ -675,7 +784,7 @@ __global__ void __launch_bounds__(256)
       dqa[i] = a;
     }
     // dQ on this block's turn for the slice.
-    if (threadIdx.x == 0) wait_turn(turn, dq_order(m0, kN, tri));
+    if (threadIdx.x == 0) wait_turn(turn, rank);
     __syncthreads();
     if (m0 + i16 < p.sq) {
 #pragma unroll
@@ -701,7 +810,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int D, bool kSeg, int kTerms>
 cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t st) {
   using L = BwdLayout<D>;
   CUtensorMap map_q, map_k, map_v, map_do;
@@ -717,7 +826,7 @@ cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t st) {
     err = make_tile_map(&map_v, p.v, b, p.h_kv, p.sk, D, p.st[kOpV], kBwdN);
   }
   if (err != cudaSuccess) return err;
-  const auto kernel = flash_bwd_wgmma_kernel<T, D, kSeg>;
+  const auto kernel = flash_bwd_wgmma_kernel<T, D, kSeg, kTerms>;
   // Once per kernel and process (the first launch, on the current device).
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
@@ -725,6 +834,19 @@ cudaError_t launch_wgmma(const BwdParams& p, int b, cudaStream_t st) {
   kernel<<<dim3((p.sk + kBwdN - 1) / kBwdN, p.h_kv, b), kThreads, L::kBytes,
            st>>>(map_q, map_k, map_v, map_do, p);
   return cudaGetLastError();
+}
+
+template <typename T, int D, bool kSeg>
+cudaError_t launch_terms(const BwdParams& p, int b, int terms,
+                         cudaStream_t st) {
+  switch (terms) {
+    case 0:
+      return launch_wgmma<T, D, kSeg, 0>(p, b, st);
+    case 1:
+      return launch_wgmma<T, D, kSeg, 1>(p, b, st);
+    default:
+      return launch_wgmma<T, D, kSeg, 2>(p, b, st);
+  }
 }
 
 template <typename T, int D>
@@ -742,10 +864,12 @@ cudaError_t launch_typed(const BwdParams& p, const void* o, const float* lse,
     flash_bwd_f32_kernel<D>
         <<<dim3((p.sk + 15) / 16, p.h_kv, b), 256, 0, st>>>(p);
     err = cudaGetLastError();
-  } else if (p.seg.qsp != nullptr) {
-    err = launch_wgmma<T, D, true>(p, b, st);
   } else {
-    err = launch_wgmma<T, D, false>(p, b, st);
+    const int terms = p.band.cap_in != 0.f                          ? 2
+                      : p.band.windowed() || p.band.alibi != nullptr ? 1
+                                                                     : 0;
+    err = p.seg.qsp != nullptr ? launch_terms<T, D, true>(p, b, terms, st)
+                               : launch_terms<T, D, false>(p, b, terms, st);
   }
   if (err != cudaSuccess) return err;
   const size_t n4 = (size_t)b * p.h * p.sq * D / 4;
@@ -788,7 +912,9 @@ extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
                                const void* seg_plan, int b, int h,
                                int h_kv, int sq, int sk, int d, float scale,
                                int causal, unsigned seed, unsigned threshold,
-                               float rp, int dtype, void* stream) {
+                               float rp, int window_left, int window_right,
+                               int sinks, float softcap, const void* alibi,
+                               int dtype, void* stream) {
   using namespace fattn;
   if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || sq <= 0 || sk <= 0 ||
       !(scale > 0.f)) {
@@ -821,6 +947,10 @@ extern "C" int fattn_flash_bwd(const void* q, const void* k, const void* v,
               Dropout{seed, threshold, rp}};
   set_strides(p.st, strides);
   p.seg = SegPlan::at(static_cast<const int*>(seg_plan), b, sq, sk);
+  if (!make_band(&p.band, window_left, window_right, sinks, softcap, scale,
+                 alibi, seg_plan != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(dlse);
   if (d == 64) return launch<64>(p, o, l, dl, dq, dtype, b, st);

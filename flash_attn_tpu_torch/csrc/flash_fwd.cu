@@ -26,6 +26,15 @@
 // block with no live key tile writes out = 0 and lse = -inf without loading
 // anything.
 //
+// The band terms (flash_fwd.py:241-284 and common.py:108-185 there;
+// csrc/mask.cuh Band): a window (left, right) by global indices (by
+// positions in the segment form), sink columns, the logit softcap and ALiBi.
+// The dense walk visits the sink tiles and the band's tiles only
+// (key_walk); a tile that crosses a band edge or the sink boundary tests
+// elements (tile_masked); the softcap and the bias go on the score before
+// the mask, in the score's pre-scale units. Kernels without the terms are
+// their own instances (kBand), in which every band test folds away.
+//
 // Dropout (flash_fwd.py:363-377 there): the keep mask is the coordinate hash
 // of csrc/prng.cuh on (seed, b * h + head, row, col), its row half computed
 // once per row. The normalizer l sums the un-dropped p, dropped p is zeroed
@@ -74,6 +83,7 @@ struct FwdParams {
   Dropout drop;
   Strides st[kNumOps];  // q, k, v, o
   SegPlan seg;          // qsp == nullptr: no segments
+  Band band;            // window, sinks, softcap, ALiBi (csrc/mask.cuh)
 };
 
 // ---------------------------------------------------------------- wgmma path
@@ -93,7 +103,9 @@ struct FwdLayout {
       2 * (kQ + 2 * kStages * kTile) + 12 * (kStages + 1) + 1024;
 };
 
-template <typename T, int D, bool kSeg>
+// kBand: the instance with the band terms (csrc/mask.cuh Band); without
+// them every band test folds away and the kernel is the plain causal one.
+template <typename T, int D, bool kSeg, bool kBand>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -101,6 +113,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const FwdParams p) {
   using L = FwdLayout<D>;
   constexpr int kStages = L::kStages;
+  const Band band = kBand ? p.band : Band{};
   extern __shared__ uint8_t smem_raw[];
   uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_aligned(smem_raw));
   uint16_t* k_s = q_s + L::kQ;
@@ -114,25 +127,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = tile * kBlockM;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int hk = hh / (p.h / p.h_kv);
-  // The walk: key tiles 0.. up to the causal bound, or with segments the
-  // live key tiles of the plan's list for these rows.
+  // The walk: the sink tiles and the band's key tiles up to the causal
+  // bound (csrc/mask.cuh key_walk), or with segments the live key tiles of
+  // the plan's list for these rows.
   const uint32_t* list = nullptr;
+  TileWalk walk{0, 0, 0};
   int n_tiles;
   if constexpr (kSeg) {
     const size_t t = (size_t)bb * p.seg.n_q128 + tile;
     n_tiles = p.seg.fwd_n[t];
     list = reinterpret_cast<const uint32_t*>(p.seg.fwd) + t * p.seg.n_k128;
   } else {
-    n_tiles =
-        (keys_for_rows(q0, kBlockM, p.sk, p.causal) + kBlockN - 1) / kBlockN;
+    walk = key_walk(q0, kBlockM, kBlockN, p.sk, p.causal, band);
+    n_tiles = walk.n;
   }
   auto key0_of = [&](int j) -> int {
     if constexpr (kSeg) {
       return (int)(__ldg(list + j) & kTileIndex) * kBlockN;
     } else {
-      return j * kBlockN;
+      return walk.tile(j) * kBlockN;
     }
   };
+  const float slope =
+      band.alibi != nullptr ? band.alibi[bb * p.h + hh] : 0.f;
 
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
@@ -181,12 +198,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Segments: this thread's two rows' keys [lo, hi) in the interval
     // form, else their (id, position).
     int2 qr[2];
+    int qpos[2] = {row0, row0 + 8};  // ALiBi's query coordinates
     bool iv = false;
     if constexpr (kSeg) {
       iv = p.seg.interval_form(bb);
       const int2* rows = iv ? p.seg.q_bounds(bb) : p.seg.q_rows(bb);
       qr[0] = rows[row0];
       qr[1] = rows[row0 + 8];
+      qpos[0] = p.seg.q_rows(bb)[row0].y;
+      qpos[1] = p.seg.q_rows(bb)[row0 + 8].y;
     }
     uint32_t rh[2] = {0u, 0u};  // row halves of the dropout hash
     if (p.drop.on()) {
@@ -221,6 +241,26 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);
     for (int j = 0; j < n_tiles; ++j) {
       const int k0 = key0_of(j);
+      if (kBand && band.logits()) {
+        // Softcap and ALiBi on the score before the mask (flash_fwd.py:241
+        // -284 there); the segment form's distances are positions.
+#pragma unroll
+        for (int nb = 0; nb < kBlockN / 8; ++nb) {
+          int kpos[2] = {k0 + nb * 8 + 2 * t, k0 + nb * 8 + 2 * t + 1};
+          if constexpr (kSeg) {
+            if (band.alibi != nullptr) {
+              const int4 kp = seg_pair(p.seg.k_rows(bb), kpos[0]);
+              kpos[0] = kp.y;
+              kpos[1] = kp.w;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[nb * 4 + e] = band_logit(sc[nb * 4 + e], qpos[e >> 1],
+                                        kpos[e & 1], p.causal, band, slope);
+          }
+        }
+      }
       if constexpr (kSeg) {
         // The plan's class of this warpgroup's 64 rows against the tile: a
         // dead one masks every element, a partial one tests each (two
@@ -249,22 +289,23 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int e = 0; e < 4; ++e) {
               const int2 key = (e & 1) ? make_int2(kp.z, kp.w)
                                        : make_int2(kp.x, kp.y);
-              if (!seg_visible(qr[e >> 1], key, p.causal)) {
+              if (!seg_visible(qr[e >> 1], key, p.causal, band)) {
                 sc[nb * 4 + e] = -INFINITY;
               }
             }
           }
         }
-      } else if (k0 + kBlockN > p.sk ||
-                 (p.causal && k0 + kBlockN - 1 > wg_row0)) {
-        // Only a tile crossing sk's edge or this warpgroup's causal diagonal
-        // tests elements.
+      } else if (tile_masked(wg_row0, wg_row0 + 63, k0, k0 + kBlockN - 1,
+                             p.sk, p.causal, band)) {
+        // Only a tile crossing sk's edge, this warpgroup's causal diagonal, a
+        // band edge or the sink boundary tests elements.
 #pragma unroll
         for (int nb = 0; nb < kBlockN / 8; ++nb) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + nb * 8 + 2 * t + (e & 1);
-            if (!key_visible(row0 + 8 * (e >> 1), col, p.sk, p.causal)) {
+            if (!key_visible(row0 + 8 * (e >> 1), col, p.sk, p.causal,
+                             band)) {
               sc[nb * 4 + e] = -INFINITY;
             }
           }
@@ -416,10 +457,16 @@ __global__ void __launch_bounds__(256)
   const uint32_t rh =
       p.drop.on() ? hash_row(p.drop.seed, bb * p.h + hh, row) : 0u;
   const int2 qrow = seg ? p.seg.q_rows(bb)[row] : make_int2(0, 0);
+  const float slope =
+      p.band.alibi != nullptr ? p.band.alibi[bb * p.h + hh] : 0.f;
 
-  const int n_keys =
-      seg ? p.sk : keys_for_rows(q0, kF32Rows, p.sk, p.causal);
-  for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
+  // Dense: the sink tiles and the band's tiles (csrc/mask.cuh key_walk);
+  // segments: every tile the plan does not call dead.
+  const TileWalk walk =
+      seg ? TileWalk{0, 0, (p.sk + kBlockK - 1) / kBlockK}
+          : key_walk(q0, kF32Rows, kBlockK, p.sk, p.causal, p.band);
+  for (int j = 0; j < walk.n; ++j) {
+    const int k0 = walk.tile(j) * kBlockK;
     if (seg && p.seg.tile_class(bb, blockIdx.x, k0 / 128) == kTileDead) {
       continue;  // not loaded, not computed
     }
@@ -449,8 +496,12 @@ __global__ void __launch_bounds__(256)
       a += __shfl_xor_sync(0xffffffffu, a, 1);
       a += __shfl_xor_sync(0xffffffffu, a, 2);
       const int col = k0 + j;
-      const bool vis = seg ? seg_visible(qrow, kseg_s[j], p.causal)
-                           : key_visible(row, col, p.sk, p.causal);
+      const bool vis = seg ? seg_visible(qrow, kseg_s[j], p.causal, p.band)
+                           : key_visible(row, col, p.sk, p.causal, p.band);
+      if (p.band.logits()) {
+        a = seg ? band_logit(a, qrow.y, kseg_s[j].y, p.causal, p.band, slope)
+                : band_logit(a, row, col, p.causal, p.band, slope);
+      }
       s[j] = vis ? a * p.scale_log2 : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
@@ -491,7 +542,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int D, bool kSeg>
+template <typename T, int D, bool kSeg, bool kBand>
 cudaError_t launch_wgmma(const FwdParams& p, int b, cudaStream_t st) {
   using L = FwdLayout<D>;
   CUtensorMap map_q, map_k, map_v;
@@ -504,7 +555,7 @@ cudaError_t launch_wgmma(const FwdParams& p, int b, cudaStream_t st) {
     err = make_tile_map(&map_v, p.v, b, p.h_kv, p.sk, D, p.st[kOpV], kBlockN);
   }
   if (err != cudaSuccess) return err;
-  const auto kernel = flash_fwd_wgmma_kernel<T, D, kSeg>;
+  const auto kernel = flash_fwd_wgmma_kernel<T, D, kSeg, kBand>;
   // Once per kernel and process (the first launch, on the current device).
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
@@ -514,16 +565,25 @@ cudaError_t launch_wgmma(const FwdParams& p, int b, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_typed(const FwdParams& p, int b, cudaStream_t st) {
+  const bool seg = p.seg.qsp != nullptr;
+  const bool band = p.band.windowed() || p.band.logits();
+  if (seg) {
+    return band ? launch_wgmma<T, D, true, true>(p, b, st)
+                : launch_wgmma<T, D, true, false>(p, b, st);
+  }
+  return band ? launch_wgmma<T, D, false, true>(p, b, st)
+              : launch_wgmma<T, D, false, false>(p, b, st);
+}
+
 template <int D>
 cudaError_t launch(const FwdParams& p, int dtype, int b, cudaStream_t st) {
   switch (dtype) {
     case kBF16:
-      return p.seg.qsp != nullptr
-                 ? launch_wgmma<__nv_bfloat16, D, true>(p, b, st)
-                 : launch_wgmma<__nv_bfloat16, D, false>(p, b, st);
+      return launch_typed<__nv_bfloat16, D>(p, b, st);
     case kF16:
-      return p.seg.qsp != nullptr ? launch_wgmma<__half, D, true>(p, b, st)
-                                  : launch_wgmma<__half, D, false>(p, b, st);
+      return launch_typed<__half, D>(p, b, st);
     case kF32:
       flash_fwd_f32_kernel<D>
           <<<dim3((p.sq + kF32Rows - 1) / kF32Rows, p.h, b), 256, 0, st>>>(p);
@@ -539,12 +599,17 @@ cudaError_t launch(const FwdParams& p, int dtype, int b, cudaStream_t st) {
 // strides: (batch, head, row) element strides of every Operand
 // (csrc/common.cuh); q, k, v and o are read here. seg_plan: the tile plan
 // of csrc/segments.cu for (b, sq, sk, causal), or nullptr (no segments).
+// window_left / window_right: -1 unbounded; sinks: with a band, dense
+// only; softcap: 0 none; alibi: (b, h) fp32 slopes divided by the scale, or
+// nullptr (csrc/mask.cuh Band).
 extern "C" int fattn_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, const long long* strides,
                                const void* seg_plan, int b, int h, int h_kv,
                                int sq, int sk, int d, float scale, int causal,
                                unsigned seed, unsigned threshold, float rp,
-                               int dtype, void* stream) {
+                               int window_left, int window_right, int sinks,
+                               float softcap, const void* alibi, int dtype,
+                               void* stream) {
   using namespace fattn;
   if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || sq <= 0 || sk <= 0 ||
       !(scale > 0.f)) {
@@ -555,6 +620,10 @@ extern "C" int fattn_flash_fwd(const void* q, const void* k, const void* v,
               causal != 0, Dropout{seed, threshold, rp}};
   set_strides(p.st, strides);
   p.seg = SegPlan::at(static_cast<const int*>(seg_plan), b, sq, sk);
+  if (!make_band(&p.band, window_left, window_right, sinks, softcap, scale,
+                 alibi, seg_plan != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(p, dtype, b, st);
   if (d == 128) return launch<128>(p, dtype, b, st);

@@ -38,6 +38,10 @@ struct Mma<__nv_bfloat16> {
   static __device__ __forceinline__ uint16_t bits(float x) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(x));
   }
+  // x rounded to bf16, as a float.
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
 };
 
 template <>
@@ -57,6 +61,10 @@ struct Mma<__half> {
   }
   static __device__ __forceinline__ uint16_t bits(float x) {
     return __half_as_ushort(__float2half_rn(x));
+  }
+  // x rounded to fp16, as a float.
+  static __device__ __forceinline__ float round(float x) {
+    return __half2float(__float2half_rn(x));
   }
 };
 

@@ -17,6 +17,16 @@
 // (chunk.py:207, l == 0). The visibility predicates are csrc/paged.cuh,
 // shared with K5.
 //
+// Window, softcap and ALiBi (chunk.py:61-200 there; csrc/paged.cuh): with a
+// window of left L row t sees keys [qpos_t - L, qpos_t]. A block walks the
+// band from its FIRST row's floor (the loosest; csrc/paged.cuh paged_walk
+// with no sinks: they are decode-only, K5's), its
+// splits cut that walk, and a TMA box (a piece of one page) that no row of
+// the block sees is mapped past the cache, so TMA fills it with zeros
+// without reading a byte: pages wholly below the band are never fetched.
+// Tiles crossing a row's band edge test elements; the softcap and the ALiBi
+// bias go on the scaled score before the mask (paged_logit).
+//
 // Rows: a block holds the group's query heads x tile_t chunk rows, block
 // row r = (t - t0) * group + g, so a K/V tile read from the pages serves the
 // whole group, as in K5. sq is not padded: the ragged tail is masked.
@@ -101,6 +111,8 @@ struct ChunkParams {
   int sq, h_kv, group, tile_t, row_tiles, num_pages, page_size, pages_max;
   int box_rows;  // rows of a TMA box: min(page_size, 64)
   float scale_log2;
+  float scale;
+  PagedBand band;
 };
 
 // What a block knows about its sequence and its chunk rows.
@@ -109,11 +121,13 @@ struct BlockRows {
   int first_qpos;  // global position of chunk row 0
   int chunk_len;   // valid chunk rows
   int t0;          // the block's first chunk row
-  int n_keys;      // keys its rows can see at all: the walk's bound
+  int n_keys;      // keys its rows can see at all: the walk's end
+  PagedWalk walk;  // the band from the first row's floor
 };
 
 __device__ __forceinline__ BlockRows block_rows(const ChunkParams& p, int bb,
-                                                int row_tile) {
+                                                int row_tile,
+                                                const PagedBand& band) {
   BlockRows br;
   const int raw = p.lengths[bb];
   br.chunk_len = p.chunk_lens[bb];
@@ -124,6 +138,7 @@ __device__ __forceinline__ BlockRows block_rows(const ChunkParams& p, int bb,
   br.n_keys = t_end > br.t0
                   ? paged_live_keys(br.length, br.first_qpos + t_end - 1)
                   : 0;
+  br.walk = paged_walk(br.n_keys, br.first_qpos + br.t0, band);
   return br;
 }
 
@@ -168,18 +183,23 @@ __device__ __forceinline__ int out_row(const ChunkParams& p,
 }
 
 // With the append: the new rows t0 <= t < t1 of sequence bb whose
-// positions cache_lens[bb] + t fall in split `split`'s key range, which
-// its block stores; false where there are none (no append, an inactive
-// sequence, none in the range or in the table).
+// positions cache_lens[bb] + t fall in split `split`'s range of the walk
+// `w`, which its block stores; false where there are none (no append, an
+// inactive sequence, none in the range or in the table). The new rows lie
+// in the band, past its first tile, so their walk indices run on with
+// their positions.
 __device__ __forceinline__ bool appended_rows(const ChunkParams& p, int bb,
-                                              int split, int* t0, int* t1) {
+                                              int split, const PagedWalk& w,
+                                              int* t0, int* t1) {
   if (p.nr.k == nullptr) return false;
   const int len = p.cache_lens[bb];
   if (len < 0) return false;  // inactive: nothing
   const int k_lo = split * p.sp.split_keys;
-  *t0 = max(0, k_lo - len);
+  const int v = w.index(len);  // walk index of new row 0
+  *t0 = max(0, k_lo - v);
   *t1 = min(min(p.chunk_lens[bb], p.sq),
-            min(k_lo + p.sp.split_keys, p.pages_max * p.page_size) - len);
+            min(k_lo + p.sp.split_keys - v,
+                p.pages_max * p.page_size - len));
   return *t1 > *t0;
 }
 
@@ -220,11 +240,14 @@ struct ChunkLayout {
   static constexpr int kMaxBytes = kBytes + kAppendBytes + kRows * kRowBytes;
 };
 
-template <typename T, int D, bool kAppend>
+// kBand: the instance with the M4 terms (csrc/paged.cuh PagedBand);
+// without them every band test folds away.
+template <typename T, int D, bool kAppend, bool kBand>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              const ChunkParams p) {
+  const PagedBand band = kBand ? p.band : PagedBand{};
   using L = ChunkLayout<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -237,20 +260,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int split = blockIdx.x / p.row_tiles;
   const int hk = blockIdx.y, bb = blockIdx.z;
   const int ps = p.page_size;
-  const BlockRows br = block_rows(p, bb, row_tile);
-  const int k_lo = split * p.sp.split_keys;  // a multiple of kKeys
-  const int k_hi = min(br.n_keys, k_lo + p.sp.split_keys);
+  const BlockRows br = block_rows(p, bb, row_tile, band);
+  const int k_lo = split * p.sp.split_keys;  // walk index, a multiple of 64
+  const int k_hi = min(br.walk.n, k_lo + p.sp.split_keys);
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
   const int* tbl = p.page_table + (size_t)bb * p.pages_max;
-  // Tile j (keys k_lo + 64 j on) into ring stage j % kStages: one TMA box
-  // per page it touches and 64-column block.
+  // Tile j (walk indices k_lo + 64 j on: one run of positions) into ring
+  // stage j % kStages: one TMA box per page it touches and 64-column block;
+  // a box no row of the block sees is mapped past the cache (zeros, no
+  // read).
   auto load_tile = [&](int j) {
     const int s = j % kStages;
-    const int k0 = k_lo + j * kKeys;
+    const int k0 = br.walk.pos(k_lo + j * kKeys);
     mbar_arrive_expect_tx(&full[s], 2 * 2 * L::kTile);
     for (int r = 0; r < kKeys; r += p.box_rows) {
       const int pos = k0 + r;
-      const int id = pos / ps < p.pages_max ? tbl[pos / ps] : p.num_pages;
+      const int id =
+          pos / ps < p.pages_max &&
+                  (!kBand || br.walk.loads_any(pos, p.box_rows))
+              ? tbl[pos / ps]
+              : p.num_pages;
       for (int c = 0; c < D / 64; ++c) {
         const int off = s * L::kTile + c * kKeys * 64 + r * 64;
         tma_load_4d(k_s + off, &map_k, &full[s], c * 64, pos % ps, id, hk);
@@ -276,7 +305,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kVecs = D / 8;  // 16-byte vectors of a row
   constexpr int kStagers = 32;  // thread 0's warp stages nothing
   int t0 = 0, t1 = 0;
-  const bool appends = kAppend && appended_rows(p, bb, split, &t0, &t1);
+  const bool appends =
+      kAppend && appended_rows(p, bb, split, br.walk, &t0, &t1);
   const int new_lo = appends ? p.cache_lens[bb] + t0 : 0;
   const int n_items = (t1 - t0) * 2 * kVecs;
   const int first_item = static_cast<int>(threadIdx.x) - kStagers;
@@ -328,10 +358,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums, reduced at the end
   const uint32_t k_base = smem_u32(k_s), v_base = smem_u32(v_s);
+  // With a softcap or ALiBi the scores reach the softmax in log2 units.
+  const float mult = kBand && band.logits() ? 1.f : p.scale_log2;
+  float slope[2] = {0.f, 0.f};  // ALiBi slopes of this thread's rows
+  if (band.alibi != nullptr) {
+    slope[0] = band.alibi[hk * p.group + rows[0] % p.group];
+    slope[1] = band.alibi[hk * p.group + rows[1] % p.group];
+  }
 
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
-    const int k0 = k_lo + j * kKeys;
+    const int k0 = br.walk.pos(k_lo + j * kKeys);
     mbar_wait(&full[s], (j / kStages) & 1);
     if (appends && new_lo < k0 + kKeys && new_lo + t1 - t0 > k0) {
       // This tile holds new rows: the staged rows over what the TMA
@@ -380,15 +417,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       fence_regs(sc);
 
-      // Only a tile crossing the length or this warpgroup's diagonal (its
-      // first row has the smallest position) tests elements.
-      if (k0 + kKeys > br.length || k0 + kKeys - 1 > wg_qpos) {
+      if (kBand && band.logits()) {
 #pragma unroll
         for (int nb = 0; nb < kKeys / 8; ++nb) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + nb * 8 + 2 * t + (e & 1);
-            if (!paged_key_visible(col, qpos[e >> 1], br.length)) {
+            sc[nb * 4 + e] = paged_logit(sc[nb * 4 + e] * p.scale, band,
+                                         slope[e >> 1], col - qpos[e >> 1]);
+          }
+        }
+      }
+      // Only a tile crossing the length, this warpgroup's diagonal (its
+      // first row has the smallest position) or a row's band edge (its
+      // rows' positions are below wg_qpos + 64) tests elements.
+      const bool band_edge = band.left >= 0 &&
+                             k0 < wg_qpos + 63 - band.left;
+      if (k0 + kKeys > br.length || k0 + kKeys - 1 > wg_qpos || band_edge) {
+#pragma unroll
+        for (int nb = 0; nb < kKeys / 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + nb * 8 + 2 * t + (e & 1);
+            if (!paged_key_visible(col, qpos[e >> 1], br.length, band)) {
               sc[nb * 4 + e] = -INFINITY;
             }
           }
@@ -404,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float mn = fmaxf(m[r], mx[r] * p.scale_log2);
+        const float mn = fmaxf(m[r], mx[r] * mult);
         // A row with nothing visible yet keeps m = -inf; exp2 against 0
         // then gives p = 0 and alpha = 0 instead of NaN.
         base[r] = mn == -INFINITY ? 0.f : mn;
@@ -415,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kKeys / 2; ++i) {
         const int r = (i >> 1) & 1;
-        sc[i] = fast_exp2(fmaf(sc[i], p.scale_log2, -base[r]));
+        sc[i] = fast_exp2(fmaf(sc[i], mult, -base[r]));
         rs[r] += sc[i];
       }
       l[0] = l[0] * alpha[0] + rs[0];
@@ -518,7 +569,7 @@ __global__ void __launch_bounds__(256)
   const int t4 = threadIdx.x & 3;
   const int row = threadIdx.x >> 2;
   const int ps = p.page_size;
-  const BlockRows br = block_rows(p, bb, blockIdx.x);
+  const BlockRows br = block_rows(p, bb, blockIdx.x, p.band);
   const long long off = q_offset(p, br, bb, hk, row);
   const int qpos = row_qpos(p, br, row);
 
@@ -538,17 +589,24 @@ __global__ void __launch_bounds__(256)
   // The new rows: the barrier at the top of the first tile orders them
   // before its loads.
   int t0 = 0, t1 = 0;
-  if (appended_rows(p, bb, 0, &t0, &t1)) store_appended(p, bb, hk, t0, t1);
+  if (appended_rows(p, bb, 0, br.walk, &t0, &t1)) {
+    store_appended(p, bb, hk, t0, t1);
+  }
+  const float slope = p.band.alibi != nullptr
+                          ? p.band.alibi[hk * p.group + row % p.group]
+                          : 0.f;
 
-  for (int k0 = 0; k0 < br.n_keys; k0 += kBlockK) {
-    const int n = min(kBlockK, br.n_keys - k0);
+  // Walk indices in 32-key tiles (each one run of positions, from k0).
+  for (int v0 = 0; v0 < br.walk.n; v0 += kBlockK) {
+    const int k0 = br.walk.pos(v0);
+    const int n = min(kBlockK, br.walk.n - v0);
     __syncthreads();
     load_page_ids(page_s, tbl, k0, n, ps);
     __syncthreads();
     for (int i = threadIdx.x; i < kBlockK * D / 4; i += blockDim.x) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (r < n) {
+      if (r < n && br.walk.loads(k0 + r)) {  // else zeros, never read
         const size_t src = key_offset<D>(page_s, k0, k0 + r, ps) + c;
         kv = *reinterpret_cast<const float4*>(kh + src);
         vv = *reinterpret_cast<const float4*>(vh + src);
@@ -567,8 +625,13 @@ __global__ void __launch_bounds__(256)
       for (int i = 0; i < kPer; ++i) a += qr[i] * k_s[j * D + i * 4 + t4];
       a += __shfl_xor_sync(0xffffffffu, a, 1);
       a += __shfl_xor_sync(0xffffffffu, a, 2);
-      s[j] = paged_key_visible(k0 + j, qpos, br.length) ? a * p.scale_log2
-                                                         : -INFINITY;
+      if (p.band.logits()) {
+        a = paged_logit(a * p.scale, p.band, slope, k0 + j - qpos);
+      } else {
+        a *= p.scale_log2;
+      }
+      s[j] = paged_key_visible(k0 + j, qpos, br.length, p.band) ? a
+                                                                 : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float base = mx == -INFINITY ? 0.f : mx;
@@ -598,7 +661,7 @@ __global__ void __launch_bounds__(256)
   for (int i = 0; i < kPer; ++i) out[i * 4 + t4] = acc[i] * inv;
 }
 
-template <typename T, int D, bool kAppend>
+template <typename T, int D, bool kAppend, bool kBand>
 cudaError_t launch_wgmma(const ChunkParams& p, int b, cudaStream_t st) {
   using L = ChunkLayout<D>;
   // Each cache as (h_kv, num_pages, page_size, d): 4-D maps whose box is
@@ -613,7 +676,7 @@ cudaError_t launch_wgmma(const ChunkParams& p, int b, cudaStream_t st) {
                         D, pages, p.box_rows);
   }
   if (err != cudaSuccess) return err;
-  const auto kernel = paged_chunk_wgmma_kernel<T, D, kAppend>;
+  const auto kernel = paged_chunk_wgmma_kernel<T, D, kAppend, kBand>;
   // Once per kernel and process (the first launch, on the current device).
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kMaxBytes);
@@ -627,15 +690,24 @@ cudaError_t launch_wgmma(const ChunkParams& p, int b, cudaStream_t st) {
   return launch_merge<T, D>(p.sp, static_cast<T*>(p.out), st);
 }
 
+template <typename T, int D>
+cudaError_t launch_typed(const ChunkParams& p, int b, cudaStream_t st) {
+  const bool band = p.band.left >= 0 || p.band.logits();
+  if (p.nr.k != nullptr) {
+    return band ? launch_wgmma<T, D, true, true>(p, b, st)
+                : launch_wgmma<T, D, true, false>(p, b, st);
+  }
+  return band ? launch_wgmma<T, D, false, true>(p, b, st)
+              : launch_wgmma<T, D, false, false>(p, b, st);
+}
+
 template <int D>
 cudaError_t launch(const ChunkParams& p, int dtype, int b, cudaStream_t st) {
   switch (dtype) {
     case kBF16:
-      return p.nr.k != nullptr ? launch_wgmma<__nv_bfloat16, D, true>(p, b, st)
-                               : launch_wgmma<__nv_bfloat16, D, false>(p, b, st);
+      return launch_typed<__nv_bfloat16, D>(p, b, st);
     case kF16:
-      return p.nr.k != nullptr ? launch_wgmma<__half, D, true>(p, b, st)
-                               : launch_wgmma<__half, D, false>(p, b, st);
+      return launch_typed<__half, D>(p, b, st);
     case kF32:
       paged_chunk_f32_kernel<D><<<dim3(p.row_tiles, p.h_kv, b), 256, 0, st>>>(p);
       return cudaGetLastError();
@@ -654,7 +726,9 @@ cudaError_t launch(const ChunkParams& p, int dtype, int b, cudaStream_t st) {
 // multiple of 64 and of page_size. new_k / new_v: nullptr, or the (b, sq,
 // h_kv, d) rows to append first (one row tile only) through element
 // strides nk_sb, nk_st, nk_sh (shared; d contiguous, whole 16-byte
-// vectors) at positions cache_lens[b] + t.
+// vectors) at positions cache_lens[b] + t. window_left: -1 unbounded;
+// softcap: 0 none; alibi: (h_kv * group,) fp32 slopes, or nullptr
+// (csrc/paged.cuh PagedBand, with no sinks).
 extern "C" int fattn_paged_chunk(const void* q, long long q_sb,
                                  long long q_st, long long q_sh,
                                  void* k_pages, void* v_pages,
@@ -666,7 +740,8 @@ extern "C" int fattn_paged_chunk(const void* q, long long q_sb,
                                  long long nk_sh, int b, int sq, int h_kv,
                                  int group, int num_pages, int page_size,
                                  int pages_max, int n_splits, int split_keys,
-                                 int d, float scale, int dtype,
+                                 int d, float scale, int window_left,
+                                 float softcap, const void* alibi, int dtype,
                                  void* stream) {
   using namespace fattn;
   const bool f32 = dtype == kF32;
@@ -689,7 +764,7 @@ extern "C" int fattn_paged_chunk(const void* q, long long q_sb,
                                      f32 ? 4 : 2, &nr))) {
     return cudaErrorInvalidValue;  // more than one row tile, or bad rows
   }
-  const ChunkParams p{q,
+  ChunkParams p{q,
                       q_sb,
                       q_st,
                       q_sh,
@@ -712,7 +787,12 @@ extern "C" int fattn_paged_chunk(const void* q, long long q_sb,
                       page_size,
                       pages_max,
                       page_size < kKeys ? page_size : kKeys,
-                      scale * kLog2e};
+                      scale * kLog2e,
+                      scale,
+                      PagedBand{}};
+  if (!make_paged_band(&p.band, window_left, 0, softcap, alibi)) {
+    return cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(p, dtype, b, st);
   if (d == 128) return launch<128>(p, dtype, b, st);

@@ -15,6 +15,14 @@
 // every key below length is visible; a sequence with length <= 0 gives out =
 // 0 (decode.py:168, l == 0), and a length past the table is cut to it.
 //
+// Window, sinks, softcap and ALiBi (decode.py:50-145 there; csrc/paged.cuh):
+// with a window of left L the query sees keys [length - 1 - L, length) and
+// the first `sinks` positions. The walk covers the sink tiles and the band
+// (csrc/paged.cuh paged_walk), the splits cut that walk, and a key no row
+// sees is never fetched (zero-filled), so pages wholly below the band cost
+// nothing. The softcap and the ALiBi bias slope * (kpos - qpos) go on the
+// scaled score before the mask (paged_logit).
+//
 // Bound: device-memory bytes of the live pages (one query row per head:
 // 4 flops per cached key element, far below the card's ratio of flops to
 // bytes). The design moves those bytes at the card's rate:
@@ -93,22 +101,29 @@ struct DecodeParams {
   SplitKV sp;
   int h_kv, group, num_pages, page_size, pages_max;
   float scale_log2;
+  float scale;
   NewRows nr;  // the appended rows (nr.k == nullptr: none)
+  PagedBand band;
 };
 
-// The keys [k_begin, k_end) a block's split covers in its sequence.
+// The walk indices [k_begin, k_end) a block's split covers in its
+// sequence's walk (csrc/paged.cuh), and the walk.
 struct SplitKeys {
   int k_begin, k_end;
+  int length;  // keys cached (after the append)
+  PagedWalk walk;
 };
 
 template <bool kAppend>
 __device__ __forceinline__ SplitKeys split_keys(const DecodeParams& p,
+                                                const PagedBand& band,
                                                 int bb) {
   int raw = p.lengths[bb];
   if (kAppend) raw = max(raw, 0) + 1;  // the length after the append
   const int length = paged_length(raw, p.pages_max, p.page_size);
+  const PagedWalk w = paged_walk(length, length - 1, band);
   const int k_begin = blockIdx.x * p.sp.split_keys;
-  return SplitKeys{k_begin, min(length, k_begin + p.sp.split_keys)};
+  return SplitKeys{k_begin, min(w.n, k_begin + p.sp.split_keys), length, w};
 }
 
 // With the append, sequence bb's new row: redirected to the scratch page
@@ -120,11 +135,10 @@ __device__ __forceinline__ bool appended_redirected(const DecodeParams& p,
   return len < 0 || len / p.page_size >= p.pages_max;
 }
 __device__ __forceinline__ int appended_offset(const DecodeParams& p,
-                                               int bb) {
-  const int len = p.lengths[bb];
-  return blockIdx.x == len / p.sp.split_keys
-             ? len - blockIdx.x * p.sp.split_keys
-             : -1;
+                                               int bb, const PagedWalk& w) {
+  const int v = w.index(p.lengths[bb]);  // the new key's walk index
+  return blockIdx.x == v / p.sp.split_keys ? v - blockIdx.x * p.sp.split_keys
+                                           : -1;
 }
 
 // Stores sequence bb's new row of kv head hk (K7a's slot), n threads
@@ -173,9 +187,12 @@ struct MmaLayout {
   static_assert(4 * (4 * 16 * D + 2 * 4 * 16) <= kBytes, "merge scratch");
 };
 
-template <typename T, int D, bool kAppend>
+// kBand: the instance with the M4 terms (csrc/paged.cuh PagedBand);
+// without them every band test folds away.
+template <typename T, int D, bool kAppend, bool kBand>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_mma_kernel(const DecodeParams p) {
+  const PagedBand band = kBand ? p.band : PagedBand{};
   using L = MmaLayout<D>;
   constexpr int kS = L::kStride;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -192,6 +209,7 @@ __global__ void __launch_bounds__(kThreads)
   // warp that computes the new key's 16 keys holds its row, a 16-byte
   // vector per lane (K's, then V's), for segment seg_new, row r_new.
   constexpr int kVecs = D / 8;  // 16-byte vectors of a row
+  const SplitKeys sk = split_keys<kAppend>(p, band, bb);
   int seg_new = -1, r_new = 0;
   uint4 new_vec = make_uint4(0u, 0u, 0u, 0u);
   uint4* new_dst = nullptr;  // its vector in the cache
@@ -201,7 +219,7 @@ __global__ void __launch_bounds__(kThreads)
         store_appended(p, bb, hk, tid, kThreads);
         __syncthreads();
       }
-    } else if (const int off = appended_offset(p, bb); off >= 0) {
+    } else if (const int off = appended_offset(p, bb, sk.walk); off >= 0) {
       seg_new = off / kKeys;
       r_new = off % kKeys;
       if (warp == r_new / 16 && lane < 2 * kVecs) {
@@ -219,7 +237,6 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  const SplitKeys sk = split_keys<kAppend>(p, bb);
   const int n_seg =
       sk.k_end > sk.k_begin ? (sk.k_end - sk.k_begin + kKeys - 1) / kKeys : 0;
   const size_t head = (size_t)hk * p.num_pages * ps * D;
@@ -228,15 +245,17 @@ __global__ void __launch_bounds__(kThreads)
   const int* tbl = p.page_table + (size_t)bb * p.pages_max;
 
   // Segment i into stage i % kStages: 16-byte pieces, rows past the
-  // split's keys zero-filled; one commit group per segment.
+  // split's keys or outside the band and the sinks zero-filled, never
+  // read; one commit group per segment.
   auto load_seg = [&](int i) {
     const int s = i % kStages;
     const int k0 = sk.k_begin + i * kKeys;
+    const int pos0 = sk.walk.pos(k0);  // a segment is one run of positions
     constexpr int kPieces = D / 8;
     for (int c = tid; c < kKeys * kPieces; c += kThreads) {
       const int r = c / kPieces, col = (c % kPieces) * 8;
-      const int pos = k0 + r;
-      const bool in = pos < sk.k_end;
+      const int pos = pos0 + r;
+      const bool in = k0 + r < sk.k_end && (!kBand || sk.walk.loads(pos));
       const size_t src =
           in ? ((size_t)tbl[pos / ps] * ps + pos % ps) * D + col : 0;
       const int dst = s * L::kSeg + r * kS + col;
@@ -268,6 +287,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums, reduced at the end
+  // ALiBi slopes of this thread's rows g, g + 8 (query heads hk * G + r).
+  float slope[2] = {0.f, 0.f};
+  if (band.alibi != nullptr) {
+    if (g < G) slope[0] = band.alibi[hk * G + g];
+    if (g + 8 < G) slope[1] = band.alibi[hk * G + g + 8];
+  }
 
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -305,17 +330,39 @@ __global__ void __launch_bounds__(kThreads)
         Mma<T>::run(sc[nb], qa[kk], ld_pair(kr), ld_pair(kr + 8));
       }
     }
-    // Keys past the split's end (zero-filled) are not visible.
+    // Keys past the split's end or outside the band and the sinks
+    // (zero-filled) are not visible.
     const int k0 = sk.k_begin + i * kKeys + key0;
+    const int pos0 = sk.walk.pos(sk.k_begin + i * kKeys) + key0;
+    // The scores in log2 units: one branch for the segment, not one per
+    // score (a branch per score cost the kernel half its time again).
+    if (kBand && band.logits()) {
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = nb * 8 + 2 * t + (e & 1);
+          sc[nb][e] = paged_logit(sc[nb][e] * p.scale, band, slope[e >> 1],
+                                  pos0 + kk - (sk.length - 1));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nb][e] *= p.scale_log2;
+      }
+    }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = sc[nb][e] * p.scale_log2;
-        if (k0 + nb * 8 + 2 * t + (e & 1) >= sk.k_end) x = -INFINITY;
-        sc[nb][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        const int kk = nb * 8 + 2 * t + (e & 1);
+        if (k0 + kk >= sk.k_end || (kBand && !sk.walk.loads(pos0 + kk))) {
+          sc[nb][e] = -INFINITY;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nb][e]);
       }
     }
     float base[2], alpha[2];
@@ -437,7 +484,7 @@ __global__ void __launch_bounds__(kThreads)
   const int G = p.group;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ps = p.page_size;
-  const SplitKeys sk = split_keys<kAppend>(p, bb);
+  const SplitKeys sk = split_keys<kAppend>(p, p.band, bb);
   const int n_seg = sk.k_end > sk.k_begin
                         ? (sk.k_end - sk.k_begin + kF32Keys - 1) / kF32Keys
                         : 0;
@@ -447,27 +494,39 @@ __global__ void __launch_bounds__(kThreads)
   const int* tbl = p.page_table + (size_t)bb * p.pages_max;
   // The new row before the first bulk copy that may read it: the bulk
   // copies read in the async proxy, so each storing thread fences first.
-  if (kAppend && (appended_redirected(p, bb) ? blockIdx.x == 0
-                                             : appended_offset(p, bb) >= 0)) {
+  if (kAppend && (appended_redirected(p, bb)
+                      ? blockIdx.x == 0
+                      : appended_offset(p, bb, sk.walk) >= 0)) {
     store_appended(p, bb, hk, tid, kThreads);
     fence_proxy_async_global();
     __syncthreads();
   }
 
   // The live keys of segment i into stage i % kStages: one bulk copy of K
-  // and one of V per run of keys inside a page.
+  // and one of V per run of keys inside a page that some key of it is
+  // visible in (a run outside the band and the sinks is never fetched; its
+  // keys are masked and skipped below).
   auto load_seg = [&](int i) {
     const int s = i % kStages;
-    const int k0 = sk.k_begin + i * kF32Keys;
-    const int n = min(kF32Keys, sk.k_end - k0);
-    mbar_arrive_expect_tx(&full[s], 2 * n * D * 4);
+    const int v0 = sk.k_begin + i * kF32Keys;
+    const int k0 = sk.walk.pos(v0);  // a segment is one run of positions
+    const int n = min(kF32Keys, sk.k_end - v0);
+    int bytes = 0;
+    for (int pos = k0; pos < k0 + n;) {
+      const int run = min(ps - pos % ps, k0 + n - pos);
+      if (sk.walk.loads_any(pos, run)) bytes += 2 * run * D * 4;
+      pos += run;
+    }
+    mbar_arrive_expect_tx(&full[s], bytes);
     for (int pos = k0; pos < k0 + n;) {
       const int off = pos % ps;
       const int run = min(ps - off, k0 + n - pos);
-      const size_t src = ((size_t)tbl[pos / ps] * ps + off) * D;
-      const int dst = s * L::kSeg + (pos - k0) * D;
-      bulk_load(k_s + dst, kh + src, run * D * 4, &full[s]);
-      bulk_load(v_s + dst, vh + src, run * D * 4, &full[s]);
+      if (sk.walk.loads_any(pos, run)) {
+        const size_t src = ((size_t)tbl[pos / ps] * ps + off) * D;
+        const int dst = s * L::kSeg + (pos - k0) * D;
+        bulk_load(k_s + dst, kh + src, run * D * 4, &full[s]);
+        bulk_load(v_s + dst, vh + src, run * D * 4, &full[s]);
+      }
       pos += run;
     }
   };
@@ -498,6 +557,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < n_seg; ++i) {
     const int s = i % kStages;
     const int n = min(kF32Keys, sk.k_end - (sk.k_begin + i * kF32Keys));
+    const int pos0 = sk.walk.pos(sk.k_begin + i * kF32Keys);
     const float* k_st = k_s + s * L::kSeg;
     const float* v_st = v_s + s * L::kSeg;
     mbar_wait(&full[s], (i / kStages) & 1);
@@ -530,16 +590,30 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // Online softmax, a warp per row: s_s <- p, and the row's alpha.
+    // Online softmax, a warp per row: s_s <- p, and the row's alpha. Keys
+    // outside the band and the sinks are masked (and were not fetched).
+    const bool vis = lane < n && sk.walk.loads(pos0 + lane);
     for (int r = warp; r < G; r += kThreads / 32) {
-      const float x = lane < n ? s_s[r * kF32Keys + lane] : -INFINITY;
+      float x = -INFINITY;
+      if (vis) {
+        x = s_s[r * kF32Keys + lane];
+        if (p.band.logits()) {
+          // q was scaled by scale * log2(e): x * ln 2 is the scaled score.
+          x = paged_logit(x * kLn2, p.band,
+                          p.band.alibi != nullptr ? p.band.alibi[hk * G + r]
+                                                  : 0.f,
+                          pos0 + lane - (sk.length - 1));
+        }
+      }
       const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(x));  // finite: n >= 1
-      const float e = lane < n ? exp2f(x - m_new) : 0.f;
+      const float m_new = fmaxf(m_old, warp_max(x));
+      // Nothing visible yet: m stays -inf; exp2 against 0 gives 0.
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float e = vis ? exp2f(x - base) : 0.f;
       if (lane < n) s_s[r * kF32Keys + lane] = e;
       const float sum = warp_sum(e);
       if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);  // 0 from m = -inf
+        const float alpha = exp2f(m_old - base);  // 0 from m = -inf
         a_s[r] = alpha;
         l_s[r] = l_s[r] * alpha + sum;
         m_s[r] = m_new;
@@ -556,6 +630,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     for (int j = 0; j < n; ++j) {
+      if (!sk.walk.loads(pos0 + j)) continue;  // not fetched: p = 0
       const float2 v2 = *reinterpret_cast<const float2*>(v_st + j * D + 2 * c2);
 #pragma unroll
       for (int k = 0; k < kMaxRows; ++k) {
@@ -580,7 +655,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, bool kAppend>
+template <typename T, int D, bool kAppend, bool kBand>
 cudaError_t launch_typed(const DecodeParams& p, int b, cudaStream_t st) {
   void (*kernel)(const DecodeParams);
   int bytes;
@@ -588,7 +663,7 @@ cudaError_t launch_typed(const DecodeParams& p, int b, cudaStream_t st) {
     kernel = paged_decode_f32_kernel<D, kAppend>;
     bytes = F32Layout<D>::kBytes;
   } else {
-    kernel = paged_decode_mma_kernel<T, D, kAppend>;
+    kernel = paged_decode_mma_kernel<T, D, kAppend, kBand>;
     bytes = MmaLayout<D>::kBytes;
   }
   // Once per kernel and process (the first launch, on the current device).
@@ -601,17 +676,23 @@ cudaError_t launch_typed(const DecodeParams& p, int b, cudaStream_t st) {
   return launch_merge<T, D>(p.sp, static_cast<T*>(p.out), st);
 }
 
+template <typename T, int D>
+cudaError_t launch_d(const DecodeParams& p, int b, cudaStream_t st) {
+  const bool append = p.nr.k != nullptr;
+  // fp32 has one instance: its band terms are tested at run time.
+  const bool band = sizeof(T) != 4 && (p.band.left >= 0 || p.band.logits());
+  if (append) {
+    return band ? launch_typed<T, D, true, true>(p, b, st)
+                : launch_typed<T, D, true, false>(p, b, st);
+  }
+  return band ? launch_typed<T, D, false, true>(p, b, st)
+              : launch_typed<T, D, false, false>(p, b, st);
+}
+
 template <typename T>
 cudaError_t launch(const DecodeParams& p, int d, int b, cudaStream_t st) {
-  const bool append = p.nr.k != nullptr;
-  if (d == 64) {
-    return append ? launch_typed<T, 64, true>(p, b, st)
-                  : launch_typed<T, 64, false>(p, b, st);
-  }
-  if (d == 128) {
-    return append ? launch_typed<T, 128, true>(p, b, st)
-                  : launch_typed<T, 128, false>(p, b, st);
-  }
+  if (d == 64) return launch_d<T, 64>(p, b, st);
+  if (d == 128) return launch_d<T, 128>(p, b, st);
   return cudaErrorInvalidValue;
 }
 
@@ -624,7 +705,9 @@ cudaError_t launch(const DecodeParams& p, int d, int b, cudaStream_t st) {
 // 1; split_keys: keys per split, a multiple of page_size. new_k / new_v:
 // nullptr, or the (b, h_kv, d) rows to append first through element
 // strides nk_sb, nk_sh (shared; d contiguous, whole 16-byte vectors), and
-// lengths are then the lengths before the append.
+// lengths are then the lengths before the append. window_left: -1
+// unbounded; sinks: with a window; softcap: 0 none; alibi: (h_kv * group,)
+// fp32 slopes, or nullptr (csrc/paged.cuh PagedBand).
 extern "C" int fattn_paged_decode(const void* q, long long q_sb,
                                   long long q_sh, void* k_pages,
                                   void* v_pages, const void* lengths,
@@ -634,7 +717,9 @@ extern "C" int fattn_paged_decode(const void* q, long long q_sb,
                                   long long nk_sh, int b, int h_kv, int group,
                                   int num_pages, int page_size, int pages_max,
                                   int n_splits, int split_keys, int d,
-                                  float scale, int dtype, void* stream) {
+                                  float scale, int window_left, int sinks,
+                                  float softcap, const void* alibi,
+                                  int dtype, void* stream) {
   using namespace fattn;
   if (b <= 0 || h_kv <= 0 || group <= 0 || group > kMaxGroup ||
       num_pages <= 0 || page_size <= 0 || pages_max <= 0 || n_splits <= 0 ||
@@ -649,7 +734,7 @@ extern "C" int fattn_paged_decode(const void* q, long long q_sb,
                      dtype == kF32 ? 4 : 2, &nr)) {
     return cudaErrorInvalidValue;
   }
-  const DecodeParams p{q,
+  DecodeParams p{q,
                        q_sb,
                        q_sh,
                        k_pages,
@@ -665,7 +750,12 @@ extern "C" int fattn_paged_decode(const void* q, long long q_sb,
                        page_size,
                        pages_max,
                        scale * kLog2e,
-                       nr};
+                       scale,
+                       nr,
+                       PagedBand{}};
+  if (!make_paged_band(&p.band, window_left, sinks, softcap, alibi)) {
+    return cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:

@@ -87,15 +87,22 @@ __device__ TileSum load_sum(const int* w) {
 
 // common.py:205 classify_segment_block over tile summaries: dead when the
 // id ranges do not meet or, under causal masking, every query position is
-// before every key position; full when both tiles are pure in one id and,
-// under causal masking, every query position is at or after every key
-// position.
-__device__ int classify(const TileSum& q, const TileSum& k, bool causal) {
+// before every key position, or every key position lies outside every
+// query's band (left L, right R; -1 unbounded); full when both tiles are
+// pure in one id and, under causal masking, every query position is at or
+// after every key position, and every key position lies inside every
+// query's band.
+__device__ int classify(const TileSum& q, const TileSum& k, bool causal,
+                        int left, int right) {
   if (q.seg_min > q.seg_max || k.seg_min > k.seg_max) return kTileDead;
   if (q.seg_max < k.seg_min || k.seg_max < q.seg_min) return kTileDead;
   if (causal && q.pos_max < k.pos_min) return kTileDead;
+  if (left >= 0 && k.pos_max < q.pos_min - left) return kTileDead;
+  if (right >= 0 && k.pos_min > q.pos_max + right) return kTileDead;
   if (q.pure && k.pure && q.seg_min == k.seg_min &&
-      (!causal || q.pos_min >= k.pos_max)) {
+      (!causal || q.pos_min >= k.pos_max) &&
+      (left < 0 || k.pos_min >= q.pos_max - left) &&
+      (right < 0 || k.pos_max <= q.pos_min + right)) {
     return kTileFull;
   }
   return kTilePartial;
@@ -104,7 +111,7 @@ __device__ int classify(const TileSum& q, const TileSum& k, bool causal) {
 __global__ void __launch_bounds__(kPlanThreads)
     seg_plan_kernel(const int* q_seg, const int* kv_seg, const int* q_pos,
                     const int* kv_pos, int* plan, int sq, int sk,
-                    bool causal) {
+                    bool causal, int left, int right) {
   const int bb = blockIdx.x;
   const SegPlanT<int> pl = SegPlanT<int>::at(plan, gridDim.x, sq, sk);
   const int nq = pl.n_q64, nk = pl.n_k128;
@@ -138,7 +145,9 @@ __global__ void __launch_bounds__(kPlanThreads)
   form = __syncthreads_and(form);
   // The interval form: a query's keys [lo, hi) (causal: up to the run's
   // start + its position); a key's queries [lo, hi) (causal: from the
-  // run's start + its position). The valid tokens are a sorted prefix, so
+  // run's start + its position); a band cuts both to the positions in it
+  // (positions are indices from the run's start). The valid tokens are a
+  // sorted prefix, so
   // a run is found by binary search; each thread takes a contiguous span
   // of tokens and searches once per id it meets.
   int2* qiv = reinterpret_cast<int2*>(pl.qiv) + (size_t)bb * pl.sq128;
@@ -158,8 +167,14 @@ __global__ void __launch_bounds__(kPlanThreads)
         last_id = r.x;
       }
       iv = run;
-      if (causal && is_q) iv.y = min(iv.y, iv.x + r.y + 1);
+      const int start = run.x;
+      if (causal && is_q) iv.y = min(iv.y, start + r.y + 1);
       if (causal && !is_q) iv.x += r.y;
+      // A query at position y sees key positions [y - L, y + R]; a key at
+      // y is seen from query positions [y - R, y + L].
+      const int below = is_q ? left : right, above = is_q ? right : left;
+      if (below >= 0) iv.x = max(iv.x, start + r.y - below);
+      if (above >= 0) iv.y = min(iv.y, start + r.y + above + 1);
       if (iv.y <= iv.x) iv = make_int2(0, 0);
     }
     (is_q ? qiv[i] : kiv[i - pl.sq128]) = iv;
@@ -190,7 +205,8 @@ __global__ void __launch_bounds__(kPlanThreads)
     uint32_t rank = 0;
     for (int x = 0; x < nk; ++x) {  // K2's launch order: last tile first
       const int kt = nk - 1 - x;
-      const int c = classify(qs, load_sum(ksum + kt * kSumWords), causal);
+      const int c = classify(qs, load_sum(ksum + kt * kSumWords), causal,
+                             left, right);
       cls[qt * nk + kt] = (uint32_t)c | (rank << 2);
       rank += c != kTileDead;
     }
@@ -236,16 +252,21 @@ extern "C" long long fattn_seg_plan_words(int b, int sq, int sk) {
 }
 
 // q_seg, q_pos (b, sq) and kv_seg, kv_pos (b, sk): int32 contiguous; plan:
-// fattn_seg_plan_words(b, sq, sk) int32 words, 16-byte aligned.
+// fattn_seg_plan_words(b, sq, sk) int32 words, 16-byte aligned;
+// window_left / window_right: the band by positions, -1 unbounded.
 extern "C" int fattn_seg_plan(const void* q_seg, const void* kv_seg,
                               const void* q_pos, const void* kv_pos,
                               void* plan, int b, int sq, int sk, int causal,
+                              int window_left, int window_right,
                               void* stream) {
   using namespace fattn;
-  if (b <= 0 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
+  if (b <= 0 || sq <= 0 || sk <= 0 || window_left < -1 || window_right < -1) {
+    return cudaErrorInvalidValue;
+  }
   seg_plan_kernel<<<b, kPlanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
       static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
-      static_cast<int*>(plan), sq, sk, causal != 0);
+      static_cast<int*>(plan), sq, sk, causal != 0, window_left,
+      window_right);
   return cudaGetLastError();
 }

@@ -41,28 +41,33 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, strides, seg_plan, b, h, h_kv, sq, sk, d, scale,
-    # causal, seed, threshold, rp, dtype, stream
-    "fattn_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
+    # causal, seed, threshold, rp, window_left, window_right, sinks,
+    # softcap, alibi, dtype, stream
+    "fattn_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _U, _U, _F]
+    + [_I] * 3 + [_F, _P, _I, _P],
     # q, k, v, o, dout, lse, dlse, stats, dq_acc, dq, dk, dv, strides,
     # seg_plan, b, h, h_kv, sq, sk, d, scale, causal, seed, threshold, rp,
-    # dtype, stream
-    "fattn_flash_bwd": [_P] * 14 + [_I] * 6 + [_F, _I, _U, _U, _F, _I, _P],
-    # q_seg, kv_seg, q_pos, kv_pos, plan, b, sq, sk, causal, stream
-    "fattn_seg_plan": [_P] * 5 + [_I] * 4 + [_P],
+    # window_left, window_right, sinks, softcap, alibi, dtype, stream
+    "fattn_flash_bwd": [_P] * 14 + [_I] * 6 + [_F, _I, _U, _U, _F]
+    + [_I] * 3 + [_F, _P, _I, _P],
+    # q_seg, kv_seg, q_pos, kv_pos, plan, b, sq, sk, causal, window_left,
+    # window_right, stream
+    "fattn_seg_plan": [_P] * 5 + [_I] * 6 + [_P],
     # b, sq, sk -> int32 words of the plan (long long)
     "fattn_seg_plan_words": [_I] * 3,
     # q, q_sb, q_sh, k_pages, v_pages, lengths, page_table, out, partials,
     # new_k, new_v, new rows' strides of batch and head, b, h_kv, group,
     # num_pages, page_size, pages_max, n_splits, split_keys, d, scale,
-    # dtype, stream
+    # window_left, sinks, softcap, alibi, dtype, stream
     "fattn_paged_decode": [_P, _L, _L] + [_P] * 8 + [_L] * 2 + [_I] * 9
-    + [_F, _I, _P],
+    + [_F, _I, _I, _F, _P, _I, _P],
     # q, q_sb, q_st, q_sh, k_pages, v_pages, lengths, chunk_lens,
     # page_table, out, partials, new_k, new_v, cache_lens, new rows'
     # strides of batch, token and head, b, sq, h_kv, group, num_pages,
-    # page_size, pages_max, n_splits, split_keys, d, scale, dtype, stream
+    # page_size, pages_max, n_splits, split_keys, d, scale, window_left,
+    # softcap, alibi, dtype, stream
     "fattn_paged_chunk": [_P, _L, _L, _L] + [_P] * 10 + [_L] * 3 + [_I] * 10
-    + [_F, _I, _P],
+    + [_F, _I, _F, _P, _I, _P],
     # new_k, new_v, k_pages, v_pages, page_table, lengths, new_lens, b, sq,
     # h, num_pages, page_size, pages_max, d, new rows' strides of batch,
     # token and head, elem_bytes, stream

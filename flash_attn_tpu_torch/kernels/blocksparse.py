@@ -68,7 +68,7 @@ def _cdiv(a, b):
 def detect_band(blockmask, *, sq: int, sk: int, causal: bool):
     """Band-shape detector (copy of the JAX package's,
     ``kernels/blocksparse.py:73``, where it routes band masks to the dense
-    window kernel). Nothing calls it yet: that route needs ROADMAP M4.
+    window kernel). Nothing calls it yet: that route is ROADMAP M4b.
 
     Returns ``(window_left, window_right, num_sinks)`` element-level
     parameters (left/right possibly None = unbounded, num_sinks in key

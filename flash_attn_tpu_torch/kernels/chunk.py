@@ -25,6 +25,12 @@ boxes). On the card a small grid has its keys split over
 ``paged_num_splits`` blocks, merged in order by a second launch (bf16 and
 fp16; fp32 runs unsplit), so the result is bitwise reproducible.
 
+``window_left`` (row t sees keys [qpos_t - window_left, qpos_t]),
+``alibi_slopes`` ((n_q_heads,): bias slope * (kpos - qpos)) and ``softcap``
+follow the JAX launcher (chunk.py:215-283; global cache positions). Sinks
+are decode-only (``paged_decode_attention``), as in JAX. On the card a block
+walks the band from its first row's floor only.
+
 With ``new_k``, ``new_v`` (batch, sq, n_kv_heads, d) and ``cache_seqlens``
 (batch,) int32 the launch first appends the chunk's K/V IN PLACE, as
 ``serving/cache.py`` ``append_span(cache, new_k, new_v, page_table,
@@ -50,8 +56,11 @@ from flash_attn_tpu_torch.kernels.common import (
     kernel_operand,
     paged_block_live,
     paged_block_softmax,
+    paged_live_pages,
+    paged_live_span,
     paged_num_splits,
     paged_split_keys,
+    paged_terms,
     paged_visibility_mask,
     sm_count,
 )
@@ -92,9 +101,11 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
     with the chunk's K/V appended first when ``new_k``/``new_v`` and
     ``cache_seqlens`` are given (module docstring). A CPU tensor takes the
     plain twins; a CUDA tensor launches the kernel or raises."""
-    check_ported(k_scales=k_scales, v_scales=v_scales,
-                 window_left=window_left, alibi_slopes=alibi_slopes,
-                 softcap=softcap, qk_quant=qk_quant)
+    check_ported(k_scales=k_scales, v_scales=v_scales, qk_quant=qk_quant)
+    window_left, _, slopes, softcap = terms = paged_terms(
+        "paged_chunk_attention", q.shape[2], window_left=window_left,
+        num_sinks=0, alibi_slopes=alibi_slopes, softcap=softcap,
+        device=q.device)
     batch, sq, n_q_heads, d = q.shape
     n_kv_heads, num_pages, page_size, dk = k_pages.shape
     if dk != d or v_pages.shape != k_pages.shape or n_q_heads % n_kv_heads:
@@ -126,7 +137,7 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
                               page_table, cache_seqlens, chunk_lens)
         return paged_chunk_attention_plain(
             q, k_pages, v_pages, lengths, page_table, chunk_lens=chunk_lens,
-            softmax_scale=softmax_scale)
+            softmax_scale=softmax_scale, terms=terms)
     group = n_q_heads // n_kv_heads
     if q.dtype not in _build.DTYPE_CODES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
@@ -174,10 +185,13 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
     out = torch.empty((batch, sq, n_q_heads, d), dtype=q.dtype,
                       device=q.device)
     n_splits, partials = 1, None
+    # The splits cut the walk: the band of the chunk's rows (all of the
+    # table without a window).
+    live = paged_live_span(pages_max, page_size, window_left, 0, sq)
     if not f32:
         row_tiles = -(-sq // (BLOCK_ROWS // group))
         n_splits = paged_num_splits(batch * row_tiles, n_kv_heads, pages_max,
-                                    page_size, sm_count(q.device.index))
+                                    page_size, sm_count(q.device.index), live)
     if n_splits > 1:
         partials = torch.empty(n_splits * batch * sq * n_q_heads * (d + 1),
                                dtype=torch.float32, device=q.device)
@@ -187,9 +201,12 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
         chunk_lens.data_ptr(), page_table.data_ptr(), out.data_ptr(),
         None if partials is None else partials.data_ptr(), *nk, batch, sq,
         n_kv_heads, group, num_pages, page_size, pages_max, n_splits,
-        paged_split_keys(pages_max, page_size, n_splits), d,
-        float(softmax_scale), _build.DTYPE_CODES[q.dtype],
-        _build.stream_ptr(q.device),
+        paged_split_keys(paged_live_pages(pages_max, page_size, live),
+                         page_size, n_splits), d,
+        float(softmax_scale), -1 if window_left is None else window_left,
+        0.0 if softcap is None else softcap,
+        None if slopes is None else slopes.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device),
     )
     _build.check(code, "fattn_paged_chunk")
     paged_chunk_attention.launches += 1
@@ -202,10 +219,15 @@ paged_chunk_attention.append_launches = 0  # those that appended first
 
 
 def paged_chunk_attention_plain(q, k_pages, v_pages, lengths, page_table, *,
-                                chunk_lens, softmax_scale: float):
+                                chunk_lens, softmax_scale: float,
+                                terms=(None, 0, None, None)):
     """Plain-torch twin: walks the page table one page at a time, skipping
-    pages no sequence has live (``paged_block_live``), with the shared mask
-    and online-softmax update (kernels/common.py), in fp32."""
+    pages no sequence has live (``paged_block_live``, from the first row's
+    band floor), with the shared mask and online-softmax update
+    (kernels/common.py), in fp32. ``terms``: (window_left, 0, slopes,
+    softcap) from ``paged_terms``. Keys no row sees are zeroed before the
+    products, as the kernels never read them."""
+    window_left, _, slopes, softcap = terms
     batch, sq, n_q_heads, d = q.shape
     n_kv_heads, _, page_size, _ = k_pages.shape
     group = n_q_heads // n_kv_heads
@@ -218,21 +240,31 @@ def paged_chunk_attention_plain(q, k_pages, v_pages, lengths, page_table, *,
     t = torch.arange(sq, device=dev).reshape(1, 1, 1, sq, 1)
     # Padding rows get position -1: they see no key.
     qpos = torch.where(t < chunk, length - chunk + t, -1)
+    alibi_col = None if slopes is None else slopes.reshape(
+        1, n_kv_heads, group, 1, 1)
+    first_qpos = (lengths - chunk_lens).long()
     m = torch.full((batch, n_kv_heads, group, sq, 1), DEFAULT_MASK_VALUE,
                    device=dev)
     l = torch.zeros_like(m)
     acc = torch.zeros((batch, n_kv_heads, group, sq, d), device=dev)
     for j in range(page_table.shape[1]):
-        live = paged_block_live(j, page_size, length=lengths)
+        live = paged_block_live(
+            j, page_size, length=lengths, window_left=window_left,
+            first_band_pos=first_qpos - (window_left or 0))
         if not bool(live.any()):
             continue
         ids = page_table[:, j].long()
+        kpos = j * page_size + torch.arange(page_size, device=dev)
+        mask = paged_visibility_mask(kpos, qpos, length=length,
+                                     window_left=window_left)
+        seen = mask.any(dim=-2)[:, :, :1, :, None]  # (b, 1, 1, ps, 1)
         k = k_pages[:, ids].float().transpose(0, 1)[:, :, None]
         v = v_pages[:, ids].float().transpose(0, 1)[:, :, None]
+        k, v = (torch.where(seen, x, 0.0) for x in (k, v))
         s = qf @ k.transpose(-1, -2)  # (b, h_kv, group, sq, ps)
-        kpos = j * page_size + torch.arange(page_size, device=dev)
-        mask = paged_visibility_mask(kpos, qpos, length=length)
-        p, alpha, m, l = paged_block_softmax(s, mask, m, l)
+        p, alpha, m, l = paged_block_softmax(
+            s, mask, m, l, softcap=softcap, alibi_col=alibi_col,
+            rel=None if slopes is None else (kpos - qpos).float())
         acc = acc * alpha + p @ v
     out = torch.where(l == 0.0, 0.0, acc / torch.where(l == 0.0, 1.0, l))
     return out.permute(0, 3, 1, 2, 4).reshape(

@@ -31,9 +31,6 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _UNPORTED = {
     "k_scales": "M5 (quantized KV)", "v_scales": "M5 (quantized KV)",
-    "window_left": "M4 (window in K5/K6)",
-    "num_sinks": "M4 (window in K5/K6)",
-    "alibi_slopes": "M4 (ALiBi/softcap)", "softcap": "M4 (ALiBi/softcap)",
     "qk_quant": "M8 (int8 QK, K9)",
 }
 
@@ -49,38 +46,97 @@ def check_ported(**given):
 
 
 def paged_block_live(j, bk, *, length, window_left=None,
-                     first_band_pos=None):
+                     first_band_pos=None, num_sinks: int = 0):
     """Liveness of key block ``j`` (width ``bk``) for the paged kernels
-    (common.py:245): some key of it is in-sequence. ``length`` may be a
-    tensor. The window band and sinks are ROADMAP port item M4."""
-    if window_left is not None or first_band_pos is not None:
-        raise NotImplementedError(
-            "paged_block_live(window_left=...): ROADMAP port item M4 "
-            "(window in K5/K6)")
-    return j * bk < length
+    (common.py:245): some key of it is in-sequence and, with a window,
+    inside the band or a sink. ``first_band_pos`` is the LOOSEST band floor
+    over the rows a launch serves: ``length - 1 - window_left`` for decode,
+    the first chunk row's ``qpos - window_left`` for a chunk (a tighter
+    row's floor drops keys that earlier rows need). ``length`` and
+    ``first_band_pos`` may be tensors."""
+    live = j * bk < length
+    if window_left is not None:
+        band_or_sink = (j + 1) * bk > first_band_pos
+        if num_sinks > 0:
+            band_or_sink = band_or_sink | (j * bk < num_sinks)
+        live = live & band_or_sink
+    return live
 
 
-def paged_visibility_mask(kpos, qpos, *, length):
-    """(rows, bk) True = key visible: in-sequence and causal against the
-    row's query position. ``qpos`` and ``length`` may be scalars or tensors
-    that broadcast against ``kpos`` (common.py:266; the window and sink
-    terms are ROADMAP port item M4)."""
-    return (kpos < length) & (kpos <= qpos)
+def paged_visibility_mask(kpos, qpos, *, length, window_left=None,
+                          num_sinks: int = 0):
+    """(rows, bk) True = key visible: in-sequence, causal against the row's
+    query position and, with a window, inside the band or a sink
+    (common.py:266). ``qpos`` and ``length`` may be scalars or tensors that
+    broadcast against ``kpos``."""
+    mask = (kpos < length) & (kpos <= qpos)
+    if window_left is not None:
+        visible = kpos >= qpos - window_left
+        if num_sinks > 0:
+            visible = visible | (kpos < num_sinks)
+        mask = mask & visible
+    return mask
 
 
-def paged_block_softmax(s, mask, m_prev, l_prev):
+def paged_block_softmax(s, mask, m_prev, l_prev, *, softcap=None,
+                        alibi_col=None, rel=None):
     """Masked online-softmax update of one key block (common.py:281).
 
     ``s``: (..., bk) fp32 scaled scores; ``m_prev``/``l_prev``: (..., 1)
-    running max and sum. Returns ``(p, alpha, m_next, l_next)``; the caller
-    rescales its accumulator by ``alpha`` and adds ``p @ v``.
+    running max and sum. The softcap goes on the scaled scores, then the
+    ALiBi bias ``alibi_col * rel`` (rel = kpos - qpos; slopes NOT divided
+    by the scale), then the mask. Returns ``(p, alpha, m_next, l_next)``;
+    the caller rescales its accumulator by ``alpha`` and adds ``p @ v``.
     """
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    if alibi_col is not None:
+        s = s + alibi_col * rel
     s = torch.where(mask, s, DEFAULT_MASK_VALUE)
     m_next = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
     alpha = torch.exp(m_prev - m_next)
     p = torch.where(mask, torch.exp(s - m_next), 0.0)
     l_next = alpha * l_prev + p.sum(dim=-1, keepdim=True)
     return p, alpha, m_next, l_next
+
+
+def paged_terms(name, n_q_heads, *, window_left, num_sinks, alibi_slopes,
+                softcap, device):
+    """Validates the paged kernels' M4 arguments as the JAX launchers do
+    (decode.py:521-536): returns (window_left, num_sinks, slopes (n_q_heads,)
+    fp32 on ``device`` or None, softcap or None). Sinks count only with a
+    window."""
+    if window_left is not None and window_left < 0:
+        raise ValueError(f"{name}: window_left must be >= 0, got "
+                         f"{window_left}")
+    if num_sinks < 0:
+        raise ValueError(f"{name}: num_sinks must be >= 0, got {num_sinks}")
+    num_sinks = int(num_sinks) if window_left is not None else 0
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=device).contiguous()
+        if tuple(slopes.shape) != (n_q_heads,):
+            raise ValueError(f"{name}: alibi_slopes must have shape "
+                             f"({n_q_heads},); got {tuple(slopes.shape)}")
+    if softcap is not None and softcap <= 0.0:
+        raise ValueError(f"{name}: softcap must be > 0, got {softcap}")
+    softcap = None if softcap is None else float(softcap)
+    return (None if window_left is None else int(window_left), num_sinks,
+            slopes, softcap)
+
+
+def paged_live_span(pages_max: int, page_size: int, window_left, num_sinks,
+                    rows: int = 1) -> int:
+    """The most keys a launch walks per sequence (K5/K6's split range):
+    the table's capacity, or with a window the band of ``rows`` query rows
+    plus the sink tiles and a tile of alignment (csrc/paged.cuh
+    paged_walk). A function of shapes only."""
+    cap = pages_max * page_size
+    if window_left is None:
+        return cap
+    sinks = -(-num_sinks // SPLIT_TILE) * SPLIT_TILE
+    return min(cap, sinks + window_left + rows + SPLIT_TILE)
 
 
 # A split holds whole 64-key tiles (K6's tile) of whole pages.
@@ -95,16 +151,27 @@ def paged_split_keys(pages_max: int, page_size: int, n_splits: int) -> int:
 
 
 def paged_num_splits(batch: int, h_kv: int, pages_max: int, page_size: int,
-                     n_sm: int) -> int:
-    """How many key ranges the paged kernels cut each sequence into: the
-    most that keep ``batch * h_kv`` blocks per range within two waves of
-    ``n_sm`` SMs, at least 1 and never a range without a page. A function
-    of shapes only: the lengths live on the card, and reading them would
-    synchronise every layer of every step. (``batch`` counts every block
-    row of a sequence: K6 passes batch x row tiles.)"""
-    n = max(1, min(pages_max, 2 * n_sm // max(1, batch * h_kv)))
-    return -(-pages_max * page_size // paged_split_keys(pages_max, page_size,
-                                                        n))
+                     n_sm: int, live_keys: int | None = None) -> int:
+    """How many key ranges the paged kernels cut each sequence's walk
+    into: the most that keep ``batch * h_kv`` blocks per range within two
+    waves of ``n_sm`` SMs, at least 1 and never a range without a page. A
+    function of shapes only: the lengths live on the card, and reading
+    them would synchronise every layer of every step. (``batch`` counts
+    every block row of a sequence: K6 passes batch x row tiles.) With a
+    window the walk covers ``live_keys`` (``paged_live_span``: the band and
+    the sink tiles), not the table."""
+    pages = paged_live_pages(pages_max, page_size, live_keys)
+    n = max(1, min(pages, 2 * n_sm // max(1, batch * h_kv)))
+    return -(-pages * page_size // paged_split_keys(pages, page_size, n))
+
+
+def paged_live_pages(pages_max: int, page_size: int,
+                     live_keys: int | None) -> int:
+    """Pages' worth of keys the splits cover: the table, or ``live_keys``
+    rounded up to whole pages."""
+    if live_keys is None:
+        return pages_max
+    return max(1, min(pages_max, -(-live_keys // page_size)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,6 +246,75 @@ def paged_split_plain(q, k_pages, v_pages, lengths, page_table, *,
         lses.append(lse)
     out, _ = merge_partials(torch.stack(outs), torch.stack(lses))
     return out.permute(0, 3, 1, 2, 4).reshape(batch, sq, n_q_heads, d)
+
+
+# ---------------------------------------------------------------- the band
+#
+# K1 and K2's M4 terms (csrc/mask.cuh Band): the window band, sinks, logit
+# softcap and ALiBi, with their plain-torch forms.
+
+
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """The window band (``left``/``right``, None = unbounded), ``sinks``
+    leading key columns visible from every row (dense form, with a band),
+    the logit ``softcap`` and ALiBi ``alibi`` ((b, h) fp32 slopes divided
+    by the softmax scale, as ``flash_attn_tpu/ops/attention.py:133``
+    ``_norm_alibi`` makes them) of one K1/K2 call."""
+
+    left: int | None = None
+    right: int | None = None
+    sinks: int = 0
+    softcap: float | None = None
+    alibi: torch.Tensor | None = None
+
+    @property
+    def windowed(self) -> bool:
+        return self.left is not None or self.right is not None
+
+    def args(self) -> tuple:
+        """(left, right, sinks, softcap, alibi pointer) as the C entry
+        points take them: -1 for an unbounded side, 0.0 for no softcap."""
+        return (-1 if self.left is None else self.left,
+                -1 if self.right is None else self.right, self.sinks,
+                0.0 if self.softcap is None else float(self.softcap),
+                None if self.alibi is None else self.alibi.data_ptr())
+
+
+NO_BAND = Band()
+
+
+def band_mask(band: Band, sq: int, sk: int, device, seg=None):
+    """(sq, sk) (dense) or (b, 1, sq, sk) (segment form, by positions) bool,
+    True = inside the band or a sink column; None without a band
+    (``flash_attn_tpu/kernels/common.py`` ``window_band_mask`` without
+    ``window_cell``)."""
+    if not band.windowed:
+        return None
+    if seg is not None:
+        rows, cols = seg.q_pos[:, None, :, None], seg.kv_pos[:, None, None, :]
+    else:
+        rows = torch.arange(sq, device=device)[:, None]
+        cols = torch.arange(sk, device=device)[None, :]
+    inside = torch.ones((), dtype=torch.bool, device=device)
+    if band.left is not None:
+        inside = inside & (cols >= rows - band.left)
+    if band.right is not None:
+        inside = inside & (cols <= rows + band.right)
+    if band.sinks > 0:
+        inside = inside | (cols < band.sinks)
+    return inside
+
+
+def band_distance(causal: bool, sq: int, sk: int, device, seg=None):
+    """ALiBi's distance per (row, key): k - q under causal masking, -|q - k|
+    otherwise, by global indices (sq, sk) or by positions (b, 1, sq, sk)."""
+    if seg is not None:
+        rows, cols = seg.q_pos[:, None, :, None], seg.kv_pos[:, None, None, :]
+    else:
+        rows = torch.arange(sq, device=device)[:, None]
+        cols = torch.arange(sk, device=device)[None, :]
+    return (cols - rows) if causal else -(rows - cols).abs()
 
 
 # The attention kernels' operands, in the order of csrc/common.cuh Operand.
@@ -268,14 +404,15 @@ def segment_mask(seg: Segments, causal: bool) -> torch.Tensor:
 
 
 def classify_segment_block(qp, kp, qs, ks, *, causal: bool,
-                           bounds_possible: bool):
+                           bounds_possible: bool, window_left=None,
+                           window_right=None):
     """(live, uniform) of one block from its position and segment-id
     vectors, as ``flash_attn_tpu/kernels/common.py:205``
-    ``classify_segment_block`` (window terms: ROADMAP port item M4).
-    ``live`` False: every pair is causally masked; ``uniform`` True: the
-    block is provably mask-free. The card's plan (``segment_plan``) makes
-    the same decision per tile pair over valid rows only, and also calls
-    dead the pairs whose segment ranges do not meet."""
+    ``classify_segment_block``. ``live`` False: every pair is causally
+    masked or outside the window band; ``uniform`` True: the block is
+    provably mask-free. The card's plan (``segment_plan``) makes the same
+    decision per tile pair over valid rows only, and also calls dead the
+    pairs whose segment ranges do not meet."""
     live = torch.tensor(True)
     if causal:
         live = qp.max() >= kp.min()
@@ -286,6 +423,12 @@ def classify_segment_block(qp, kp, qs, ks, *, causal: bool,
         uniform = torch.tensor(False)
     if causal:
         uniform = uniform & (qp.min() >= kp.max())
+    if window_left is not None:
+        live = live & (kp.max() >= qp.min() - window_left)
+        uniform = uniform & (kp.min() >= qp.max() - window_left)
+    if window_right is not None:
+        live = live & (kp.min() <= qp.max() + window_right)
+        uniform = uniform & (kp.max() <= qp.min() + window_right)
     return live, uniform
 
 
@@ -371,28 +514,37 @@ def _interval_form(rows: torch.Tensor, n: int) -> torch.Tensor:
     return first.all(1) & rest.all(1)
 
 
-def _intervals(mine, other, n_other, causal: bool, is_query: bool):
+def _intervals(mine, other, n_other, causal: bool, is_query: bool,
+               band: Band = NO_BAND):
     """Per token of ``mine`` (b, m, 2) its interval on the other side: the
     run of its id among the other side's first ``n_other`` (b,) tokens,
     cut by causality (a query's keys up to the run's start + its position;
-    a key's queries from there); (0, 0) where empty."""
+    a key's queries from there) and by the band; (0, 0) where empty."""
     out = torch.zeros_like(mine)
+    below, above = ((band.left, band.right) if is_query
+                    else (band.right, band.left))
     for bb in range(mine.shape[0]):
         ids = other[bb, :int(n_other[bb]), 0].contiguous()
         s = mine[bb, :, 0].contiguous()
         lo = torch.searchsorted(ids, s, right=False)
         hi = torch.searchsorted(ids, s, right=True)
+        start, pos = lo.clone(), mine[bb, :, 1]
         if causal and is_query:
-            hi = torch.minimum(hi, lo + mine[bb, :, 1] + 1)
+            hi = torch.minimum(hi, lo + pos + 1)
         elif causal:
-            lo = lo + mine[bb, :, 1]
+            lo = lo + pos
+        if below is not None:
+            lo = torch.maximum(lo, start + pos - below)
+        if above is not None:
+            hi = torch.minimum(hi, start + pos + above + 1)
         keep = (s >= 0) & (hi > lo)
         out[bb, :, 0] = torch.where(keep, lo, 0)
         out[bb, :, 1] = torch.where(keep, hi, 0)
     return out
 
 
-def segment_plan_plain(seg: Segments, causal: bool) -> dict:
+def segment_plan_plain(seg: Segments, causal: bool,
+                       band: Band = NO_BAND) -> dict:
     """The plan's sections (``plan_sections``) in plain torch, as the
     pre-pass of csrc/segments.cu writes them; list tails past their counts
     are zeros here (the card leaves them unwritten)."""
@@ -422,6 +574,12 @@ def segment_plan_plain(seg: Segments, causal: bool) -> dict:
     full = (q[..., 4] == 1) & (k[..., 4] == 1) & (q[..., 0] == k[..., 0])
     if causal:
         full = full & (q[..., 2] >= k[..., 3])
+    if band.left is not None:  # key positions against the band's floor
+        dead = dead | (k[..., 3] < q[..., 2] - band.left)
+        full = full & (k[..., 2] >= q[..., 3] - band.left)
+    if band.right is not None:
+        dead = dead | (k[..., 2] > q[..., 3] + band.right)
+        full = full & (k[..., 3] <= q[..., 2] + band.right)
     cls = torch.where(dead, TILE_DEAD, torch.where(full, TILE_FULL,
                                                    TILE_PARTIAL))
     # dQ ranks over the live pairs, in K2's launch order of key tiles (the
@@ -448,8 +606,10 @@ def segment_plan_plain(seg: Segments, causal: bool) -> dict:
     form = _interval_form(qsp, sq) & _interval_form(ksp, sk)
     n_q, n_kv = (qsp[..., 0] >= 0).sum(1), (ksp[..., 0] >= 0).sum(1)
     keep = form[:, None, None]
-    qiv = torch.where(keep, _intervals(qsp, ksp, n_kv, causal, True), 0)
-    kiv = torch.where(keep, _intervals(ksp, qsp, n_q, causal, False), 0)
+    qiv = torch.where(keep, _intervals(qsp, ksp, n_kv, causal, True, band),
+                      0)
+    kiv = torch.where(keep, _intervals(ksp, qsp, n_q, causal, False, band),
+                      0)
     return {"qsp": _int32(qsp), "ksp": _int32(ksp), "qsum": _int32(qsum),
             "ksum": _int32(ksum), "cls": _int32(words),
             "fwd_n": _int32(fwd_n), "fwd": _int32(fwd),
@@ -458,9 +618,11 @@ def segment_plan_plain(seg: Segments, causal: bool) -> dict:
             "kiv": _int32(kiv)}
 
 
-def segment_plan(seg: Segments, causal: bool) -> torch.Tensor:
-    """The card's tile plan for ``seg`` (one launch of csrc/segments.cu),
-    stored in ``seg.plan`` and returned. CUDA tensors only."""
+def segment_plan(seg: Segments, causal: bool,
+                 band: Band = NO_BAND) -> torch.Tensor:
+    """The card's tile plan for ``seg`` under ``band``'s window (one launch
+    of csrc/segments.cu), stored in ``seg.plan`` and returned. CUDA tensors
+    only."""
     from flash_attn_tpu_torch.kernels import _build
 
     b, sq = seg.q_seg.shape
@@ -473,7 +635,7 @@ def segment_plan(seg: Segments, causal: bool) -> torch.Tensor:
     code = lib.fattn_seg_plan(
         seg.q_seg.data_ptr(), seg.kv_seg.data_ptr(), seg.q_pos.data_ptr(),
         seg.kv_pos.data_ptr(), plan.data_ptr(), b, sq, sk, int(causal),
-        _build.stream_ptr(plan.device))
+        *band.args()[:2], _build.stream_ptr(plan.device))
     segment_plan.launches += 1
     _build.check(code, "fattn_seg_plan")
     seg.plan = plan

@@ -24,12 +24,15 @@ import torch
 
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.common import (
+    NO_BAND,
+    Band,
     Segments,
     check_rows,
     empty_rows,
     strides_arg,
 )
 from flash_attn_tpu_torch.kernels.flash_fwd import (
+    band_arg,
     check_kernel_inputs,
     compute_dtype,
     dropout_args,
@@ -42,21 +45,24 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
                         softmax_scale: float, dropout_p: float = 0.0,
                         seed=None, dlse=None,
-                        segments: Segments | None = None):
+                        segments: Segments | None = None,
+                        band: Band = NO_BAND):
     """Gradients of attention. A CPU tensor takes the plain twin; a CUDA
     tensor launches the kernel or raises. Layout as the forward kernel's:
     q, out, dout (b, h, sq, d); k, v (b, h_kv, sk, d); lse, dlse (b, h, sq)
-    fp32 contiguous. ``segments``: the forward's (its tile plan is reused
-    when it has one)."""
+    fp32 contiguous. ``segments`` and ``band``: the forward's (its tile
+    plan is reused when it has one). The softcap's chain rule multiplies
+    dS by 1 - tanh^2; the ALiBi bias carries no gradient."""
     seed_u32, threshold, rp = dropout_args(dropout_p, seed)
+    band = band_arg("flash_attention_bwd", band, q, segments)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, out, dout, lse, causal=causal,
             softmax_scale=softmax_scale, dropout_p=dropout_p, seed=seed,
-            dlse=dlse, segments=segments,
+            dlse=dlse, segments=segments, band=band,
         )
     check_kernel_inputs("flash_attention_bwd", q, k, v, softmax_scale)
-    plan = plan_arg("flash_attention_bwd", segments, q, k, causal)
+    plan = plan_arg("flash_attention_bwd", segments, q, k, causal, band)
     b, h, sq, d = q.shape
     _, h_kv, sk, _ = k.shape
     if out.shape != q.shape or dout.shape != q.shape \
@@ -90,7 +96,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
         dv.data_ptr(),
         strides_arg(q=q, k=k, v=v, o=out, dout=dout, dk=dk, dv=dv, dq=dq),
         plan.data_ptr() if plan is not None else None, b, h, h_kv, sq, sk, d, float(softmax_scale),
-        int(causal), seed_u32, threshold, rp,
+        int(causal), seed_u32, threshold, rp, *band.args(),
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device),
     )
     flash_attention_bwd.launches += 1
@@ -104,18 +110,20 @@ flash_attention_bwd.launches = 0
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool,
                               softmax_scale: float, dropout_p: float = 0.0,
                               seed=None, dlse=None,
-                              segments: Segments | None = None):
+                              segments: Segments | None = None,
+                              band: Band = NO_BAND):
     """Plain-torch twin of the kernel, in fp32 (fp64 for fp64 inputs):
-    p = exp(s - lse) (0 where masked, by causality or segments, or where
-    lse = -inf), dV from the dropped p, dS = p * (dP - di) from the
-    pre-dropout p, GQA groups summed to the kv heads."""
+    p = exp(s - lse) (0 where masked, by causality, segments or the band,
+    or where lse = -inf), dV from the dropped p, dS = p * (dP - di) * gate
+    from the pre-dropout p (gate: the softcap's 1 - tanh^2, else 1), GQA
+    groups summed to the kv heads."""
     _, _, rp = dropout_args(dropout_p, seed)
     ct = compute_dtype(q)
     b, h, sq, d = q.shape
     h_kv, sk = k.shape[1], k.shape[2]
     group = h // h_kv
-    s = scores_plain(q, k, causal=causal, softmax_scale=softmax_scale,
-                     segments=segments)
+    s, gate = scores_plain(q, k, causal=causal, softmax_scale=softmax_scale,
+                           segments=segments, band=band, with_gate=True)
     lse = lse.to(ct)
     p = torch.exp(s - lse[..., None])
     p = torch.where(torch.isneginf(s) | torch.isneginf(lse)[..., None], 0.0, p)
@@ -132,6 +140,8 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool,
     if dlse is not None:
         di = di - dlse.to(ct)
     ds = p * (dp - di[..., None])
+    if gate is not None:
+        ds = ds * gate
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * softmax_scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * softmax_scale
     dv = torch.einsum("bhqk,bhqd->bhkd", pd, do)

@@ -60,8 +60,16 @@ class GPT2Config:
     layer_norm_epsilon: float = 1e-5
     dtype: Any = torch.bfloat16  # compute: activations and the KV cache
     param_dtype: Any = torch.float32  # stored weights
-    # Sliding-window attention: ROADMAP port item M4; must stay None.
+    # Sliding-window (local causal) attention: each token attends the last
+    # `window` tokens only (None = full causal; GPT-2 checkpoints use None).
+    # Honored by training (FlashMHA window_size), prefill, chunks and
+    # decode.
     window: Any = None
+    # StreamingLLM attention sinks, DECODE-ONLY: with a window, the first
+    # `window_sinks` positions stay visible during paged decode (the
+    # softmax anchor for long rolling generation). Prefill and training
+    # keep the pure band (JAX gpt2.py:55-60).
+    window_sinks: int = 0
     # Per-block recompute in the backward (torch.utils.checkpoint), and
     # what it keeps with remat=True: None (the block's input only),
     # "dots" (and every matmul output) or "dots_flash" (and the attention
@@ -150,6 +158,12 @@ class Mlp(nn.Module):
         return x if seed is None else dropout(x, cfg.dropout, seed)
 
 
+def window_size(cfg) -> tuple | None:
+    """The ``flash_attention`` band of ``cfg.window`` (JAX gpt2.py:161):
+    (window, 0), or None for full causal attention."""
+    return None if cfg.window is None else (cfg.window, 0)
+
+
 class Block(nn.Module):
     """One transformer block. ``attn_impl``, when given, replaces the flash
     attention op between the block's own ``attn.Wqkv`` and
@@ -165,6 +179,7 @@ class Block(nn.Module):
         self.attn = FlashMHA(cfg.n_embd, cfg.n_head, causal=True,
                              attention_dropout=cfg.dropout, dtype=cfg.dtype,
                              param_dtype=factory["dtype"],
+                             window_size=window_size(cfg),
                              device=factory["device"])
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=eps, **factory)
         self.mlp = Mlp(cfg, **factory)
@@ -247,9 +262,6 @@ class GPT2LMHeadModel(nn.Module):
     def __init__(self, cfg: GPT2Config, *, generator: torch.Generator,
                  device="cuda", attn_impl=None):
         super().__init__()
-        if cfg.window is not None:
-            raise NotImplementedError(
-                "GPT2Config.window: sliding windows are ROADMAP port item M4")
         if cfg.remat and cfg.remat_policy not in (None, "dots", "dots_flash"):
             raise ValueError("remat_policy must be None, 'dots', or "
                              f"'dots_flash'; got {cfg.remat_policy!r}")

@@ -11,6 +11,9 @@
     the paged cache and attends through paged decode attention in one
     launch (K5 with K7a's append, ``paged_decode_with_append``).
 
+``cfg.window`` bands all three phases; ``cfg.window_sinks`` keeps
+StreamingLLM sinks visible in decode only (gpt2_decode.py:228-229 there).
+
 Numerics. The JAX package's parameters are fp32 (``param_dtype``) and its
 ``_dense`` multiplies a bf16 activation by an fp32 kernel, which JAX
 promotes to fp32: its "bf16" serving runs the projections and both
@@ -31,7 +34,11 @@ import torch
 
 from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
 from flash_attn_tpu_torch.kernels.decode import paged_decode_with_append
-from flash_attn_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+from flash_attn_tpu_torch.models.gpt2 import (
+    GPT2Config,
+    GPT2LMHeadModel,
+    window_size,
+)
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
@@ -56,7 +63,8 @@ def prefill(model: GPT2LMHeadModel, cfg: GPT2Config, input_ids,
         q, k, v = block.qkv(x)
         ks.append(k.contiguous())
         vs.append(v.contiguous())
-        ctx = flash_attention(q, k, v, causal=True)
+        ctx = flash_attention(q, k, v, causal=True,
+                              window_size=window_size(cfg))
         x = block.finish(x, ctx.reshape(b, s, cfg.n_embd))
     if lengths is None:
         last = x[:, -1]
@@ -92,7 +100,8 @@ def chunk_prefill_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         _write_prompts(cache, k, v, write_tbl)  # one K7c launch
         ctx = paged_chunk_attention(q, cache.k_pages,
                                     cache.v_pages, total, page_table,
-                                    chunk_lens=chunk_lens)
+                                    chunk_lens=chunk_lens,
+                                    window_left=cfg.window)
         x = block.finish(x, ctx.reshape(b, C, cfg.n_embd))
     idx = (chunk_lens.long() - 1).clamp(0, C - 1)
     last = x[torch.arange(b, device=x.device), idx]
@@ -116,6 +125,8 @@ def decode_step(model: GPT2LMHeadModel, cfg: GPT2Config,
         # One launch appends k, v (raw lengths: inactive slots go to the
         # scratch page) and attends over the cache with them.
         ctx = paged_decode_with_append(q, k, v, cache.k_pages,
-                                       cache.v_pages, lengths, page_table)
+                                       cache.v_pages, lengths, page_table,
+                                       window_left=cfg.window,
+                                       num_sinks=cfg.window_sinks)
         x = block.finish(x, ctx.reshape(b, cfg.n_embd))
     return model.lm_head(x), caches

@@ -14,8 +14,10 @@ Numerics follow the flax model: parameters stored in ``cfg.param_dtype``,
 every projection computed in ``cfg.dtype`` from a cast of them, RMSNorm
 statistics and rotary in fp32, and the head bf16 x bf16 -> fp32 (the
 product GPT-2's tied head computes). ``remat`` recomputes each block in the
-backward (``torch.utils.checkpoint``). Sliding windows (``window``,
-``window_sinks``) raise: ROADMAP port item M4.
+backward (``torch.utils.checkpoint``). ``window`` is Mistral's sliding
+window: every attention runs with ``window_size=(window, 0)`` (the
+kernels walk the band only); ``window_sinks`` keeps StreamingLLM sink
+tokens visible in paged decode only (``llama_decode``).
 
 HF interop: ``load_hf_llama`` / ``convert_hf_llama_state_dict`` map a
 ``transformers`` ``LlamaForCausalLM`` (or Mistral) state dict onto this
@@ -52,8 +54,8 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
-    window: Any = None  # sliding-window attention: ROADMAP port item M4
-    window_sinks: int = 0
+    window: Any = None  # Mistral-style sliding-window attention
+    window_sinks: int = 0  # StreamingLLM sinks, paged decode only
     dtype: Any = torch.bfloat16  # compute: activations and the KV cache
     param_dtype: Any = torch.float32  # stored weights
     remat: bool = False  # per-block recompute in the backward
@@ -113,6 +115,12 @@ class RMSNorm(nn.Module):
         return (y * self.weight.float()).to(self.out_dtype)
 
 
+def window_size(cfg) -> tuple | None:
+    """The ``flash_attention`` band of ``cfg.window`` (JAX llama.py:140):
+    (window, 0), or None for full causal attention."""
+    return None if cfg.window is None else (cfg.window, 0)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, **factory):
         super().__init__()
@@ -143,7 +151,8 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, positions):
         q, k, v = self.qkv(x, positions)
-        ctx = flash_attention(q, k, v, causal=True)
+        ctx = flash_attention(q, k, v, causal=True,
+                              window_size=window_size(self.config))
         return linear(ctx.flatten(2), self.o_proj, self.config.dtype)
 
 
@@ -200,10 +209,6 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, generator: torch.Generator,
                  device="cuda"):
         super().__init__()
-        if cfg.window is not None or cfg.window_sinks:
-            raise NotImplementedError(
-                "LlamaConfig.window/window_sinks: sliding windows are "
-                "ROADMAP port item M4")
         self.config = cfg
         factory = dict(device=device, dtype=cfg.param_dtype)
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
@@ -283,8 +288,7 @@ def make_train_step(model: LlamaForCausalLM,
 
 def llama_config_from_hf(hf_cfg, **overrides) -> LlamaConfig:
     """A ``LlamaConfig`` from a ``transformers`` Llama or Mistral config.
-    A Mistral ``sliding_window`` becomes ``window``, which the model
-    refuses (ROADMAP port item M4)."""
+    A Mistral ``sliding_window`` becomes ``window``."""
     kw = dict(
         vocab_size=hf_cfg.vocab_size,
         n_layer=hf_cfg.num_hidden_layers,

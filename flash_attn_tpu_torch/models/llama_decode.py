@@ -9,7 +9,10 @@ post-rotary keys and decode never rotates history; GQA rides the kernels'
 group axis. As in the port's GPT-2 serving, the projections compute in
 ``cfg.dtype`` (the JAX package promotes a bf16 activation times its fp32
 kernel to fp32), so the parity tests run fp32 and the bf16 path is held to
-the 2x rule on the card.
+the 2x rule on the card. ``cfg.window`` bands prefill, chunks and decode
+alike; ``cfg.window_sinks`` adds StreamingLLM sinks in decode only
+(llama_decode.py:185-186 there), so prefill and training keep the pure
+band.
 """
 
 from __future__ import annotations
@@ -20,19 +23,16 @@ import torch
 
 from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
 from flash_attn_tpu_torch.kernels.decode import paged_decode_with_append
-from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from flash_attn_tpu_torch.models.llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    window_size,
+)
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
     _write_prompts,
 )
-
-
-def _check(cfg: LlamaConfig):
-    if cfg.window is not None or cfg.window_sinks:
-        raise NotImplementedError(
-            "LlamaConfig.window/window_sinks: rolling-window serving is "
-            "ROADMAP port item M4")
 
 
 def _last(x, idx):
@@ -46,7 +46,6 @@ def prefill(model: LlamaForCausalLM, cfg: LlamaConfig, input_ids,
     """(b, s) prompts -> (fp32 logits of each prompt's last token (b,
     vocab), per-layer k/v lists [(b, s, n_kv_head, hd)], post-rotary and
     contiguous). ``lengths``: see ``gpt2_decode.prefill``."""
-    _check(cfg)
     b, s = input_ids.shape
     positions = torch.arange(s, device=input_ids.device).expand(b, s)
     x = model.embed(input_ids)
@@ -55,7 +54,8 @@ def prefill(model: LlamaForCausalLM, cfg: LlamaConfig, input_ids,
         q, k, v = block.qkv(x, positions)
         ks.append(k.contiguous())
         vs.append(v.contiguous())
-        ctx = flash_attention(q, k, v, causal=True)
+        ctx = flash_attention(q, k, v, causal=True,
+                              window_size=window_size(cfg))
         x = block.finish(x, ctx.flatten(2))
     idx = (torch.full((b,), s, device=x.device) if lengths is None
            else lengths.long().to(x.device)) - 1
@@ -69,7 +69,6 @@ def chunk_prefill_step(model: LlamaForCausalLM, cfg: LlamaConfig,
     """One chunk of chunked prefill (contract: ``gpt2_decode
     .chunk_prefill_step``). Rotary uses the global positions pos0 + t, so
     chunked and single-shot prefill compute the same keys."""
-    _check(cfg)
     b, C = input_ids.shape
     positions = pos0.long().clamp(min=0)[:, None] + torch.arange(
         C, device=pos0.device)
@@ -80,7 +79,8 @@ def chunk_prefill_step(model: LlamaForCausalLM, cfg: LlamaConfig,
         _write_prompts(cache, k, v, write_tbl)  # one K7c launch
         ctx = paged_chunk_attention(q, cache.k_pages,
                                     cache.v_pages, total, page_table,
-                                    chunk_lens=chunk_lens)
+                                    chunk_lens=chunk_lens,
+                                    window_left=cfg.window)
         x = block.finish(x, ctx.flatten(2))
     idx = (chunk_lens.long() - 1).clamp(0, C - 1)
     return model.logits(_last(x, idx)), caches
@@ -92,7 +92,6 @@ def decode_step(model: LlamaForCausalLM, cfg: LlamaConfig,
                 token_ids):
     """One decode step for every slot (contract: ``gpt2_decode
     .decode_step``). Returns (logits (b, vocab) fp32, caches)."""
-    _check(cfg)
     positions = lengths.long().clamp(min=0)[:, None]  # (b, 1)
     x = model.embed(token_ids[:, None])  # (b, 1, e)
     for block, cache in zip(model.layers, caches):
@@ -101,6 +100,7 @@ def decode_step(model: LlamaForCausalLM, cfg: LlamaConfig,
         # scratch page) and attends over the cache with them.
         ctx = paged_decode_with_append(q[:, 0], k[:, 0], v[:, 0],
                                        cache.k_pages, cache.v_pages, lengths,
-                                       page_table)
+                                       page_table, window_left=cfg.window,
+                                       num_sinks=cfg.window_sinks)
         x = block.finish(x, ctx.flatten(1)[:, None])
     return model.logits(x[:, 0]), caches

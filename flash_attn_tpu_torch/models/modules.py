@@ -21,8 +21,10 @@ named as in the flax tree. Dropout takes its seed from an explicit
 ``_seed_from_rng_key``): one uint32 per call, keyed into the kernels'
 coordinate hash, so nothing else is saved for the backward.
 
-Window, ALiBi and softcap raise ``NotImplementedError`` naming ROADMAP item
-M4.
+Both modules take the M4 terms of ``flash_attention``: a ``window_size``
+band, ALiBi (``use_alibi``: the geometric slopes of ``alibi_slopes(h)``, or
+explicit ``alibi_slopes``) and a logit ``softcap``. As in the JAX module the
+cu_seqlens path refuses a window and ALiBi (use the padded mode).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flash_attn_tpu_torch.ops.attention import alibi_slopes as make_slopes
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.ops.interface import (
     flash_attn_unpadded_qkvpacked_func,
@@ -59,13 +62,6 @@ def linear(x, lin: nn.Linear, dtype):
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
-def _unported(**given):
-    for name, value in given.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}: ROADMAP port item M4 (window/ALiBi/softcap)")
-
-
 class FlashAttention(nn.Module):
     """Inner scaled-dot-product attention over packed qkv: (b, s, 3, h, d),
     with an optional (b, s) ``key_padding_mask`` (True at real tokens), or
@@ -73,12 +69,22 @@ class FlashAttention(nn.Module):
 
     def __init__(self, softmax_scale: float | None = None,
                  attention_dropout: float = 0.0, window_size=None,
-                 use_alibi: bool = False, softcap: float | None = None):
+                 use_alibi: bool = False, alibi_slopes=None,
+                 softcap: float | None = None):
         super().__init__()
-        _unported(window_size=window_size, use_alibi=use_alibi,
-                  softcap=softcap)
         self.softmax_scale = softmax_scale
         self.attention_dropout = attention_dropout
+        self.window_size = window_size
+        self.use_alibi = use_alibi
+        self.alibi_slopes = alibi_slopes
+        self.softcap = softcap
+
+    def slopes(self, n_heads: int):
+        """The ALiBi slopes of a call over ``n_heads`` query heads: the
+        explicit ones, the geometric schedule with ``use_alibi``, or None."""
+        if self.use_alibi and self.alibi_slopes is None:
+            return make_slopes(n_heads)
+        return self.alibi_slopes
 
     def forward(self, qkv, key_padding_mask=None, causal: bool = False,
                 cu_seqlens=None, max_s=None, deterministic: bool = True,
@@ -89,11 +95,19 @@ class FlashAttention(nn.Module):
                                  f"{tuple(qkv.shape)}")
             if max_s is None:
                 raise ValueError("cu_seqlens requires max_s")
+            if self.window_size is not None:
+                raise ValueError(
+                    "window_size is not supported on the cu_seqlens path; "
+                    "use the padded mode (segment-id masking) instead")
+            if self.slopes(qkv.shape[-2]) is not None:
+                raise ValueError(
+                    "ALiBi is not supported on the cu_seqlens path; "
+                    "use the padded mode (segment-id masking) instead")
             dropout_p, seed = self.dropout_args(deterministic, generator)
             return flash_attn_unpadded_qkvpacked_func(
                 qkv, cu_seqlens, max_s, dropout_p,
                 softmax_scale=self.softmax_scale, causal=causal,
-                dropout_seed=seed)
+                dropout_seed=seed, softcap=self.softcap)
         if qkv.dim() != 5 or qkv.shape[2] != 3:
             raise ValueError(f"padded qkv must be (b, s, 3, h, d), got "
                              f"{tuple(qkv.shape)}")
@@ -120,7 +134,10 @@ class FlashAttention(nn.Module):
                                softmax_scale=self.softmax_scale,
                                dropout_p=dropout_p, dropout_seed=seed,
                                q_segment_ids=seg, kv_segment_ids=seg,
-                               q_positions=pos, kv_positions=pos)
+                               q_positions=pos, kv_positions=pos,
+                               window_size=self.window_size,
+                               alibi_slopes=self.slopes(q.shape[2]),
+                               softcap=self.softcap)
 
 
 class FlashMHA(nn.Module):
@@ -138,8 +155,8 @@ class FlashMHA(nn.Module):
                  use_rotary_emb: str | None = None,
                  softmax_scale: float | None = None, dtype=None,
                  param_dtype=torch.float32, window_size=None,
-                 use_alibi: bool = False, softcap: float | None = None,
-                 device="cuda"):
+                 use_alibi: bool = False, alibi_slopes=None,
+                 softcap: float | None = None, device="cuda"):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
@@ -164,7 +181,8 @@ class FlashMHA(nn.Module):
                               bias=bias, **factory)
         self.inner_attn = FlashAttention(
             softmax_scale=softmax_scale, attention_dropout=attention_dropout,
-            window_size=window_size, use_alibi=use_alibi, softcap=softcap)
+            window_size=window_size, use_alibi=use_alibi,
+            alibi_slopes=alibi_slopes, softcap=softcap)
         self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias, **factory)
 
     def forward(self, x, key_padding_mask=None, deterministic: bool = True,

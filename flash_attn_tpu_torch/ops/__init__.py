@@ -1,5 +1,5 @@
 """Public ops over the kernels."""
 
-from flash_attn_tpu_torch.ops.attention import flash_attention
+from flash_attn_tpu_torch.ops.attention import alibi_slopes, flash_attention
 
-__all__ = ["flash_attention"]
+__all__ = ["alibi_slopes", "flash_attention"]

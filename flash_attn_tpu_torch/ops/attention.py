@@ -5,10 +5,12 @@ backward kernels (port of ``flash_attn_tpu/ops/attention.py``
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from flash_attn_tpu_torch.kernels import prng
-from flash_attn_tpu_torch.kernels.common import Segments, kernel_operand
+from flash_attn_tpu_torch.kernels.common import Band, Segments, kernel_operand
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
 
@@ -21,19 +23,20 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softmax_scale, dropout_p, seed,
-                segments):
+                segments, band):
         out, lse = flash_attention_fwd(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
-            save_lse=True, dropout_p=dropout_p, seed=seed, segments=segments)
+            save_lse=True, dropout_p=dropout_p, seed=seed, segments=segments,
+            band=band)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, softmax_scale, dropout_p, seed, segments)
+        ctx.args = (causal, softmax_scale, dropout_p, seed, segments, band)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, softmax_scale, dropout_p, seed, segments = ctx.args
+        causal, softmax_scale, dropout_p, seed, segments, band = ctx.args
         # dout is a view of the caller's (b, s, h, d) gradient, taken in
         # place, or absent when only the lse was used.
         dout = torch.zeros_like(out) if dout is None else kernel_operand(dout)
@@ -41,8 +44,71 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, out, dout, lse, causal=causal,
             softmax_scale=softmax_scale, dropout_p=dropout_p, seed=seed,
             dlse=None if dlse is None else dlse.contiguous(),
-            segments=segments)
-        return dq, dk, dv, None, None, None, None, None
+            segments=segments, band=band)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _parse_window(window_size, causal: bool):
+    """``window_size`` as (left, right), each None (unbounded) or >= 0
+    (JAX ``ops/attention.py:76``): None or -1 is unbounded, a negative value
+    raises, and under causal masking a right bound is dropped (causality
+    already holds j <= i)."""
+    if window_size is None:
+        return None, None
+    try:
+        left, right = window_size
+    except (TypeError, ValueError):
+        raise ValueError(f"window_size must be a (left, right) pair, got "
+                         f"{window_size!r}") from None
+
+    def norm(x, name):
+        if x is None or x == -1:
+            return None
+        x = int(x)
+        if x < 0:
+            raise ValueError(f"window_size {name} must be >= 0, None, or -1 "
+                             f"(unbounded); got {x}")
+        return x
+
+    left, right = norm(left, "left"), norm(right, "right")
+    if causal and right is not None:
+        right = None
+    return left, right
+
+
+def alibi_slopes(n_heads: int) -> torch.Tensor:
+    """The standard ALiBi geometric slope schedule (Press et al. 2022; JAX
+    ``ops/attention.py:113``): for power-of-two head counts slope_i =
+    2^(-8(i+1)/n); otherwise the paper's interpolation (the closest power
+    of two plus every other slope of the doubled schedule). Returns
+    (n_heads,) fp32 on the CPU, ready for ``flash_attention(alibi_slopes=
+    ...)``."""
+
+    def pow2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start ** (i + 1) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        s = pow2(n_heads)
+    else:
+        closest = 2 ** math.floor(math.log2(n_heads))
+        s = pow2(closest) + pow2(2 * closest)[0::2][: n_heads - closest]
+    return torch.tensor(s, dtype=torch.float32)
+
+
+def _norm_alibi(slopes, b: int, h: int, softmax_scale: float, device):
+    """Slopes (h,) or (b, h) as (b, h) fp32 on ``device``, divided by the
+    softmax scale so the kernels add the bias to the score before the scale
+    (JAX ``ops/attention.py:133`` ``_norm_alibi``); None without slopes."""
+    if slopes is None:
+        return None
+    a = torch.as_tensor(slopes, dtype=torch.float32, device=device)
+    if tuple(a.shape) == (h,):
+        a = a[None].expand(b, h)
+    elif tuple(a.shape) != (b, h):
+        raise ValueError(f"alibi_slopes must have shape ({h},) or ({b}, {h});"
+                         f" got {tuple(a.shape)}")
+    return (a / torch.tensor(softmax_scale, dtype=torch.float32)).contiguous()
 
 
 def _segments(q_segment_ids, kv_segment_ids, q_positions, kv_positions,
@@ -113,25 +179,32 @@ def flash_attention(
     dropout mask keeps the (b, h, row, col) coordinates of the padded
     layout.
 
+    ``window_size`` ((left, right), None or -1 unbounded): key j is
+    visible from query i iff i - left <= j <= i + right (positions with
+    segment ids, global indices otherwise); ``causal=True, window_size=
+    (4095, 0)`` is Mistral's local causal attention. ``num_sinks`` (with a
+    band, without segments) keeps the first N key columns visible.
+    ``alibi_slopes`` ((h,) or (b, h) fp32, e.g. ``alibi_slopes(h)``) adds
+    slope * (j - i) under causal masking and -slope * |i - j| otherwise.
+    ``softcap`` (> 0) caps the scaled scores as ``softcap * tanh(s /
+    softcap)`` before the ALiBi bias and the mask. The kernels skip the
+    tiles outside the band.
+
     Differentiable in q, k and v (through both outputs with ``return_lse``)
     when grad is enabled and an input requires it; otherwise the forward
-    runs alone and skips the lse. The other arguments of the JAX signature
-    raise NotImplementedError naming the item that ports them.
+    runs alone and skips the lse. ``window_cell`` and ``qk_quant`` raise
+    NotImplementedError naming the ROADMAP item that ports them.
     """
-    # Arguments of the JAX signature that the port does not run yet, each
-    # with the ROADMAP queue item that brings it.
     for name, is_set, item in (
-        ("window_size", window_size is not None, "M4 (window/ALiBi/...)"),
-        ("alibi_slopes", alibi_slopes is not None, "M4 (window/ALiBi/...)"),
-        ("softcap", softcap is not None, "M4 (window/ALiBi/softcap/...)"),
-        ("num_sinks", num_sinks != 0, "M4 (window/sinks/band routing)"),
         ("window_cell", window_cell is not None,
-         "M4 (window/sinks/band routing)"),
+         "M4b (window_cell and the blocksparse band route)"),
         ("qk_quant", qk_quant is not None, "M8 (int8 QK, K9)"),
     ):
         if is_set:
             raise NotImplementedError(
                 f"flash_attention({name}=...) is ROADMAP port item {item}")
+    if softcap is not None and softcap <= 0.0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
 
     if layout == "bshd":
         b, sq, h, d = q.shape
@@ -155,6 +228,27 @@ def flash_attention(
         softmax_scale = d ** -0.5
     segments = _segments(q_segment_ids, kv_segment_ids, q_positions,
                          kv_positions, b, sq, sk, q.device)
+    window_left, window_right = _parse_window(window_size, causal)
+    if num_sinks:
+        if segments is not None:
+            raise ValueError("num_sinks does not compose with segment ids "
+                             "(it compares global indices, not positions)")
+        if window_left is None and window_right is None:
+            raise ValueError("num_sinks requires a window_size band")
+        if num_sinks < 0:
+            raise ValueError(f"num_sinks must be >= 0, got {num_sinks}")
+    if segments is None:
+        # Without segments a band covering every (i, j) pair is the
+        # unwindowed kernel (JAX ops/attention.py:629-642).
+        if window_left is not None and window_left >= sq - 1:
+            window_left = None
+        if window_right is not None and window_right >= sk - 1:
+            window_right = None
+        if window_left is None and window_right is None:
+            num_sinks = 0
+    band = Band(window_left, window_right, int(num_sinks),
+                None if softcap is None else float(softcap),
+                _norm_alibi(alibi_slopes, b, h, softmax_scale, q.device))
 
     # The kernels take (b, h, s, d) views with 16-byte row strides in place
     # (views of a packed qkv included); only misaligned rows are copied.
@@ -163,12 +257,12 @@ def flash_attention(
     q, k, v = kernel_operand(q), kernel_operand(k), kernel_operand(v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v, causal, softmax_scale,
-                                         dropout_p, seed, segments)
+                                         dropout_p, seed, segments, band)
     else:
         out, lse = flash_attention_fwd(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
             save_lse=return_lse, dropout_p=dropout_p, seed=seed,
-            segments=segments)
+            segments=segments, band=band)
     if layout == "bshd":
         out = out.transpose(1, 2)
     return (out, lse) if return_lse else out

@@ -6,8 +6,7 @@ element mask over the attention matrix, composed with key padding and
 causal masks; rows that see no key give zero output. Forward K8a, backward
 K8b (dK, dV) and K8c (dQ), all in ``kernels/blocksparse.py``, for every
 layout: the JAX package's band route to its dense window kernel needs
-``flash_attention``'s ``window_size``/``num_sinks``/``window_cell``, which
-are ROADMAP port item M4.
+``flash_attention``'s ``window_cell``, and is ROADMAP port item M4b.
 """
 
 from __future__ import annotations

@@ -30,13 +30,6 @@ from flash_attn_tpu_torch.ops.packing import cu_seqlens_to_segments
 def _packed_attention(q, k, v, cu_seqlens_q, cu_seqlens_k, dropout_p,
                       softmax_scale, causal, return_attn_probs, dropout_seed,
                       block_sizes, window_size, alibi_slopes, softcap):
-    for name, value in (("window_size", window_size),
-                        ("alibi_slopes", alibi_slopes),
-                        ("softcap", softcap)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} on the cu_seqlens path is ROADMAP port item M4 "
-                "(window/ALiBi/softcap)")
     if block_sizes is not None:
         raise ValueError("block_sizes are the TPU kernels' tiles; the port's "
                          "kernels fix their own (_get_block_size)")
@@ -47,7 +40,11 @@ def _packed_attention(q, k, v, cu_seqlens_q, cu_seqlens_k, dropout_p,
     kw = dict(causal=causal, softmax_scale=softmax_scale,
               q_segment_ids=qseg[None], kv_segment_ids=kseg[None],
               q_positions=qpos[None], kv_positions=kpos[None],
-              dropout_p=dropout_p, dropout_seed=dropout_seed)
+              dropout_p=dropout_p, dropout_seed=dropout_seed,
+              # The segment form compares per-sequence positions, so bands
+              # and ALiBi distances are exact per packed sequence.
+              window_size=window_size, alibi_slopes=alibi_slopes,
+              softcap=softcap)
     if not return_attn_probs:
         return flash_attention(q[None], k[None], v[None], **kw)[0]
     out, lse = flash_attention(q[None], k[None], v[None], return_lse=True,

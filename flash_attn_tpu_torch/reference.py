@@ -26,10 +26,63 @@ def _expand_kv(q, k, v):
             v.repeat_interleave(group, dim=-3))
 
 
+def build_mask(sq: int, sk: int, *, causal: bool = False, q_positions=None,
+               kv_positions=None, q_segment_ids=None, kv_segment_ids=None,
+               window_left=None, window_right=None, num_sinks: int = 0,
+               device=None):
+    """Boolean (..., sq, sk) mask, True = attend (``flash_attn_tpu/
+    reference.py:25`` ``build_mask``): causal by positions (default
+    arange), the band i - window_left <= j <= i + window_right (None =
+    unbounded), ORed with the first ``num_sinks`` key columns when there is
+    a band, and equal non-negative segment ids."""
+    if q_positions is None:
+        q_positions = torch.arange(sq, device=device)
+    if kv_positions is None:
+        kv_positions = torch.arange(sk, device=device)
+    qp, kp = q_positions[..., :, None], kv_positions[..., None, :]
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                      dtype=torch.bool, device=qp.device)
+    if causal:
+        mask = mask & (qp >= kp)
+    band = torch.ones_like(mask)
+    if window_left is not None:
+        band = band & (kp >= qp - window_left)
+    if window_right is not None:
+        band = band & (kp <= qp + window_right)
+    if num_sinks and (window_left is not None or window_right is not None):
+        band = band | (kp < num_sinks)
+    mask = mask & band
+    if q_segment_ids is not None:
+        qs, ks = q_segment_ids[..., :, None], kv_segment_ids[..., None, :]
+        mask = mask & (qs == ks) & (qs >= 0) & (ks >= 0)
+    return mask
+
+
+def alibi_bias(slopes, sq: int, sk: int, *, causal: bool, q_positions=None,
+               kv_positions=None):
+    """The ALiBi bias on the scaled scores, (b, h, sq, sk) or (1, h, sq,
+    sk): slope * (j - i) under causal masking, -slope * |i - j| otherwise
+    (positions default to arange; flash_fwd.py:254-284 there). ``slopes``
+    (h,) or (b, h) fp32, not divided by the scale."""
+    slopes = torch.as_tensor(slopes, dtype=torch.float32)
+    if slopes.dim() == 1:
+        slopes = slopes[None]
+    dev = slopes.device
+    qp = (torch.arange(sq, device=dev) if q_positions is None
+          else q_positions)[..., :, None]
+    kp = (torch.arange(sk, device=dev) if kv_positions is None
+          else kv_positions)[..., None, :]
+    dist = (kp - qp) if causal else -(qp - kp).abs()
+    if dist.dim() == 3:  # per-row positions: (b, sq, sk)
+        dist = dist[:, None]
+    return slopes[:, :, None, None] * dist.float()
+
+
 def attention_ref(q, k, v, *, causal: bool = False,
                   softmax_scale: float | None = None, mask=None,
                   upcast: bool = True, dropout_mask=None,
-                  dropout_p: float = 0.0, return_attn_probs: bool = False):
+                  dropout_p: float = 0.0, return_attn_probs: bool = False,
+                  bias=None, softcap: float | None = None):
     """Reference attention. ``upcast=True`` computes in fp32 (the ground
     truth); ``upcast=False`` computes in the input dtype (the baseline whose
     error sets the bar). Returns out in the q dtype.
@@ -37,6 +90,9 @@ def attention_ref(q, k, v, *, causal: bool = False,
     ``mask``: optional boolean (..., sq, sk), True = attend, ANDed with the
     causal mask. Rows with no visible key get probability 0, so their output
     is 0 (the kernels' ``l == 0`` rule; reference.py:122-134 there).
+    ``softcap``: ``softcap * tanh(s / softcap)`` on the scaled scores, then
+    the additive ``bias`` (e.g. ``alibi_bias``), then the masks
+    (reference.py:71-146 there).
     ``dropout_mask``: optional boolean (..., sq, sk), True = keep, applied to
     the normalized probabilities and rescaled by 1 / (1 - dropout_p)
     (dropout after the softmax). ``return_attn_probs`` also returns the
@@ -49,6 +105,10 @@ def attention_ref(q, k, v, *, causal: bool = False,
     if upcast:
         q, k, v = q.float(), k.float(), v.float()
     scores = (q @ k.transpose(-1, -2)).float() * softmax_scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    if bias is not None:
+        scores = scores + bias.float()
     visible = None
     if causal:  # top-left: every row sees key 0
         visible = torch.ones(scores.shape[-2:], dtype=torch.bool,
@@ -70,12 +130,17 @@ def attention_ref(q, k, v, *, causal: bool = False,
 
 
 def paged_chunk_ref(q, k_pages, v_pages, lengths, page_table, chunk_lens, *,
-                    softmax_scale: float | None = None, upcast: bool = True):
+                    softmax_scale: float | None = None, upcast: bool = True,
+                    window_left=None, num_sinks: int = 0, alibi_slopes=None,
+                    softcap: float | None = None):
     """Dense oracle of paged chunk attention (and, at sq = 1 with chunk_lens
     = 1, of paged decode). q (b, sq, hq, d); each sequence's keys are
     gathered from its pages and row t sees keys [0, lengths - chunk_lens +
-    t] (tail-aligned). Padding rows (t >= chunk_lens) and rows that see no
-    key give 0. ``upcast`` as in ``attention_ref``."""
+    t] (tail-aligned), with a window only those at or after its position -
+    ``window_left`` and the first ``num_sinks``. The softcap goes on the
+    scaled scores, then ALiBi (``alibi_slopes`` (hq,), slope * (kpos -
+    qpos)). Padding rows (t >= chunk_lens) and rows that see no key give 0.
+    ``upcast`` as in ``attention_ref``."""
     b, sq, _, d = q.shape
     ps = k_pages.shape[2]
     if softmax_scale is None:
@@ -95,7 +160,17 @@ def paged_chunk_ref(q, k_pages, v_pages, lengths, page_table, chunk_lens, *,
         s = (qi @ k.transpose(-1, -2)).float() * softmax_scale
         t = torch.arange(sq, device=q.device)[:, None]
         j = torch.arange(cached, device=q.device)[None]
-        s = s.masked_fill(~((j <= n - c + t) & (t < c)), float("-inf"))
+        qpos = n - c + t
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        if alibi_slopes is not None:
+            slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                     device=q.device)
+            s = s + slopes[:, None, None] * (j - qpos).float()
+        visible = (j <= qpos) & (t < c)
+        if window_left is not None:
+            visible = visible & ((j >= qpos - window_left) | (j < num_sinks))
+        s = s.masked_fill(~visible, float("-inf"))
         p = torch.softmax(s, dim=-1).nan_to_num(0.0)  # empty rows: 0
         if not upcast:
             p = p.to(q.dtype)

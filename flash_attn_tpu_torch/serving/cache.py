@@ -321,6 +321,24 @@ class PageAllocator:
             p for p in reversed(self._owned.pop(seq_id)) if p != 0
         )
 
+    def release_range(self, seq_id: int, start_page: int,
+                      end_page: int) -> int:
+        """Free logical pages [start_page, end_page) of a LIVE sequence
+        (streaming sliding-window serving: pages that fell out of the
+        attention band for good). A freed slot keeps a page-0 placeholder,
+        so logical indexing (``extend`` / ``table_row``) is unchanged; the
+        paged kernels never fetch a key below the band. Returns the number
+        of pages freed (idempotent: freed slots are skipped; page 0 is
+        reserved, so the placeholder is unambiguous)."""
+        pages = self._owned[seq_id]
+        freed = 0
+        for p in range(max(start_page, 0), min(end_page, len(pages))):
+            if pages[p] != 0:
+                self._free.append(pages[p])
+                pages[p] = 0
+                freed += 1
+        return freed
+
     def table_row(self, seq_id: int) -> list[int]:
         pages = self._owned[seq_id]
         return pages + [0] * (self.pages_per_seq - len(pages))

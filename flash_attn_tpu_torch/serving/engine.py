@@ -24,9 +24,11 @@ the port's kernels:
   - sequences retire on EOS / max tokens
 
 The model's phases come from ``model_fns`` (default ``gpt2_decode``; pass
-``llama_decode`` with a ``LlamaForCausalLM``). Quantized KV
-(``kv_quantization``) and sliding windows (``cfg.window``) are ROADMAP port
-items M5 and M4.
+``llama_decode`` with a ``LlamaForCausalLM``). With ``cfg.window`` the
+phases attend through the band, and ``stream_free_pages`` (the default)
+returns each sequence's pages that fell below its decode band to the pool
+before every growth pass (``pages_freed``; ``peak_pages`` is the most in
+use). Quantized KV (``kv_quantization``) is ROADMAP port item M5.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ class ServingEngine:
         temperature: float = 0.0,  # 0 = greedy argmax
         top_k: int | None = None,  # with temperature > 0
         sample_seed: int = 0,
+        stream_free_pages: bool = True,
         prefill_chunk: int | None = None,
         model_fns=gpt2_decode,
     ):
@@ -87,7 +90,10 @@ class ServingEngine:
         ``chunk_prefill_step`` of ``gpt2_decode``'s signatures, for
         ``model`` and ``cfg``. ``prefill_chunk``: admit prompts in chunks
         of this many tokens (a positive multiple of ``page_size``) instead
-        of one bucketed call."""
+        of one bucketed call. ``stream_free_pages`` (with ``cfg.window``):
+        return a sequence's pages that fell below its decode band (and
+        hold no sink) to the pool mid-flight, so its live pages follow the
+        window, not the context."""
         if prefill_chunk is not None and (
                 prefill_chunk <= 0 or prefill_chunk % page_size):
             raise ValueError(
@@ -96,9 +102,6 @@ class ServingEngine:
         if kv_quantization is not None:
             raise NotImplementedError(
                 "kv_quantization: quantized KV is ROADMAP port item M5")
-        if cfg.window is not None:
-            raise NotImplementedError(
-                "cfg.window: sliding-window serving is ROADMAP port item M4")
         first = next(model.parameters())
         if first.dtype != cfg.dtype:
             # Serve a copy stored in the compute dtype, cast once here, so
@@ -115,6 +118,10 @@ class ServingEngine:
         self.eos_token = eos_token
         self.temperature = float(temperature)
         self.top_k = top_k
+        # Streaming sliding-window serving (JAX engine.py:95-101).
+        self._stream_free = bool(stream_free_pages) and cfg.window is not None
+        self.pages_freed = 0  # pages returned mid-flight by the stream
+        self.peak_pages = 0  # most pages in use after a growth pass
         self.caches = [
             init_cache(cfg.n_kv_heads, num_pages, page_size, cfg.head_dim,
                        dtype=cfg.dtype, device=self.device)
@@ -328,11 +335,33 @@ class ServingEngine:
         self.pending.insert(0, vreq)
         return True
 
+    def _reclaim_dead_pages(self, slot: int, req: Request) -> int:
+        """Free this sequence's pages that are for good below the decode
+        band (JAX engine.py:270-284): page p is dead once (p + 1) *
+        page_size <= length - 1 - window (the band floor only moves on)
+        and p holds no sink position."""
+        if not self._stream_free:
+            return 0
+        win_lo = int(self.lengths[slot]) - 1 - self.cfg.window
+        end = max(0, win_lo) // self.page_size
+        sinks = getattr(self.cfg, "window_sinks", 0) or 0
+        start = -(-sinks // self.page_size)
+        if end <= start:
+            return 0
+        return self.alloc.release_range(req.seq_id, start, end)
+
     def step(self) -> None:
         """Admit what fits, then advance every active slot by one token."""
         self._admit()
         if not self.slot_req:
             return
+        # Reclaim out-of-band pages FIRST (all slots), so the growth pass
+        # below sees every reclaimable page in the pool.
+        for slot, req in list(self.slot_req.items()):
+            freed = self._reclaim_dead_pages(slot, req)
+            if freed:
+                self.pages_freed += freed
+                self.page_table[slot] = self.alloc.table_row(req.seq_id)
         # Grow page tables where the next token crosses a page boundary.
         # On pool exhaustion, preempt the youngest peer and retry — the
         # __init__ capacity invariant guarantees a lone sequence can
@@ -352,6 +381,8 @@ class ServingEngine:
                         raise
             if page is not None:
                 self.page_table[slot] = self.alloc.table_row(req.seq_id)
+        self.peak_pages = max(self.peak_pages,
+                              self.alloc.capacity - self.alloc.free_pages)
         active = np.asarray(
             [s in self.slot_req for s in range(self.max_batch)]
         )

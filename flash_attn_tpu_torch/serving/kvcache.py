@@ -64,11 +64,11 @@ def flash_attn_with_kvcache(q, cache: PagedKVCache, page_table,
     ``rotary_base``): the upstream in-place rotary convention, for models
     whose cache holds post-rotary keys.
 
-    ``window_left``, ``alibi_slopes``, ``softcap`` (M4) and ``qk_quant``
-    (M8) are not ported. Each raises before the cache is touched.
+    ``window_left``, ``alibi_slopes`` ((n_q_heads,)) and ``softcap`` follow
+    ``paged_chunk_attention`` (global cache positions). ``qk_quant`` (M8)
+    is not ported: it raises before the cache is touched.
     """
-    check_ported(window_left=window_left, alibi_slopes=alibi_slopes,
-                 softcap=softcap, qk_quant=qk_quant)
+    check_ported(qk_quant=qk_quant)
     if (k is None) != (v is None):
         raise ValueError("k and v must be given together")
     batch, sq = q.shape[:2]

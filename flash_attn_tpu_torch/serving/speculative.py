@@ -8,6 +8,8 @@ one pass, each layer appending the chunk's K/V and attending to the cache
 through ``flash_attn_with_kvcache`` (one K6 launch that appends first),
 and keeps the longest draft prefix that agrees with its own greedy choice,
 plus that choice. In exact arithmetic the output equals plain greedy decoding.
+With ``cfg.window`` both passes attend through the band; ``window_sinks``
+(decode-only) is refused, since the draft and the chunk scoring see no sinks.
 
 Rejected drafts leave K/V in the slots after the accepted ones; the next
 round's chunk starts at the first of those slots and overwrites them before
@@ -50,7 +52,8 @@ def score_chunk(model: GPT2LMHeadModel, cfg: GPT2Config, caches, table,
     seqlens = torch.tensor([pos0], dtype=torch.int32, device=dev)
     for block, cache in zip(model.h, caches):
         q, k, v = block.qkv(x)  # (1, n, n_head, head_dim) views
-        ctx, _ = flash_attn_with_kvcache(q, cache, table, seqlens, k, v)
+        ctx, _ = flash_attn_with_kvcache(q, cache, table, seqlens, k, v,
+                                         window_left=cfg.window)
         x = block.finish(x, ctx.reshape(1, n, cfg.n_embd))
     return model.lm_head(x[0])
 
@@ -63,6 +66,10 @@ def speculative_decode(model: GPT2LMHeadModel, cfg: GPT2Config,
     """Greedy speculative decoding of ``new_tokens`` after ``prompt``.
     Returns (the generated tokens, the verify rounds as (pos0, chunk,
     logits) with ``score_chunk``'s logits)."""
+    if cfg.window_sinks:
+        raise ValueError("speculative_decode: window_sinks are decode-only, "
+                         "and the draft and the chunk scoring see none; "
+                         "decode a model with sinks step by step")
     dev = model.wte.weight.device
     if draft_layers is None:
         draft_layers = cfg.n_layer // 2

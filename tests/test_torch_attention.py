@@ -116,9 +116,27 @@ def test_bf16_two_x_rule(causal):
     ("qk_quant", "int8"), ("num_sinks", 4), ("window_cell", (16, 256)),
 ])
 def test_unported_arguments_raise(name, value):
-    q = torch.zeros(1, 8, 1, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP port item"):
-        flash_attention(q, q, q, **{name: value})
+    """qk_quant (M8) and window_cell (M4b) still raise, naming their ROADMAP
+    items; the M4 terms run and match JAX (num_sinks with a causal band)."""
+    if name in ("qk_quant", "window_cell"):
+        q = torch.zeros(1, 8, 1, 64)
+        item = "M8" if name == "qk_quant" else "M4b"
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP port item {item}"):
+            flash_attention(q, q, q, **{name: value})
+        return
+    q, k, v = _np_qkv(4, 1, 48, 48, 1, 1, 64)
+    kw = {name: value, "causal": name != "softcap", "return_lse": True}
+    if name == "num_sinks":
+        kw["window_size"] = (8, 0)
+    out_j, lse_j = jax_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), **kw)
+    out_t, lse_t = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=ATOL,
+                               rtol=RTOL)
 
 
 # (h, h_kv): MHA and GQA; dropout 0 and 0.1

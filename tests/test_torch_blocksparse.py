@@ -6,7 +6,7 @@ the port's (the plain twins of K8a-c on the CPU). Out and lse are held to
 atol 2e-5 and gradients to atol 5e-4 / rtol 1e-3, the tolerances of the
 JAX tests. JAX's band routing is switched off here: it sends band-shaped
 masks to the dense window kernel, which agrees only within allclose
-(ROADMAP C6) and which the port does not have yet (M4).
+(ROADMAP C6) and which the port does not route to yet (M4b).
 
 Key padding: the JAX kernels skip the padding mask on FULL tiles (ROADMAP
 C9), so the cases compared with JAX use layouts without one (s <= 512 at

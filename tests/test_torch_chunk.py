@@ -110,20 +110,43 @@ def test_paged_chunk_sq1_is_decode():
 
 
 def test_paged_block_live_and_unported_arguments():
-    lengths = torch.tensor([0, 16, 17])
+    """paged_block_live as JAX's (the band floor and sinks included); the
+    quantized cache (M5) and qk_quant (M8) still raise; window_left,
+    softcap and ALiBi run and match JAX's chunk kernel."""
+    from flash_attn_tpu.kernels.common import paged_block_live as jax_live
+    lengths = torch.tensor([0, 16, 17, 40])
     assert paged_block_live(1, 16, length=lengths).tolist() == [
-        False, False, True]
-    with pytest.raises(NotImplementedError, match="ROADMAP port item M4"):
-        paged_block_live(0, 16, length=lengths, window_left=4)
+        False, False, True, True]
+    floor = lengths - 1 - 4
+    for j in range(3):
+        for sinks in (0, 3):
+            got = paged_block_live(j, 16, length=lengths, window_left=4,
+                                   first_band_pos=floor, num_sinks=sinks)
+            want = jax_live(j, 16, length=jnp.asarray(lengths.numpy()),
+                            window_left=4,
+                            first_band_pos=jnp.asarray(floor.numpy()),
+                            num_sinks=sinks)
+            assert got.tolist() == np.asarray(want).tolist(), (j, sinks)
     rng = np.random.default_rng(2)
-    kp, vp, table = (torch.from_numpy(x) for x in _paged(
-        rng, [3], 1, 64, 16, 4, 1))
-    q = torch.zeros((1, 2, 1, 64))
-    lens = torch.tensor([3], dtype=torch.int32)
-    for kw in ({"k_scales": kp}, {"window_left": 8}, {"softcap": 30.0},
-               {"alibi_slopes": [1.0]}, {"qk_quant": "int8"}):
+    lens_np = [40, 23]
+    kp, vp, table = _paged(rng, lens_np, 1, 64, 16, 8, 3)
+    q = rng.standard_normal((2, 5, 1, 64)).astype(np.float32)
+    lens, chunk = np.asarray(lens_np, np.int32), np.asarray([5, 3], np.int32)
+    args = [q, kp, vp, lens, table]
+    for kw in ({"k_scales": kp}, {"qk_quant": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP port item"):
-            paged_chunk_attention(q, kp, vp, lens, table, **kw)
+            paged_chunk_attention(*(torch.from_numpy(x) for x in args),
+                                  **kw)
+    for kw in ({"window_left": 8}, {"softcap": 30.0},
+               {"alibi_slopes": [1.0]}):
+        out_j = jax_paged_chunk_attention(
+            *(jnp.asarray(x) for x in args), chunk_lens=jnp.asarray(chunk),
+            **kw)
+        out_t = paged_chunk_attention(
+            *(torch.from_numpy(x) for x in args),
+            chunk_lens=torch.from_numpy(chunk), **kw)
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                                   atol=ATOL, rtol=RTOL, err_msg=str(kw))
 
 
 H, D, PS, NUM_PAGES = 2, 64, 16, 13

@@ -33,6 +33,9 @@ from flash_attn_tpu_torch.models import (  # noqa: E402
     load_hf_gpt2,
     load_hf_llama,
 )
+from flash_attn_tpu_torch.models.convert import (  # noqa: E402
+    llama_from_jax_params,
+)
 
 
 def _hf_gpt2():
@@ -182,7 +185,18 @@ def test_llama_missing_layer_and_mistral_window():
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
         sliding_window=64)
     mcfg = llama_config_from_hf(mistral)
-    assert mcfg.window == jax_llama.llama_config_from_hf(mistral).window == 64
-    with pytest.raises(NotImplementedError, match="ROADMAP port item M4"):
-        LlamaForCausalLM(mcfg, device="cpu",
-                         generator=torch.Generator().manual_seed(0))
+    jcfg = jax_llama.llama_config_from_hf(mistral)
+    assert mcfg.window == jcfg.window == 64
+    # The Mistral model runs: its forward, the band biting at s = 96 > 64,
+    # against JAX's on the same weights (fp32, atol = rtol = 1e-4).
+    jcfg = dataclasses.replace(jcfg, dtype=jnp.float32)
+    jmodel = jax_llama.LlamaForCausalLM(jcfg)
+    ids = np.random.default_rng(3).integers(0, 512, (2, 96))
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(ids, jnp.int32))
+    model = llama_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, params),
+        dataclasses.replace(mcfg, dtype=torch.float32), device="cpu")
+    want = jmodel.apply(params, jnp.asarray(ids, jnp.int32))
+    got = model(torch.from_numpy(ids)).detach()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)

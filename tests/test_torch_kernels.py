@@ -46,6 +46,7 @@ from flash_attn_tpu_torch.kernels.chunk import (
     paged_chunk_attention_plain,
 )
 from flash_attn_tpu_torch.kernels.common import (
+    Band,
     Segments,
     paged_num_splits,
     plan_sections,
@@ -78,10 +79,13 @@ from flash_attn_tpu_torch.models.gpt2 import (
 )
 from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
 from flash_attn_tpu_torch.models import llama_decode
+from flash_attn_tpu_torch.ops.attention import alibi_slopes
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from flash_attn_tpu_torch.reference import (
+    alibi_bias,
     attention_lse_ref,
     attention_ref,
+    build_mask,
     paged_chunk_ref,
 )
 from flash_attn_tpu_torch.serving import cache as torch_cache
@@ -1598,3 +1602,324 @@ def test_flash_attention_segments_on_cuda_match_cpu(cuda):
                        + [x.grad.cpu() for x in leaves])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------ M4: window, sinks, ALiBi
+
+# (case, (left, right), sinks, alibi, softcap): K1 and K2's band branches.
+BAND_CASES = [
+    ((1, 300, 300, 2, 2, 64, True), (40, None), 0, False, None),
+    ((1, 1000, 1000, 2, 1, 64, True), (200, None), 4, False, None),
+    ((1, 300, 300, 2, 2, 128, False), (30, 50), 0, True, None),
+    ((1, 77, 1000, 2, 2, 64, True), (100, None), 0, False, None),
+    ((1, 77, 1000, 2, 2, 64, True), (30, None), 0, False, None),
+    ((1, 1000, 77, 2, 2, 128, False), (10, 20), 0, False, None),
+    ((2, 256, 256, 4, 2, 64, True), (64, None), 0, False, 5.0),
+    ((1, 129, 129, 2, 2, 64, False), (None, None), 0, True, None),
+    ((1, 300, 300, 2, 2, 64, False), (None, 20), 3, False, None),
+    ((1, 700, 700, 4, 2, 64, False), (200, 300), 130, True, 2.0),
+    (GQA_32_8, (100, None), 0, True, 30.0),
+]
+
+
+def _band(spec, b, h, scale, device):
+    """The kernels' Band of a BAND_CASES entry, with the oracle's slopes
+    ((h,), not over the scale) and softcap."""
+    (left, right), sinks, alibi, softcap = spec
+    slopes = alibi_slopes(h).to(device) if alibi else None
+    band = Band(left, right, sinks, softcap,
+                None if slopes is None else (slopes / scale)[None].expand(
+                    b, h).contiguous())
+    return band, slopes
+
+
+def _band_oracle(case, spec, slopes, q, k, v, dout=None, upcast=True):
+    """attention_ref under the band's mask, ALiBi bias and softcap: the
+    output, and with ``dout`` the gradients (autograd)."""
+    b, sq, sk, h, h_kv, d, causal = case
+    (left, right), sinks, _, softcap = spec
+    mask = build_mask(sq, sk, causal=causal, window_left=left,
+                      window_right=right, num_sinks=sinks, device=q.device)
+    bias = (None if slopes is None
+            else alibi_bias(slopes, sq, sk, causal=causal))
+    leaves = [x.detach().clone().requires_grad_(dout is not None)
+              for x in (q, k, v)]
+    if upcast:
+        leaves = [x.float().detach().requires_grad_(dout is not None)
+                  for x in leaves]
+    out = attention_ref(*leaves, causal=causal, mask=mask, bias=bias,
+                        softcap=softcap, upcast=upcast)
+    if dout is None:
+        return out
+    out.backward(dout.to(out.dtype))
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", BAND_CASES, ids=str)
+def test_flash_kernels_band_terms_match_twin(cuda, spec, dtype):
+    """K1 and K2 with a window band, sinks, ALiBi and softcap: out and
+    gradients against the twins and, by the 2x rule, against fp32
+    attention_ref (autograd) under the same mask, bias and softcap."""
+    case, *terms = spec
+    b, sq, sk, h, h_kv, d, causal = case
+    q, k, v, dout = _qkv(case, dtype, cuda, seed=3)
+    scale = d ** -0.5
+    band, slopes = _band(terms, b, h, scale, cuda)
+    kw = dict(causal=causal, softmax_scale=scale, band=band)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    twin, twin_lse = flash_attention_fwd_plain(q, k, v, save_lse=True, **kw)
+    twins = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    label = f"{spec} {dtype}"
+    native = _band_oracle(case, terms, slopes, q, k, v, upcast=False)
+    assert_two_x_bound(out, twin.float(), native, label=f"out vs twin {label}")
+    assert_two_x_bound(out, _band_oracle(case, terms, slopes, q, k, v),
+                       native, label=f"out {label}")
+    torch.testing.assert_close(lse, twin_lse.float(), atol=1e-3, rtol=1e-3)
+    oracle = _band_oracle(case, terms, slopes, q, k, v, dout)
+    nat = _band_oracle(case, terms, slopes, q, k, v, dout, upcast=False)
+    for name, g, tw, o, n in zip("qkv", grads, twins, oracle, nat):
+        assert g.dtype == dtype and g.shape == tw.shape
+        assert_two_x_bound(g, o, n, atol=1e-4, label=f"d{name} {label}")
+        assert_two_x_bound(g, tw.float(), n, atol=1e-4,
+                           label=f"d{name} vs twin {label}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_windowed_flash_bwd_is_bitwise_reproducible(cuda, dtype):
+    """K1 + K2 with a causal window and 4 sinks (the dQ ranks count the
+    band's walkers, the sink tile's among them): out, lse, dq, dk and dv
+    bit for bit over 10 seeded reruns."""
+    case = (1, 1000, 1000, 4, 2, 64, True)
+    q, k, v, dout = _qkv(case, dtype, cuda, seed=8)
+    kw = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=3,
+              band=Band(200, None, 4))
+
+    def run():
+        out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse,
+                                               **kw))
+    _reruns_equal(run)
+
+
+BAND_SEG = [((16, 16), True), ((32, None), False), ((None, 8), False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("band_spec", BAND_SEG, ids=str)
+@pytest.mark.parametrize("case", [SEG_CASES[0], SEG_CASES[2], SEG_CASES[4],
+                                  SEG_CASES[6]], ids=str)
+def test_flash_segment_kernels_band_terms(cuda, case, band_spec, dtype):
+    """The segment form with a band by positions (and ALiBi by positions):
+    the plan word for word against the plain plan, K1 and K2 against
+    their twins and, by the 2x rule, fp32 attention_ref under the
+    equivalent mask and bias."""
+    (left, right), alibi = band_spec
+    kind, b, sq, sk, h, h_kv, d, causal = case
+    q, k, v, dout, seg = _seg_inputs(case, dtype, cuda)
+    scale = d ** -0.5
+    slopes = alibi_slopes(h).to(cuda) if alibi else None
+    band = Band(left, right, 0, None, None if slopes is None else (
+        slopes / scale)[None].expand(b, h).contiguous())
+    got = plan_sections(segment_plan(seg, causal, band), b, sq, sk)
+    want = segment_plan_plain(seg, causal, band)
+    for name in ("qsum", "ksum", "cls", "fwd_n", "bwd_n", "ivf", "qiv",
+                 "kiv"):
+        assert torch.equal(got[name], want[name]), name
+    kw = dict(causal=causal, softmax_scale=scale, segments=seg, band=band)
+    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    twin, _ = flash_attention_fwd_plain(q, k, v, save_lse=False, **kw)
+    twins = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    mask = build_mask(sq, sk, causal=causal, q_positions=seg.q_pos[:, None],
+                      kv_positions=seg.kv_pos[:, None],
+                      q_segment_ids=seg.q_seg[:, None],
+                      kv_segment_ids=seg.kv_seg[:, None], window_left=left,
+                      window_right=right)
+    bias = None if slopes is None else alibi_bias(
+        slopes, sq, sk, causal=causal, q_positions=seg.q_pos,
+        kv_positions=seg.kv_pos)
+
+    def ref(x, upcast, g=None):
+        leaves = [t.detach().clone().requires_grad_(g is not None)
+                  for t in x]
+        o = attention_ref(*leaves, mask=mask, bias=bias, upcast=upcast)
+        if g is None:
+            return o
+        o.backward(g.to(o.dtype))
+        return [t.grad for t in leaves]
+
+    label = f"{case} {band_spec} {dtype}"
+    native = ref((q, k, v), False)
+    assert_two_x_bound(out, twin.float(), native, label=f"out vs twin {label}")
+    assert_two_x_bound(out, ref([x.float() for x in (q, k, v)], True),
+                       native, label=f"out {label}")
+    oracle = ref([x.float() for x in (q, k, v)], True, dout.float())
+    nat = ref((q, k, v), False, dout)
+    for name, g, tw, o, n in zip("qkv", grads, twins, oracle, nat):
+        assert_two_x_bound(g, o, n, atol=1e-4, label=f"d{name} {label}")
+        assert_two_x_bound(g, tw.float(), n, atol=1e-4,
+                           label=f"d{name} vs twin {label}")
+
+
+# (lengths, h, h_kv, d, page_size, pages_max, window, sinks, alibi, softcap)
+PAGED_BAND_CASES = [
+    ([1, 16, 17, 400], 2, 2, 64, 16, 26, 40, 0, False, None),
+    ([333, 48, 5], 4, 2, 64, 16, 22, 100, 4, True, None),
+    ([1000, 7, 600], 8, 2, 128, 32, 32, 128, 4, False, 30.0),
+    ([5000, 4097, 1], 32, 8, 128, 128, 40, 4096, 4, True, 50.0),  # Mistral
+    ([2000, 3], 12, 12, 64, 128, 16, 256, 0, True, None),
+    ([900], 16, 1, 64, 16, 60, 30, 200, False, 5.0),  # sinks past a tile
+]
+
+
+def _paged_band_inputs(case, dtype, device, sq=None, seed=11):
+    lengths, h, h_kv, d, ps, pmax, window, sinks, alibi, cap = case
+    num_pages = 1 + sum(-(-n // ps) for n in lengths)
+    rng = np.random.default_rng(seed)
+    q, kp, vp, lens, table = _paged_inputs(rng, lengths, h, h_kv, d, ps,
+                                           num_pages, pmax, dtype, device)
+    if sq is not None:
+        q = _randn(rng, (len(lengths), sq, h, d), dtype, device)
+    terms = dict(window_left=window, num_sinks=sinks, softcap=cap,
+                 alibi_slopes=alibi_slopes(h).to(device) if alibi else None)
+    return q, kp, vp, lens, table, terms
+
+
+def _poison_below_band(kp, vp, lens, table, window, sinks, ps, floor_of):
+    """Copies of the pages with NaN in every page wholly below its
+    sequence's band (floor_of(length)) that holds no sink position."""
+    kp, vp = kp.clone(), vp.clone()
+    for i, n in enumerate(lens.tolist()):
+        floor = floor_of(i, n)
+        for j in range(-(-sinks // ps), max(0, floor) // ps):
+            pid = int(table[i, j])
+            kp[:, pid] = float("nan")
+            vp[:, pid] = float("nan")
+    return kp, vp
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", PAGED_BAND_CASES, ids=str)
+def test_paged_decode_band_terms(cuda, case, dtype):
+    """K5 with a window, sinks, softcap and ALiBi: against its twin and the
+    2x rule over the dense band oracle; then with every page wholly below
+    each sequence's band (sink pages aside) poisoned with NaN, finite and
+    bit for bit the unpoisoned output (those pages are never fetched)."""
+    q, kp, vp, lens, table, terms = _paged_band_inputs(case, dtype, cuda)
+    d, ps = case[3], case[4]
+    out = paged_decode_attention(q, kp, vp, lens, table, **terms)
+    torch.cuda.synchronize()
+    twin = paged_decode_attention_plain(
+        q, kp, vp, lens, table, softmax_scale=d ** -0.5,
+        terms=(terms["window_left"], terms["num_sinks"],
+               terms["alibi_slopes"], terms["softcap"]))
+    one = (lens > 0).to(torch.int32)
+    native = paged_chunk_ref(q[:, None], kp, vp, lens, table, one,
+                             upcast=False, **terms)[:, 0]
+    assert_two_x_bound(out, twin.float(), native, label=f"{case} {dtype}")
+    pk, pv = _poison_below_band(kp, vp, lens, table, terms["window_left"],
+                                terms["num_sinks"], ps,
+                                lambda i, n: n - 1 - terms["window_left"])
+    poisoned = paged_decode_attention(q, pk, pv, lens, table, **terms)
+    torch.cuda.synchronize()
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, out)
+
+
+# (lengths incl. the chunk, chunk_lens, sq, h, h_kv, d, page_size,
+# pages_max, window, alibi, softcap): sinks are decode-only, K5's.
+CHUNK_BAND_CASES = [
+    ([400, 17, 5, 333], [8, 3, 5, 0], 8, 2, 2, 64, 16, 26, 40, True, None),
+    ([3000, 64, 900], [5, 5, 1], 5, 8, 2, 128, 32, 100, 100, False, 30.0),
+    ([5000, 1024, 3000], [512, 512, 200], 512, 32, 8, 128, 128, 40, 4096,
+     False, None),  # Mistral chunked prefill
+    ([700, 1000], [256, 40], 256, 12, 12, 64, 128, 8, 128, True, 50.0),
+    ([600, 1100], [200, 300], 300, 16, 2, 128, 16, 70, 90, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", CHUNK_BAND_CASES, ids=str)
+def test_paged_chunk_band_terms(cuda, spec, dtype):
+    """K6 with a window (from the first row's floor), softcap and ALiBi:
+    against its twin and the 2x rule over the dense oracle, padding rows
+    exactly 0; then NaN in every page wholly below each sequence's
+    first-row band: finite, bit for bit the same."""
+    lengths, chunk_lens, sq, *rest = spec
+    case = (lengths, *rest[:6], 0, *rest[6:])
+    q, kp, vp, lens, table, terms = _paged_band_inputs(case, dtype, cuda,
+                                                       sq=sq)
+    del terms["num_sinks"]
+    d, ps = rest[2], rest[3]
+    cl = torch.tensor(chunk_lens, dtype=torch.int32, device=cuda)
+    out = paged_chunk_attention(q, kp, vp, lens, table, chunk_lens=cl,
+                                **terms)
+    torch.cuda.synchronize()
+    twin = paged_chunk_attention_plain(
+        q, kp, vp, lens, table, chunk_lens=cl, softmax_scale=d ** -0.5,
+        terms=(terms["window_left"], 0, terms["alibi_slopes"],
+               terms["softcap"]))
+    native = paged_chunk_ref(q, kp, vp, lens, table, cl, upcast=False,
+                             **terms)
+    assert_two_x_bound(out, twin.float(), native, label=f"{spec} {dtype}")
+    for i, c in enumerate(chunk_lens):
+        assert not out[i, c:].any(), f"padding rows of sequence {i}"
+    pk, pv = _poison_below_band(
+        kp, vp, lens, table, terms["window_left"], 0, ps,
+        lambda i, n: n - chunk_lens[i] - terms["window_left"])
+    poisoned = paged_chunk_attention(q, pk, pv, lens, table, chunk_lens=cl,
+                                     **terms)
+    torch.cuda.synchronize()
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, out)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_band_appends_are_the_two_launch_route(cuda, dtype, d):
+    """K5 with a window and sinks (the new rows' walk indices run past the
+    sink tiles) and K6 with a window appending inside their launch: output
+    and cache bit for bit the standalone append followed by the kernel."""
+    ps, pmax, h_kv, group = 16, 24, 2, 4
+    window, sinks = 50, 4
+    lengths = [0, 63, 64, 200, 300, -1, 383, 130]
+    kp, vp, table, q, k, v = _fused_inputs(
+        np.random.default_rng(30), len(lengths), group * h_kv, h_kv, d, ps,
+        pmax, None, dtype, cuda)
+    lens = _int32(lengths, cuda)
+    terms = dict(window_left=window, num_sinks=sinks)
+    fused = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    pair = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    out = paged_decode_with_append(q, k, v, fused.k_pages, fused.v_pages,
+                                   lens, table, **terms)
+    torch_cache.append_token(pair, k.contiguous(), v.contiguous(), table,
+                             lens)
+    want = paged_decode_attention(q, pair.k_pages, pair.v_pages,
+                                  (lens.clamp(min=0) + 1).int(), table,
+                                  **terms)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(fused.k_pages[:, 1:], pair.k_pages[:, 1:])
+    sq = 5
+    seqlens = [0, 63, 64, 200, 300, -1, 378, 130]
+    new_lens = [5, 5, 5, 5, 1, 5, 5, 0]
+    kp, vp, table, q, k, v = _fused_inputs(
+        np.random.default_rng(31), len(seqlens), group * h_kv, h_kv, d, ps,
+        pmax, sq, dtype, cuda)
+    cl, nl = _int32(seqlens, cuda), _int32(new_lens, cuda)
+    fused = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    pair = torch_cache.PagedKVCache(kp.clone(), vp.clone())
+    del terms["num_sinks"]
+    out = paged_chunk_attention(q, fused.k_pages, fused.v_pages, cl + nl,
+                                table, chunk_lens=nl, new_k=k, new_v=v,
+                                cache_seqlens=cl, **terms)
+    torch_cache.append_span(pair, k.contiguous(), v.contiguous(), table, cl,
+                            nl)
+    want = paged_chunk_attention(q.contiguous(), pair.k_pages, pair.v_pages,
+                                 cl + nl, table, chunk_lens=nl, **terms)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(fused.k_pages, pair.k_pages)
+    assert torch.equal(fused.v_pages, pair.v_pages)

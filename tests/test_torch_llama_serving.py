@@ -67,6 +67,9 @@ def test_convert_round_trip(setup):
 
 
 def test_model_defaults_and_unported_options():
+    """Defaults; ``window`` and ``window_sinks`` build a model whose full
+    forward matches JAX's (the band bites at s = 40 > 16; sinks are
+    decode-only, so the forward stays the band)."""
     cfg = LlamaConfig.tiny()
     assert cfg.head_dim == 32 and cfg.n_kv_heads == 2
     assert LlamaConfig().dtype == torch.bfloat16
@@ -74,10 +77,19 @@ def test_model_defaults_and_unported_options():
     model = LlamaForCausalLM(cfg, generator=gen, device="cpu")
     assert torch.equal(model.norm.weight, torch.ones(cfg.n_embd))
     assert abs(float(model.lm_head.weight.detach().std()) - 0.02) < 2e-3
-    for kw in ({"window": 16}, {"window_sinks": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP port item M4"):
-            LlamaForCausalLM(LlamaConfig.tiny(**kw), generator=gen,
-                             device="cpu")
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    for kw in ({"window": 16}, {"window": 16, "window_sinks": 4}):
+        jcfg = JaxConfig.tiny(dtype=jnp.float32, **kw)
+        jmodel = JaxModel(jcfg)
+        params = jmodel.init(jax.random.PRNGKey(0),
+                             jnp.asarray(ids, jnp.int32))
+        model = llama_from_jax_params(
+            jax.tree_util.tree_map(np.asarray, params),
+            LlamaConfig.tiny(**kw), device="cpu")
+        want = jmodel.apply(params, jnp.asarray(ids, jnp.int32))
+        got = model(torch.from_numpy(ids)).detach()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=RTOL, err_msg=str(kw))
 
 
 def test_prefill_matches_jax(setup):

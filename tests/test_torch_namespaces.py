@@ -15,8 +15,6 @@ import pytest
 SPACES = ("", ".models", ".ops", ".kernels", ".serving", ".utils")
 NOT_PORTED = {
     ("", "BlockSizes"): "not ported by design (TPU tile heuristics)",
-    ("", "alibi_slopes"): "M4",
-    (".ops", "alibi_slopes"): "M4",
     (".kernels", "BlockSizes"): "not ported by design (TPU tile heuristics)",
     (".utils", "TrainCheckpointer"): "M7",
     (".serving", "make_sharded_chunk_attention"): "M6",

@@ -232,13 +232,24 @@ def test_interface_matches_jax_in_both_input_forms(form, causal, dropout_p,
 
 
 def test_interface_refuses_unported_arguments():
-    q = torch.zeros(4, 1, 64)
-    cu = torch.tensor([0, 4], dtype=torch.int32)
+    """The cu_seqlens functions take window_size, ALiBi and softcap through
+    the segment form (per-sequence positions) and match JAX's."""
+    from flash_attn_tpu.ops import interface as jif
+    rng = np.random.default_rng(9)
+    lens = [20, 7, 33]
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    q, k, v = (rng.standard_normal((int(cu[-1]), 1, 64)).astype(np.float32)
+               for _ in range(3))
     for name, value in (("window_size", (8, 0)), ("alibi_slopes", [1.0]),
                         ("softcap", 30.0)):
-        with pytest.raises(NotImplementedError, match="M4"):
-            tif.flash_attn_unpadded_func(q, q, q, cu, cu, 4, 4, 0.0,
-                                         **{name: value})
+        want = jif.flash_attn_unpadded_func(
+            *(jnp.asarray(x) for x in (q, k, v, cu, cu)), 33, 33, 0.0,
+            causal=True, **{name: value})
+        got = tif.flash_attn_unpadded_func(
+            *(torch.from_numpy(x) for x in (q, k, v, cu, cu)), 33, 33, 0.0,
+            causal=True, **{name: value})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
     assert tif._get_block_size() == (128, 128)
     assert tif.flash_attn_varlen_func is tif.flash_attn_unpadded_func
 
