@@ -29,6 +29,10 @@ phases attend through the band, and ``stream_free_pages`` (the default)
 returns each sequence's pages that fell below its decode band to the pool
 before every growth pass (``pages_freed``; ``peak_pages`` is the most in
 use). Quantized KV (``kv_quantization``) is ROADMAP port item M5.
+
+Spans (``tracing``): ``serve.step`` around each step, ``serve.chunk``
+around each prefill chunk, ``serve.to_device`` around each host-to-device
+copy and ``serve.readback`` around each read of sampled tokens.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from flash_attn_tpu_torch import tracing
 from flash_attn_tpu_torch.models import gpt2_decode
 from flash_attn_tpu_torch.serving.cache import (
     PageAllocator,
@@ -192,7 +197,8 @@ class ServingEngine:
     # -- internals ----------------------------------------------------------
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        with tracing.span("serve.to_device"):
+            return torch.from_numpy(a).to(self.device)
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         if self.temperature <= 0.0:
@@ -204,7 +210,9 @@ class ServingEngine:
                 scaled = scaled.masked_fill(scaled < kth, float("-inf"))
             tok = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
                                     generator=self._generator)[:, 0]
-        return tok.to(torch.int32).cpu().numpy()
+        tok = tok.to(torch.int32)
+        with tracing.span("serve.readback"):
+            return tok.cpu().numpy()
 
     def _free_slots(self) -> list[int]:
         return [i for i in range(self.max_batch) if self.lengths[i] < 0]
@@ -294,26 +302,27 @@ class ServingEngine:
         tbl_d = self._to_device(tbl)
         first = np.zeros((len(batch),), np.int32)
         for off in range(0, max(lens), C):
-            ids = np.zeros((rows, C), np.int64)
-            pos0 = np.zeros((rows,), np.int32)
-            cl = np.zeros((rows,), np.int32)
-            wtbl = np.zeros((rows, pages_per_chunk), np.int32)
-            for i, (_, _, pages) in enumerate(batch):
-                pos0[i] = min(lens[i], off)
-                cl[i] = max(0, min(lens[i] - off, C))
-                if cl[i] > 0:
-                    ids[i, : cl[i]] = prompts[i][off : off + cl[i]]
-                    span = pages[off // ps : off // ps + pages_per_chunk]
-                    wtbl[i, : len(span)] = span
-            logits, self.caches = self.model_fns.chunk_prefill_step(
-                self.model, self.cfg, self.caches, self._to_device(ids),
-                self._to_device(pos0), self._to_device(cl),
-                self._to_device(wtbl), tbl_d)
-            ending = [i for i in range(len(batch))
-                      if off < lens[i] <= off + C]
-            if ending:
-                sampled = self._sample(logits)
-                first[ending] = sampled[ending]
+            with tracing.span("serve.chunk"):
+                ids = np.zeros((rows, C), np.int64)
+                pos0 = np.zeros((rows,), np.int32)
+                cl = np.zeros((rows,), np.int32)
+                wtbl = np.zeros((rows, pages_per_chunk), np.int32)
+                for i, (_, _, pages) in enumerate(batch):
+                    pos0[i] = min(lens[i], off)
+                    cl[i] = max(0, min(lens[i] - off, C))
+                    if cl[i] > 0:
+                        ids[i, : cl[i]] = prompts[i][off : off + cl[i]]
+                        span = pages[off // ps : off // ps + pages_per_chunk]
+                        wtbl[i, : len(span)] = span
+                logits, self.caches = self.model_fns.chunk_prefill_step(
+                    self.model, self.cfg, self.caches, self._to_device(ids),
+                    self._to_device(pos0), self._to_device(cl),
+                    self._to_device(wtbl), tbl_d)
+                ending = [i for i in range(len(batch))
+                          if off < lens[i] <= off + C]
+                if ending:
+                    sampled = self._sample(logits)
+                    first[ending] = sampled[ending]
         return first
 
     def _preempt_youngest(self, exclude_slot: int) -> bool:
@@ -352,6 +361,10 @@ class ServingEngine:
 
     def step(self) -> None:
         """Admit what fits, then advance every active slot by one token."""
+        with tracing.span("serve.step"):
+            self._step()
+
+    def _step(self) -> None:
         self._admit()
         if not self.slot_req:
             return
