@@ -1115,13 +1115,14 @@ def serve_teacher_forced(model, cfg, fns, ids, prompt_len, chunk, n_decode,
             model, cfg, caches, chunk_ids, int32([off]), int32([c]),
             table[:, off // ps:(off + chunk) // ps], table)
         positions.append(off + c - 1)
-        steps.append(logits[0])
+        # llama_decode's logits on the card live in its graph's buffer.
+        steps.append(logits[0].clone())
     for t in range(n_decode):
         logits, caches = fns.decode_step(model, cfg, caches, table,
                                          int32([prompt_len + t]),
                                          ids[:, prompt_len + t])
         positions.append(prompt_len + t)
-        steps.append(logits[0])
+        steps.append(logits[0].clone())
     return positions, torch.stack(steps)
 
 
@@ -3166,6 +3167,11 @@ def phase_mistral_serving(rng, prompts=(1000, 7000), tf_prompt=5000):
           "and off")
 
     engine = ServingEngine(model, cfg, **kw)
+    # Capture this engine's graphs (an 8-row chunk, a decode step) before
+    # the trace: a capture inside it queues launches that never run.
+    for p in prompts:
+        engine.submit(p[:512], max_new_tokens=2)
+    engine.run()
     for p in prompts:
         engine.submit(p, max_new_tokens=8)
     wall, names, events = trace_call(engine._admit)

@@ -14,15 +14,51 @@ alike; ``cfg.window_sinks`` adds StreamingLLM sinks in decode only
 (llama_decode.py:185-186 there), so prefill and training keep the pure
 band.
 
+CUDA graphs. ``chunk_prefill_step`` and ``decode_step`` replay a CUDA
+graph of their whole call when every tensor argument and cache is on one
+CUDA device; CPU inputs run the eager body as they always have. Issued
+eagerly, a Mistral-7B decode step or a 1-2-row chunk is ~50 launches a
+layer, and the host's ~58 ms of issue outlasts the device's 20-35 ms of
+work; a replay issues the whole call at once. The graphs of a model live
+in ``_GRAPHS`` (weakly keyed by the model) under a signature: the phase,
+the device, ``cfg``, the shape and dtype of every tensor argument, and
+each layer's ``k_pages`` / ``v_pages`` storage (address, shape, dtype).
+New caches (a new engine) capture anew, and the graphs of the old ones
+are dropped, so no graph replays into freed pages. The weights are read
+where they lay at the capture: update them in place (``copy_``), never by
+assigning new parameters to a model that has served.
+
+The first call of a signature copies its arguments into the graph's own
+static buffers, runs the eager body once on a side stream (the call's
+result, and its cache writes), then captures the body into the graph
+(all of a model's graphs share one memory pool); a later call copies its
+arguments into those buffers on the card and replays. Capture executes
+nothing, so the caches end as eager calls leave them. **The logits a
+graphed call returns are the graph's static output: they hold until the
+next call of that phase with the same signature**; clone them to keep
+them longer (the engine samples them before its next call). The pages
+are written in place, and ``caches`` comes back as given. Every kernel
+on the path sizes its launch from shapes (the lengths stay on the card)
+and launches on the current stream without synchronizing, so a replay
+runs the same kernels on the same operands as the eager body: the
+logits and the pages match it bit for bit (card tests). The launch
+counters (``paged_decode_with_append.launches``,
+``paged_chunk_attention.launches`` / ``.append_launches``,
+``_write_prompts.launches``) grow on a replay by what the eager body
+adds, and the capture adds nothing to them.
+
 Spans (``tracing``): ``llama.chunk_prefill_step`` and ``llama.decode_step``
-around each call, ending when its last launch is queued. None per layer:
-under a running profiler, the only time a span costs anything, three
-spans a layer added ~3.5 ms to a Mistral-7B decode step of ~73 ms and
-~10 ms to a chunk's issue (H100 host).
+around each call, ending when its last launch is queued; inside them
+``llama.graph_capture`` around a first call's warm-up and capture, and
+``llama.graph_replay`` around a replay (its input copies included). None
+per layer: under a running profiler, the only time a span costs
+anything, three spans a layer added ~3.5 ms to a Mistral-7B decode step
+of ~73 ms and ~10 ms to a chunk's issue (H100 host).
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Sequence
 
 import torch
@@ -75,23 +111,32 @@ def chunk_prefill_step(model: LlamaForCausalLM, cfg: LlamaConfig,
                        chunk_lens, write_tbl, page_table):
     """One chunk of chunked prefill (contract: ``gpt2_decode
     .chunk_prefill_step``). Rotary uses the global positions pos0 + t, so
-    chunked and single-shot prefill compute the same keys."""
+    chunked and single-shot prefill compute the same keys. On the card
+    the call replays a CUDA graph, and the logits hold until the next
+    chunk of the same shapes (module docstring)."""
     with tracing.span("llama.chunk_prefill_step"):
-        b, C = input_ids.shape
-        positions = pos0.long().clamp(min=0)[:, None] + torch.arange(
-            C, device=pos0.device)
-        x = model.embed(input_ids)
-        total = (pos0.clamp(min=0) + chunk_lens).to(torch.int32)
-        for block, cache in zip(model.layers, caches):
-            q, k, v = block.qkv(x, positions)
-            _write_prompts(cache, k, v, write_tbl)  # one K7c launch
-            ctx = paged_chunk_attention(q, cache.k_pages,
-                                        cache.v_pages, total, page_table,
-                                        chunk_lens=chunk_lens,
-                                        window_left=cfg.window)
-            x = block.finish(x, ctx.flatten(2))
-        idx = (chunk_lens.long() - 1).clamp(0, C - 1)
-        return model.logits(_last(x, idx)), caches
+        logits = _call("chunk_prefill_step", _chunk_body, model, cfg, caches,
+                       (input_ids, pos0, chunk_lens, write_tbl, page_table))
+        return logits, caches
+
+
+def _chunk_body(model, cfg, caches, input_ids, pos0, chunk_lens, write_tbl,
+                page_table):
+    """``chunk_prefill_step`` issued launch by launch: the logits."""
+    b, C = input_ids.shape
+    positions = pos0.long().clamp(min=0)[:, None] + torch.arange(
+        C, device=pos0.device)
+    x = model.embed(input_ids)
+    total = (pos0.clamp(min=0) + chunk_lens).to(torch.int32)
+    for block, cache in zip(model.layers, caches):
+        q, k, v = block.qkv(x, positions)
+        _write_prompts(cache, k, v, write_tbl)  # one K7c launch
+        ctx = paged_chunk_attention(q, cache.k_pages, cache.v_pages, total,
+                                    page_table, chunk_lens=chunk_lens,
+                                    window_left=cfg.window)
+        x = block.finish(x, ctx.flatten(2))
+    idx = (chunk_lens.long() - 1).clamp(0, C - 1)
+    return model.logits(_last(x, idx))
 
 
 @torch.no_grad()
@@ -99,18 +144,132 @@ def decode_step(model: LlamaForCausalLM, cfg: LlamaConfig,
                 caches: Sequence[PagedKVCache], page_table, lengths,
                 token_ids):
     """One decode step for every slot (contract: ``gpt2_decode
-    .decode_step``). Returns (logits (b, vocab) fp32, caches)."""
+    .decode_step``). Returns (logits (b, vocab) fp32, caches). On the card
+    the call replays a CUDA graph, and the logits hold until the next
+    decode step of the same shapes (module docstring)."""
     with tracing.span("llama.decode_step"):
-        positions = lengths.long().clamp(min=0)[:, None]  # (b, 1)
-        x = model.embed(token_ids[:, None])  # (b, 1, e)
-        for block, cache in zip(model.layers, caches):
-            q, k, v = block.qkv(x, positions)  # (b, 1, h, hd)
-            # One launch appends k, v (raw lengths: inactive slots go to
-            # the scratch page) and attends over the cache with them.
-            ctx = paged_decode_with_append(q[:, 0], k[:, 0], v[:, 0],
-                                           cache.k_pages, cache.v_pages,
-                                           lengths, page_table,
-                                           window_left=cfg.window,
-                                           num_sinks=cfg.window_sinks)
-            x = block.finish(x, ctx.flatten(1)[:, None])
-        return model.logits(x[:, 0]), caches
+        logits = _call("decode_step", _decode_body, model, cfg, caches,
+                       (page_table, lengths, token_ids))
+        return logits, caches
+
+
+def _decode_body(model, cfg, caches, page_table, lengths, token_ids):
+    """``decode_step`` issued launch by launch: the logits."""
+    positions = lengths.long().clamp(min=0)[:, None]  # (b, 1)
+    x = model.embed(token_ids[:, None])  # (b, 1, e)
+    for block, cache in zip(model.layers, caches):
+        q, k, v = block.qkv(x, positions)  # (b, 1, h, hd)
+        # One launch appends k, v (raw lengths: inactive slots go to the
+        # scratch page) and attends over the cache with them.
+        ctx = paged_decode_with_append(q[:, 0], k[:, 0], v[:, 0],
+                                       cache.k_pages, cache.v_pages,
+                                       lengths, page_table,
+                                       window_left=cfg.window,
+                                       num_sinks=cfg.window_sinks)
+        x = block.finish(x, ctx.flatten(1)[:, None])
+    return model.logits(x[:, 0])
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+# The launch counters of the kernels the phases run (chip_smoke.py's
+# launch tables read them).
+_COUNTERS = ((paged_decode_with_append, "launches"),
+             (paged_chunk_attention, "launches"),
+             (paged_chunk_attention, "append_launches"),
+             (_write_prompts, "launches"))
+
+
+def _counts() -> list[int]:
+    return [getattr(f, name) for f, name in _COUNTERS]
+
+
+class _Graph:
+    """One captured call: its static inputs and output, and how much each
+    launch counter grows per call."""
+
+    __slots__ = ("graph", "inputs", "out", "grown")
+
+    def __init__(self, graph, inputs, out, grown):
+        self.graph, self.inputs, self.out, self.grown = \
+            graph, inputs, out, grown
+
+    def replay(self, args):
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+        for (f, name), n in zip(_COUNTERS, self.grown):
+            setattr(f, name, getattr(f, name) + n)
+        return self.out
+
+
+class _Graphs:
+    """A model's graphs over one set of caches: one memory pool, one side
+    stream for the warm-ups, the graphs by signature."""
+
+    def __init__(self, storage, device):
+        self.storage = storage
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.by_sig: dict = {}
+
+    def capture(self, body, model, cfg, caches, args):
+        """The eager warm-up on the side stream, then the capture, both
+        reading the static inputs. Returns (the graph, the warm-up's
+        logits)."""
+        inputs = [torch.empty(a.shape, dtype=a.dtype, device=a.device)
+                  for a in args]
+        for static, a in zip(inputs, args):
+            static.copy_(a)
+        current = torch.cuda.current_stream(args[0].device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            logits = body(model, cfg, caches, *inputs)
+        current.wait_stream(self.stream)
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            out = body(model, cfg, caches, *inputs)
+        grown = [a - b for a, b in zip(_counts(), before)]
+        for (f, name), n in zip(_COUNTERS, before):
+            setattr(f, name, n)  # the capture launched nothing
+        return _Graph(graph, inputs, out, grown), logits
+
+
+# model -> _Graphs; an entry dies with its model.
+_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _signature(phase, cfg, caches, args):
+    """(storage, sig): the caches' storage (each layer's page addresses,
+    shape and dtype), which a model's graphs share, and the call's key
+    among them (the phase, the device, ``cfg``, each argument's shape and
+    dtype)."""
+    storage = tuple((c.k_pages.data_ptr(), c.v_pages.data_ptr(),
+                     c.k_pages.shape, c.k_pages.dtype) for c in caches)
+    sig = (phase, args[0].device, cfg,
+           tuple((a.shape, a.dtype) for a in args))
+    return storage, sig
+
+
+def _call(phase, body, model, cfg, caches, args):
+    """``body(model, cfg, caches, *args)``'s logits: eager unless every
+    tensor is on one CUDA device, else from the signature's graph,
+    captured on its first call."""
+    dev = args[0].device
+    if dev.type != "cuda" or any(a.device != dev for a in args) or any(
+            c.k_pages.device != dev or c.v_pages.device != dev
+            for c in caches):
+        return body(model, cfg, caches, *args)
+    storage, sig = _signature(phase, cfg, caches, args)
+    graphs = _GRAPHS.get(model)
+    if graphs is None or graphs.storage != storage:
+        graphs = _GRAPHS[model] = _Graphs(storage, dev)
+    graph = graphs.by_sig.get(sig)
+    if graph is None:
+        with tracing.span("llama.graph_capture"):
+            graph, logits = graphs.capture(body, model, cfg, caches, args)
+        graphs.by_sig[sig] = graph
+        return logits
+    with tracing.span("llama.graph_replay"):
+        return graph.replay(args)

@@ -21,6 +21,8 @@ same-dtype ``attention_ref(upcast=False)`` in autograd is the baseline),
 plus 1e-4: the fp32 gradients sum hundreds of terms in another order than
 the oracle. Blocksparse dropout masks are held bit for bit to
 ``dropout_mask_dense``, and every kernel to itself over 10 seeded reruns.
+The Llama serving phases replayed as CUDA graphs are held bit for bit to
+their eager bodies (logits and pages) at Mistral-7B's widths.
 """
 
 import copy
@@ -1923,3 +1925,174 @@ def test_band_appends_are_the_two_launch_route(cuda, dtype, d):
     assert torch.equal(out, want)
     assert torch.equal(fused.k_pages, pair.k_pages)
     assert torch.equal(fused.v_pages, pair.v_pages)
+
+
+# ------------------------------- CUDA graphs of the Llama serving phases
+
+# Mistral-7B's widths (GQA 32/8, head_dim 128, MLP 14336) cut to 2 layers
+# and a 256-token window (so that chunks and decode walk a band), bf16.
+GRAPH_CFG = dict(vocab_size=32000, n_layer=2, n_head=32, n_kv_head=8,
+                 n_embd=4096, intermediate_size=14336,
+                 max_position_embeddings=32768, window=256,
+                 dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+GRAPH_PS, GRAPH_PMAX = 128, 12  # 1536 tokens a sequence
+_graph_models = {}
+
+
+def _graph_model(cuda):
+    if "model" not in _graph_models:
+        cfg = LlamaConfig(**GRAPH_CFG)
+        _graph_models["model"] = cfg, LlamaForCausalLM(
+            cfg, device=cuda,
+            generator=torch.Generator(device=cuda).manual_seed(0))
+    return _graph_models["model"]
+
+
+def _graph_caches(cfg, rows, seed, cuda):
+    """Random pages for ``rows`` sequences of GRAPH_PMAX pages each (page
+    0 the scratch page)."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.n_kv_head, 1 + rows * GRAPH_PMAX, GRAPH_PS, cfg.head_dim)
+    return [torch_cache.PagedKVCache(_randn(rng, shape, cfg.dtype, cuda),
+                                     _randn(rng, shape, cfg.dtype, cuda))
+            for _ in range(cfg.n_layer)]
+
+
+def _graph_args(phase, rows, seed, cfg, cuda):
+    """A call's tensor arguments: each row's own pages in a shuffled
+    table; a chunk of width 512 at pos0 0, 512 or 1024 (the last row
+    padding when rows > 1: no tokens, its writes to page 0), or a decode
+    step whose last slot is inactive (length -1)."""
+    rng = np.random.default_rng(seed)
+    table = (1 + rng.permutation(rows * GRAPH_PMAX)).reshape(
+        rows, GRAPH_PMAX).astype(np.int32)
+    if phase == "decode_step":
+        lens = rng.integers(1, GRAPH_PMAX * GRAPH_PS - 1, rows)
+        if rows > 1:
+            lens[-1] = -1
+        ids = rng.integers(0, cfg.vocab_size, rows)
+        return (torch.from_numpy(table).to(cuda), _int32(lens.tolist(), cuda),
+                torch.from_numpy(ids).to(cuda))
+    C, per = 512, 512 // GRAPH_PS
+    pos0 = rng.choice([0, 512, 1024], rows)
+    cl = rng.integers(1, C + 1, rows)
+    ids = rng.integers(0, cfg.vocab_size, (rows, C))
+    wtbl = np.zeros((rows, per), np.int32)
+    for i in range(rows):
+        wtbl[i] = table[i, pos0[i] // GRAPH_PS:pos0[i] // GRAPH_PS + per]
+    if rows > 1:
+        cl[-1], ids[-1], wtbl[-1] = 0, 0, 0
+    ids[np.arange(C)[None] >= cl[:, None]] = 0
+    return (torch.from_numpy(ids).to(cuda), _int32(pos0.tolist(), cuda),
+            _int32(cl.tolist(), cuda), torch.from_numpy(wtbl).to(cuda),
+            torch.from_numpy(table).to(cuda))
+
+
+def _eager(phase):
+    return {"decode_step": llama_decode._decode_body,
+            "chunk_prefill_step": llama_decode._chunk_body}[phase]
+
+
+@pytest.mark.parametrize("phase, rows", [
+    ("chunk_prefill_step", 1), ("chunk_prefill_step", 2),
+    ("chunk_prefill_step", 4), ("decode_step", 8)])
+def test_llama_graphs_match_the_eager_body(cuda, phase, rows):
+    """Mistral-shaped phases on the card: the graphed call (a capture,
+    then a replay, with other inputs) gives the eager body's logits and
+    leaves every layer's pages as it leaves them, bit for bit outside the
+    scratch page 0, and the launch counters grow by the eager body's
+    amounts on each call."""
+    cfg, model = _graph_model(cuda)
+    graphed = _graph_caches(cfg, rows, 1, cuda)
+    eager = [torch_cache.PagedKVCache(c.k_pages.clone(), c.v_pages.clone())
+             for c in graphed]
+    for seed in (2, 3):
+        args = _graph_args(phase, rows, seed, cfg, cuda)
+        c0 = llama_decode._counts()
+        logits, caches = getattr(llama_decode, phase)(model, cfg, graphed,
+                                                      *args)
+        c1 = llama_decode._counts()
+        want = _eager(phase)(model, cfg, eager, *args)
+        c2 = llama_decode._counts()
+        torch.cuda.synchronize()
+        assert caches is graphed
+        assert torch.equal(logits, want), seed
+        for g, e in zip(graphed, eager):
+            assert torch.equal(g.k_pages[:, 1:], e.k_pages[:, 1:]), seed
+            assert torch.equal(g.v_pages[:, 1:], e.v_pages[:, 1:]), seed
+        grew = [b - a for a, b in zip(c0, c1)]
+        assert grew == [b - a for a, b in zip(c1, c2)], seed
+        assert sum(grew) > 0
+    graphs = llama_decode._GRAPHS[model]
+    assert sum(1 for sig in graphs.by_sig if sig[0] == phase) == 1
+
+
+def test_llama_graphs_capture_anew_for_new_caches(cuda, monkeypatch):
+    """New caches (a new engine) make a new capture, and its replay writes
+    the new pages, not the old ones."""
+    cfg, model = _graph_model(cuda)
+    captures = []
+    capture = llama_decode._Graphs.capture
+
+    def counted(self, *a, **k):
+        captures.append(self)
+        return capture(self, *a, **k)
+
+    monkeypatch.setattr(llama_decode._Graphs, "capture", counted)
+    # Caches freed by an earlier test may come back at the same addresses,
+    # where their graphs rightly replay: start from none.
+    llama_decode._GRAPHS.pop(model, None)
+    rows = 8
+    first = _graph_caches(cfg, rows, 4, cuda)
+    for seed in (5, 6):
+        llama_decode.decode_step(model, cfg, first,
+                                 *_graph_args("decode_step", rows, seed, cfg,
+                                              cuda))
+    assert len(captures) == 1
+    old = [c.k_pages.clone() for c in first]
+    second = _graph_caches(cfg, rows, 7, cuda)
+    eager = [torch_cache.PagedKVCache(c.k_pages.clone(), c.v_pages.clone())
+             for c in second]
+    for seed in (8, 9):
+        args = _graph_args("decode_step", rows, seed, cfg, cuda)
+        logits, _ = llama_decode.decode_step(model, cfg, second, *args)
+        want = llama_decode._decode_body(model, cfg, eager, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want)
+    assert len(captures) == 2 and captures[0] is not captures[1]
+    for c, e in zip(second, eager):
+        assert torch.equal(c.k_pages[:, 1:], e.k_pages[:, 1:])
+    for c, o in zip(first, old):
+        assert torch.equal(c.k_pages, o)
+
+
+def test_llama_engine_graphed_gives_the_eager_tokens(cuda):
+    """``ServingEngine(model_fns=llama_decode, prefill_chunk=512)`` at
+    Mistral's widths (2 layers) serves the greedy tokens the eager bodies
+    serve."""
+    import types
+    cfg, model = _graph_model(cuda)
+
+    def chunk(model, cfg, caches, *args):
+        return llama_decode._chunk_body(model, cfg, caches, *args), caches
+
+    def decode(model, cfg, caches, *args):
+        return llama_decode._decode_body(model, cfg, caches, *args), caches
+
+    eager = types.SimpleNamespace(prefill=llama_decode.prefill,
+                                  chunk_prefill_step=chunk,
+                                  decode_step=decode)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (300, 1100, 90, 700, 520)]
+    outs = []
+    for fns in (llama_decode, eager):
+        eng = ServingEngine(model, cfg, model_fns=fns, max_batch=4,
+                            page_size=GRAPH_PS, pages_per_seq=GRAPH_PMAX,
+                            num_pages=1 + 4 * GRAPH_PMAX, prefill_chunk=512)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=12)
+        outs.append({r.seq_id: r.generated for r in eng.run(max_steps=200)})
+        del eng
+    assert len(outs[0]) == len(prompts)
+    assert outs[0] == outs[1]
