@@ -17,8 +17,11 @@ from flash_attn_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
     convert_hf_llama_state_dict,
+    convert_hf_qwen3_moe_state_dict,
     llama_config_from_hf,
     load_hf_llama,
+    load_hf_qwen3_moe,
+    qwen3_moe_config_from_hf,
 )
 from flash_attn_tpu_torch.models.modules import FlashAttention, FlashMHA
 from flash_attn_tpu_torch.models.vit import ViTClassifier, ViTConfig
@@ -37,8 +40,11 @@ __all__ = [
     "ViTConfig",
     "convert_hf_gpt2_state_dict",
     "convert_hf_llama_state_dict",
+    "convert_hf_qwen3_moe_state_dict",
     "gpt2_config_from_hf",
     "llama_config_from_hf",
     "load_hf_gpt2",
     "load_hf_llama",
+    "load_hf_qwen3_moe",
+    "qwen3_moe_config_from_hf",
 ]

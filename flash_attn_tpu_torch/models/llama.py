@@ -19,10 +19,18 @@ window: every attention runs with ``window_size=(window, 0)`` (the
 kernels walk the band only); ``window_sinks`` keeps StreamingLLM sink
 tokens visible in paged decode only (``llama_decode``).
 
+Qwen3-MoE (no counterpart in the JAX package): ``head_dim`` may differ
+from ``n_embd // n_head``; ``qk_norm`` adds a per-head RMSNorm of q and k
+before rotary (``attn.q_norm``, ``attn.k_norm``); ``num_experts`` makes
+every block's MLP routed SwiGLU experts (``models/moe.py``:
+``mlp.router``, ``mlp.gate_up_proj``, ``mlp.down_proj``).
+
 HF interop: ``load_hf_llama`` / ``convert_hf_llama_state_dict`` map a
 ``transformers`` ``LlamaForCausalLM`` (or Mistral) state dict onto this
-module's parameters. ``transformers`` is imported only to load a
-checkpoint by name or path.
+module's parameters, ``load_hf_qwen3_moe`` /
+``convert_hf_qwen3_moe_state_dict`` a ``Qwen3MoeForCausalLM``'s (every
+layer sparse). ``transformers`` is imported only to load a checkpoint by
+name or path.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from flash_attn_tpu_torch.models.gpt2 import (
     tied_logits,
 )
 from flash_attn_tpu_torch.models.modules import linear
+from flash_attn_tpu_torch.models.moe import MoeMlp
 from flash_attn_tpu_torch.ops.attention import flash_attention
 
 
@@ -59,10 +68,16 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16  # compute: activations and the KV cache
     param_dtype: Any = torch.float32  # stored weights
     remat: bool = False  # per-block recompute in the backward
+    head_dim: Any = None  # None: n_embd // n_head (Qwen3: 128 at 2048 / 32)
+    qk_norm: bool = False  # per-head RMSNorm of q and k before rotary
+    num_experts: int = 0  # > 0: every block's MLP is routed experts
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = False
 
-    @property
-    def head_dim(self) -> int:
-        return self.n_embd // self.n_head
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.n_embd // self.n_head)
 
     @property
     def n_kv_heads(self) -> int:  # the engine's name (GPT2Config parity)
@@ -134,6 +149,9 @@ class LlamaAttention(nn.Module):
                                 **factory)
         self.o_proj = nn.Linear(cfg.n_head * hd, cfg.n_embd, bias=False,
                                 **factory)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, cfg.dtype, **factory)
+            self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, cfg.dtype, **factory)
 
     def qkv(self, x, positions):
         """x (b, s, n_embd), positions (b, s) -> rotary-applied q (b, s,
@@ -146,6 +164,8 @@ class LlamaAttention(nn.Module):
                                                       hd)
         v = linear(x, self.v_proj, cfg.dtype).reshape(b, s, cfg.n_kv_head,
                                                       hd)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         cos, sin = llama_rope_tables(positions, hd, cfg.rope_theta)
         return apply_llama_rope(q, cos, sin), apply_llama_rope(k, cos, sin), v
 
@@ -167,7 +187,8 @@ class LlamaMlp(nn.Module):
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.n_embd,
                                    bias=False, **factory)
 
-    def forward(self, x):
+    def forward(self, x, live=None):
+        """``live``: routed experts' argument, unused by a dense MLP."""
         dt = self.config.dtype
         # SwiGLU: silu(gate) * up -> down
         h = torch.nn.functional.silu(linear(x, self.gate_proj, dt)) \
@@ -184,7 +205,8 @@ class LlamaBlock(nn.Module):
         self.attn = LlamaAttention(cfg, **factory)
         self.post_attention_layernorm = RMSNorm(
             cfg.n_embd, cfg.rms_norm_eps, cfg.dtype, **factory)
-        self.mlp = LlamaMlp(cfg, **factory)
+        self.mlp = (MoeMlp(cfg, **factory) if cfg.num_experts
+                    else LlamaMlp(cfg, **factory))
 
     def forward(self, x, positions):
         x = x + self.attn(self.input_layernorm(x), positions)
@@ -194,20 +216,25 @@ class LlamaBlock(nn.Module):
         """Serving: the normed input's rotary-applied q, k and v."""
         return self.attn.qkv(self.input_layernorm(x), positions)
 
-    def finish(self, x, ctx):
+    def finish(self, x, ctx, live=None):
         """Serving: residual stream after attention context ``ctx``
-        (..., n_head * hd): output projection, then the MLP."""
+        (..., n_head * hd): output projection, then the MLP. ``live`` (...)
+        bool marks the real tokens for routed experts (the rest route
+        nowhere and add zeros); a dense MLP ignores it."""
         x = x + linear(ctx, self.attn.o_proj, self.config.dtype)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x), live)
 
 
 class LlamaForCausalLM(nn.Module):
     """Llama with an untied LM head. Weights are drawn from ``generator``:
-    normal(0.02) for ``wte``, ``lm_head`` and the projections, ones for the
-    norms; stored in ``cfg.param_dtype`` on ``device``."""
+    normal(0.02) for ``wte``, ``lm_head``, the projections and the experts,
+    ones for the norms; stored in ``cfg.param_dtype`` on ``device``. With
+    ``generator=None`` nothing is drawn (the weights are left as made, and
+    on ``device="meta"`` nothing is allocated): the caller assigns every
+    parameter."""
 
-    def __init__(self, cfg: LlamaConfig, *, generator: torch.Generator,
-                 device="cuda"):
+    def __init__(self, cfg: LlamaConfig, *,
+                 generator: torch.Generator | None, device="cuda"):
         super().__init__()
         self.config = cfg
         factory = dict(device=device, dtype=cfg.param_dtype)
@@ -218,12 +245,13 @@ class LlamaForCausalLM(nn.Module):
                             **factory)
         self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False,
                                  **factory)
-        self._init_weights(generator)
+        if generator is not None:
+            self._init_weights(generator)
 
     @torch.no_grad()
     def _init_weights(self, generator):
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "norm.weight":
+            if name.endswith("norm.weight"):
                 continue  # ones, as made
             p.copy_(torch.randn(p.shape, generator=generator,
                                 device=generator.device) * 0.02)
@@ -351,4 +379,77 @@ def load_hf_llama(name_or_model, dtype=torch.float32, device="cuda"
                              generator=torch.Generator().manual_seed(0))
     model.load_state_dict(convert_hf_llama_state_dict(hf.state_dict(), cfg,
                                                       dtype))
+    return cfg, model
+
+
+def qwen3_moe_config_from_hf(hf_cfg, **overrides) -> LlamaConfig:
+    """A ``LlamaConfig`` from a ``transformers`` ``Qwen3MoeConfig`` whose
+    layers are all sparse (``decoder_sparse_step`` 1, no
+    ``mlp_only_layers``); ``intermediate_size`` (the dense MLP's) is kept
+    but unused."""
+    if hf_cfg.decoder_sparse_step != 1 or hf_cfg.mlp_only_layers:
+        raise NotImplementedError("dense layers among sparse ones")
+    if getattr(hf_cfg, "use_sliding_window", False) or hf_cfg.attention_bias:
+        raise NotImplementedError("sliding window or attention bias")
+    kw = dict(
+        head_dim=hf_cfg.head_dim, qk_norm=True,
+        num_experts=hf_cfg.num_experts,
+        num_experts_per_tok=hf_cfg.num_experts_per_tok,
+        moe_intermediate_size=hf_cfg.moe_intermediate_size,
+        norm_topk_prob=hf_cfg.norm_topk_prob, window=None)
+    kw.update(overrides)
+    return llama_config_from_hf(hf_cfg, **kw)
+
+
+def convert_hf_qwen3_moe_state_dict(sd, cfg: LlamaConfig,
+                                    dtype=torch.float32
+                                    ) -> dict[str, torch.Tensor]:
+    """A ``transformers`` ``Qwen3MoeForCausalLM`` state dict -> the state
+    dict of the port's ``LlamaForCausalLM(cfg)``, in ``dtype`` on the CPU:
+    the attention as in ``convert_hf_llama_state_dict`` plus
+    ``self_attn.{q,k}_norm``; ``mlp.gate`` becomes ``mlp.router``, and each
+    layer's ``mlp.experts.{e}.{gate,up,down}_proj`` are stacked into
+    ``mlp.gate_up_proj`` (E, 2 I, n_embd: gate rows, then up rows) and
+    ``mlp.down_proj`` (E, n_embd, I)."""
+
+    def a(name):
+        return torch.as_tensor(sd[name]).detach().to("cpu", dtype)
+
+    out = {"wte.weight": a("model.embed_tokens.weight"),
+           "norm.weight": a("model.norm.weight"),
+           "lm_head.weight": a("lm_head.weight" if "lm_head.weight" in sd
+                               else "model.embed_tokens.weight")}
+    names = {"input_layernorm": "input_layernorm",
+             "post_attention_layernorm": "post_attention_layernorm",
+             "mlp.gate": "mlp.router",
+             **{f"self_attn.{n}": f"attn.{n}"
+                for n in ("q_proj", "k_proj", "v_proj", "o_proj", "q_norm",
+                          "k_norm")}}
+    for i in range(cfg.n_layer):
+        p = f"model.layers.{i}."
+        for hf, port in names.items():
+            out[f"layers.{i}.{port}.weight"] = a(f"{p}{hf}.weight")
+        ex = [f"{p}mlp.experts.{e}." for e in range(cfg.num_experts)]
+        out[f"layers.{i}.mlp.gate_up_proj"] = torch.stack([torch.cat(
+            [a(x + "gate_proj.weight"), a(x + "up_proj.weight")]) for x in ex])
+        out[f"layers.{i}.mlp.down_proj"] = torch.stack(
+            [a(x + "down_proj.weight") for x in ex])
+    return out
+
+
+def load_hf_qwen3_moe(name_or_model, dtype=torch.float32, device="cuda"
+                      ) -> tuple[LlamaConfig, LlamaForCausalLM]:
+    """``load_hf_llama`` for a ``Qwen3MoeForCausalLM`` (a model, or a
+    checkpoint name or directory): ``(cfg, model)`` on ``device`` with
+    its weights stored in ``dtype``."""
+    if isinstance(name_or_model, str):
+        from transformers import AutoModelForCausalLM
+
+        hf = AutoModelForCausalLM.from_pretrained(name_or_model)
+    else:
+        hf = name_or_model
+    cfg = qwen3_moe_config_from_hf(hf.config, param_dtype=dtype)
+    model = LlamaForCausalLM(cfg, device=device, generator=None)
+    model.load_state_dict(convert_hf_qwen3_moe_state_dict(hf.state_dict(),
+                                                          cfg, dtype))
     return cfg, model

@@ -3,7 +3,11 @@
 
 The three phases the serving engine drives, with the contracts of
 ``gpt2_decode``: ``prefill`` (K1), ``chunk_prefill_step`` (K7c + K6) and
-``decode_step`` (K5 with K7a's append, one launch). Rotary is applied at
+``decode_step`` (K5 with K7a's append, one launch). With
+``cfg.num_experts`` each block's MLP is routed experts (``models/moe.py``),
+told which tokens are live: a chunk's tokens within ``chunk_lens``, a
+decode slot's with ``lengths`` >= 0, a prefill row's within ``lengths``;
+the rest route to no expert. Rotary is applied at
 each token's global position BEFORE the cache write, so the cache holds
 post-rotary keys and decode never rotates history; GQA rides the kernels'
 group axis. As in the port's GPT-2 serving, the projections compute in
@@ -21,12 +25,16 @@ eagerly, a Mistral-7B decode step or a 1-2-row chunk is ~50 launches a
 layer, and the host's ~58 ms of issue outlasts the device's 20-35 ms of
 work; a replay issues the whole call at once. The graphs of a model live
 in ``_GRAPHS`` (weakly keyed by the model) under a signature: the phase,
-the device, ``cfg``, the shape and dtype of every tensor argument, and
-each layer's ``k_pages`` / ``v_pages`` storage (address, shape, dtype).
-New caches (a new engine) capture anew, and the graphs of the old ones
-are dropped, so no graph replays into freed pages. The weights are read
-where they lay at the capture: update them in place (``copy_``), never by
-assigning new parameters to a model that has served.
+the device, ``cfg``, the shape and dtype of every tensor argument, each
+layer's ``k_pages`` / ``v_pages`` storage (address, shape, dtype) and the
+address of every parameter. New caches (a new engine) or weights that
+moved (a new parameter, or new data under one) capture anew, and the old
+graphs are dropped, so no graph replays into freed pages or stale
+weights. The parameters' places are looked up once per set of graphs and
+their addresses read on every call (on the H100 machine's host 0.065 ms
+for Mistral-7B's 291 parameters, 0.118 ms for Qwen3-30B-A3B's 531); a
+submodule replaced whole is not seen. Weights updated in place
+(``copy_``) are read by the graphs as they are.
 
 The first call of a signature copies its arguments into the graph's own
 static buffers, runs the eager body once on a side stream (the call's
@@ -44,8 +52,9 @@ runs the same kernels on the same operands as the eager body: the
 logits and the pages match it bit for bit (card tests). The launch
 counters (``paged_decode_with_append.launches``,
 ``paged_chunk_attention.launches`` / ``.append_launches``,
-``_write_prompts.launches``) grow on a replay by what the eager body
-adds, and the capture adds nothing to them.
+``_write_prompts.launches``, the experts' ``grouped_mm.launches``) grow
+on a replay by what the eager body adds, and the capture adds nothing to
+them.
 
 Spans (``tracing``): ``llama.chunk_prefill_step`` and ``llama.decode_step``
 around each call, ending when its last launch is queued; inside them
@@ -71,6 +80,7 @@ from flash_attn_tpu_torch.models.llama import (
     LlamaForCausalLM,
     window_size,
 )
+from flash_attn_tpu_torch.models.moe import grouped_mm
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
@@ -92,6 +102,9 @@ def prefill(model: LlamaForCausalLM, cfg: LlamaConfig, input_ids,
     b, s = input_ids.shape
     positions = torch.arange(s, device=input_ids.device).expand(b, s)
     x = model.embed(input_ids)
+    live = None
+    if cfg.num_experts and lengths is not None:
+        live = positions < lengths.to(positions.device)[:, None]
     ks, vs = [], []
     for block in model.layers:
         q, k, v = block.qkv(x, positions)
@@ -99,7 +112,7 @@ def prefill(model: LlamaForCausalLM, cfg: LlamaConfig, input_ids,
         vs.append(v.contiguous())
         ctx = flash_attention(q, k, v, causal=True,
                               window_size=window_size(cfg))
-        x = block.finish(x, ctx.flatten(2))
+        x = block.finish(x, ctx.flatten(2), live)
     idx = (torch.full((b,), s, device=x.device) if lengths is None
            else lengths.long().to(x.device)) - 1
     return model.logits(_last(x, idx.clamp(0, s - 1))), ks, vs
@@ -128,13 +141,15 @@ def _chunk_body(model, cfg, caches, input_ids, pos0, chunk_lens, write_tbl,
         C, device=pos0.device)
     x = model.embed(input_ids)
     total = (pos0.clamp(min=0) + chunk_lens).to(torch.int32)
+    live = (torch.arange(C, device=x.device) < chunk_lens[:, None]
+            if cfg.num_experts else None)
     for block, cache in zip(model.layers, caches):
         q, k, v = block.qkv(x, positions)
         _write_prompts(cache, k, v, write_tbl)  # one K7c launch
         ctx = paged_chunk_attention(q, cache.k_pages, cache.v_pages, total,
                                     page_table, chunk_lens=chunk_lens,
                                     window_left=cfg.window)
-        x = block.finish(x, ctx.flatten(2))
+        x = block.finish(x, ctx.flatten(2), live)
     idx = (chunk_lens.long() - 1).clamp(0, C - 1)
     return model.logits(_last(x, idx))
 
@@ -157,6 +172,7 @@ def _decode_body(model, cfg, caches, page_table, lengths, token_ids):
     """``decode_step`` issued launch by launch: the logits."""
     positions = lengths.long().clamp(min=0)[:, None]  # (b, 1)
     x = model.embed(token_ids[:, None])  # (b, 1, e)
+    live = (lengths >= 0)[:, None] if cfg.num_experts else None
     for block, cache in zip(model.layers, caches):
         q, k, v = block.qkv(x, positions)  # (b, 1, h, hd)
         # One launch appends k, v (raw lengths: inactive slots go to the
@@ -166,7 +182,7 @@ def _decode_body(model, cfg, caches, page_table, lengths, token_ids):
                                        lengths, page_table,
                                        window_left=cfg.window,
                                        num_sinks=cfg.window_sinks)
-        x = block.finish(x, ctx.flatten(1)[:, None])
+        x = block.finish(x, ctx.flatten(1)[:, None], live)
     return model.logits(x[:, 0])
 
 
@@ -177,7 +193,8 @@ def _decode_body(model, cfg, caches, page_table, lengths, token_ids):
 _COUNTERS = ((paged_decode_with_append, "launches"),
              (paged_chunk_attention, "launches"),
              (paged_chunk_attention, "append_launches"),
-             (_write_prompts, "launches"))
+             (_write_prompts, "launches"),
+             (grouped_mm, "launches"))
 
 
 def _counts() -> list[int]:
@@ -203,11 +220,25 @@ class _Graph:
         return self.out
 
 
-class _Graphs:
-    """A model's graphs over one set of caches: one memory pool, one side
-    stream for the warm-ups, the graphs by signature."""
+def _weight_slots(model) -> list:
+    """[(module, name)] of every parameter of ``model``."""
+    return [(m, n) for m in model.modules()
+            for n, p in m._parameters.items() if p is not None]
 
-    def __init__(self, storage, device):
+
+def _weights(slots) -> tuple:
+    """The address of each parameter at ``slots``."""
+    return tuple(m._parameters[n].data_ptr() for m, n in slots)
+
+
+class _Graphs:
+    """A model's graphs over one set of caches and one placement of its
+    weights: one memory pool, one side stream for the warm-ups, the graphs
+    by signature."""
+
+    def __init__(self, model, storage, device):
+        self.slots = _weight_slots(model)
+        self.weights = _weights(self.slots)
         self.storage = storage
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
@@ -263,8 +294,9 @@ def _call(phase, body, model, cfg, caches, args):
         return body(model, cfg, caches, *args)
     storage, sig = _signature(phase, cfg, caches, args)
     graphs = _GRAPHS.get(model)
-    if graphs is None or graphs.storage != storage:
-        graphs = _GRAPHS[model] = _Graphs(storage, dev)
+    if graphs is None or graphs.storage != storage or \
+            graphs.weights != _weights(graphs.slots):
+        graphs = _GRAPHS[model] = _Graphs(model, storage, dev)
     graph = graphs.by_sig.get(sig)
     if graph is None:
         with tracing.span("llama.graph_capture"):

@@ -22,7 +22,9 @@ plus 1e-4: the fp32 gradients sum hundreds of terms in another order than
 the oracle. Blocksparse dropout masks are held bit for bit to
 ``dropout_mask_dense``, and every kernel to itself over 10 seeded reruns.
 The Llama serving phases replayed as CUDA graphs are held bit for bit to
-their eager bodies (logits and pages) at Mistral-7B's widths.
+their eager bodies (logits and pages) at Mistral-7B's widths, and at
+Qwen3-30B-A3B's (routed experts); the experts' grouped GEMMs are held to
+the 2x rule against their per-group twin in fp32.
 """
 
 import copy
@@ -83,6 +85,13 @@ from flash_attn_tpu_torch.ops.blocksparse import blocksparse_attention
 from flash_attn_tpu_torch.models import llama_decode
 from flash_attn_tpu_torch.ops.attention import alibi_slopes
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from flash_attn_tpu_torch.models.moe import (
+    dispatch,
+    grouped_mm,
+    grouped_mm_plain,
+    moe_experts,
+    route,
+)
 from flash_attn_tpu_torch.reference import (
     alibi_bias,
     attention_lse_ref,
@@ -2096,3 +2105,136 @@ def test_llama_engine_graphed_gives_the_eager_tokens(cuda):
         del eng
     assert len(outs[0]) == len(prompts)
     assert outs[0] == outs[1]
+
+
+# ------------------------- routed experts: Qwen3-30B-A3B's widths, 2 layers
+
+QWEN_CFG = dict(vocab_size=151936, n_layer=2, n_head=32, n_kv_head=4,
+                n_embd=2048, intermediate_size=6144, head_dim=128,
+                qk_norm=True, num_experts=128, num_experts_per_tok=8,
+                moe_intermediate_size=768, norm_topk_prob=True,
+                max_position_embeddings=40960, rope_theta=1e6,
+                rms_norm_eps=1e-6, dtype=torch.bfloat16,
+                param_dtype=torch.bfloat16)
+
+
+def _qwen_model(cuda):
+    if "qwen" not in _graph_models:
+        cfg = LlamaConfig(**QWEN_CFG)
+        _graph_models["qwen"] = cfg, LlamaForCausalLM(
+            cfg, device=cuda,
+            generator=torch.Generator(device=cuda).manual_seed(0))
+    return _graph_models["qwen"]
+
+
+def _moe_inputs(tokens, cuda, seed=0):
+    """Tokens (T, 2048) and one layer's router and experts, bf16."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda,  # noqa: E731
+                               dtype=torch.bfloat16)
+    return (r(tokens, 2048), r(128, 2048) * 0.02, r(128, 1536, 2048) * 0.02,
+            r(128, 2048, 768) * 0.02)
+
+
+@pytest.mark.parametrize("tokens", [32, 32 * 512], ids=["decode", "chunk"])
+def test_moe_grouped_gemms_match_the_twin(cuda, tokens):
+    """Both expert products at the decode (32 tokens x 8 slots) and chunk
+    (32 x 512 tokens x 8) shapes, a quarter of the tokens not live: the
+    grouped GEMM against the per-group product in fp32 under the 2x rule
+    (the per-group product in bf16 is the baseline), on the live rows."""
+    h, router, gate_up, down = _moe_inputs(tokens, cuda)
+    live = torch.arange(tokens, device=cuda) % 4 != 3
+    _, idx = route(torch.nn.functional.linear(h, router), 8, True)
+    order, ends = dispatch(idx, live, 128)
+    n = int(ends[-1])
+    assert n == int(live.sum()) * 8
+    xs = h[order // 8]
+    for x, w in ((xs, gate_up),
+                 (torch.randn(xs.shape[0], 768, device=cuda,
+                              dtype=torch.bfloat16), down)):
+        got = grouped_mm(x, w, ends)[:n].float()
+        want = grouped_mm_plain(x.float(), w.float(), ends)[:n]
+        base = grouped_mm_plain(x, w, ends)[:n].float()
+        err = (got - want).abs().max().item()
+        assert err <= 2 * (base - want).abs().max().item() + 1e-5
+
+
+def test_moe_eager_call_reads_nothing_back(cuda):
+    """An eager routed-experts call at the chunk shape under
+    ``set_sync_debug_mode("error")``: no operation waits for the card."""
+    h, router, gate_up, down = _moe_inputs(4 * 512, cuda, seed=1)
+    live = torch.arange(h.shape[0], device=cuda) < 1500
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe_experts(h, router, gate_up, down, 8, True, live)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and not out[1500:].any()
+
+
+def _qwen_caches(cfg, rows, seed, cuda):
+    rng = np.random.default_rng(seed)
+    shape = (cfg.n_kv_head, 1 + rows * GRAPH_PMAX, GRAPH_PS, cfg.head_dim)
+    return [torch_cache.PagedKVCache(_randn(rng, shape, cfg.dtype, cuda),
+                                     _randn(rng, shape, cfg.dtype, cuda))
+            for _ in range(cfg.n_layer)]
+
+
+@pytest.mark.parametrize("phase, rows", [
+    ("chunk_prefill_step", 1), ("chunk_prefill_step", 4),
+    ("decode_step", 32)])
+def test_qwen3_moe_graphs_match_the_eager_body(cuda, phase, rows):
+    """Qwen3-30B-A3B-shaped phases (2 layers: QK-norm, head_dim 128 at
+    hidden 2048, GQA 32/4, 128 routed experts) on the card: the graphed
+    call gives the eager body's logits and pages bit for bit, and the
+    launch counters, the experts' grouped GEMMs among them, grow by the
+    eager body's amounts."""
+    cfg, model = _qwen_model(cuda)
+    graphed = _qwen_caches(cfg, rows, 1, cuda)
+    eager = [torch_cache.PagedKVCache(c.k_pages.clone(), c.v_pages.clone())
+             for c in graphed]
+    for seed in (2, 3):
+        args = _graph_args(phase, rows, seed, cfg, cuda)
+        c0 = llama_decode._counts()
+        logits, caches = getattr(llama_decode, phase)(model, cfg, graphed,
+                                                      *args)
+        c1 = llama_decode._counts()
+        want = _eager(phase)(model, cfg, eager, *args)
+        c2 = llama_decode._counts()
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want), seed
+        for g, e in zip(graphed, eager):
+            assert torch.equal(g.k_pages[:, 1:], e.k_pages[:, 1:]), seed
+            assert torch.equal(g.v_pages[:, 1:], e.v_pages[:, 1:]), seed
+        grew = [b - a for a, b in zip(c0, c1)]
+        assert grew == [b - a for a, b in zip(c1, c2)], seed
+        assert grew[-1] == 2 * cfg.n_layer  # two grouped GEMMs a layer
+
+
+def test_llama_graphs_capture_anew_for_moved_weights(cuda):
+    """Weights moved after a graphed call (new data under every
+    parameter, the old freed): the next call captures anew and gives the
+    eager body's logits bit for bit."""
+    cfg = LlamaConfig(**dict(QWEN_CFG, n_layer=1))
+    model = LlamaForCausalLM(
+        cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    caches = _qwen_caches(cfg, 8, 4, cuda)
+    args = _graph_args("decode_step", 8, 5, cfg, cuda)
+    llama_decode.decode_step(model, cfg, caches, *args)
+    first = llama_decode._GRAPHS[model]
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data * 1.5
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eager = [torch_cache.PagedKVCache(c.k_pages.clone(), c.v_pages.clone())
+             for c in caches]
+    for seed in (6, 7):
+        args = _graph_args("decode_step", 8, seed, cfg, cuda)
+        logits, _ = llama_decode.decode_step(model, cfg, caches, *args)
+        want = llama_decode._decode_body(model, cfg, eager, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want), seed
+    assert llama_decode._GRAPHS[model] is not first

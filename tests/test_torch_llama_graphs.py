@@ -173,7 +173,7 @@ def test_replay_copies_inputs_and_grows_the_counters(monkeypatch):
             seen.append([t.clone() for t in inputs])
 
     before = llama_decode._counts()
-    grown = [2, 3, 1, 2]
+    grown = [2, 3, 1, 2, 4]  # one per entry of _COUNTERS
     g = llama_decode._Graph(Stub(), inputs, out, grown)
     try:
         args = (int32([1, 2, 3]), torch.ones(2, 2))
@@ -186,3 +186,23 @@ def test_replay_copies_inputs_and_grows_the_counters(monkeypatch):
     finally:
         for (f, name), n in zip(llama_decode._COUNTERS, before):
             setattr(f, name, n)
+
+
+def test_weight_addresses_see_moved_and_new_parameters():
+    """The graphs' key on the weights: new data under a parameter, or a
+    new parameter in a module, changes it; an update in place does not."""
+    cfg = LlamaConfig.tiny()
+    m = LlamaForCausalLM(cfg, generator=torch.Generator().manual_seed(1),
+                         device="cpu")
+    slots = llama_decode._weight_slots(m)
+    assert len(slots) == len(list(m.parameters()))
+    w0 = llama_decode._weights(slots)
+    with torch.no_grad():
+        m.layers[0].attn.q_proj.weight.mul_(2.0)
+    assert llama_decode._weights(slots) == w0
+    m.layers[1].mlp.up_proj.weight.data = \
+        m.layers[1].mlp.up_proj.weight.data.clone()
+    w1 = llama_decode._weights(slots)
+    assert w1 != w0
+    m.norm.weight = torch.nn.Parameter(torch.ones(cfg.n_embd))
+    assert llama_decode._weights(slots) != w1
