@@ -77,6 +77,14 @@ sq != sk, causal) against the padded segment-id route.
 K1 and K2 are held to their twins and the 2x rule at the attention shapes
 of every training path (GPT-2, ViT-B/16, the Llama train step), before
 the paths run.
+The Llama serving chain's kernels (residual add + RMSNorm, QK-norm +
+rotary, SwiGLU: kernels/llama_chain.py) are held to their twins and the
+2x rule at Mistral-7B's widths (longdoc's chunk of 8 x 512 tokens and its
+64-row decode step) and at Qwen3-30B-A3B's (a 512-token chunk and its
+32-row decode step, with QK-norm and the routed experts' strided SwiGLU
+halves), and timed there beside their byte bound and twin (the
+``llama_chain`` JSON line); the Llama serving paths must launch them 2L +
+1 / L / L times a phase call, and the training forward not at all.
 A determinism phase requires 10 seeded reruns to agree bit for bit: K1 + K2
 at GPT-2's, ViT-B/16's and the Llama train step's shapes and in segment
 form at BERT's shape,
@@ -125,6 +133,7 @@ from dense_timing import (
     APPEND_SHAPES,
     MISTRAL_TRAIN,
     MISTRAL_WINDOW,
+    ROTATE,
     append_inputs,
     band_pairs,
     bert_lengths,
@@ -141,7 +150,7 @@ from dense_timing import (
     window_inputs,
 )
 from flash_attn_tpu_torch import flash_attention
-from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels import _build, llama_chain
 from flash_attn_tpu_torch.kernels.blocksparse import (
     blocksparse_attention_bwd,
     blocksparse_attention_bwd_plain,
@@ -282,6 +291,16 @@ KERNELS = {
     "blocksparse_dq": ((counter(blocksparse_attention_dq),),
                        "flash_attn_tpu_torch/csrc/blocksparse_bwd.cu",
                        "flash_attn_tpu/kernels/blocksparse.py:988"),
+    # the Llama serving chain, which XLA fuses on the TPU
+    "add_rmsnorm": ((counter(llama_chain.add_rmsnorm),),
+                    "flash_attn_tpu_torch/csrc/llama_chain.cu",
+                    "none (XLA fusion)"),
+    "qk_rope": ((counter(llama_chain.qk_rope),),
+                "flash_attn_tpu_torch/csrc/llama_chain.cu",
+                "none (XLA fusion)"),
+    "swiglu": ((counter(llama_chain.swiglu),),
+               "flash_attn_tpu_torch/csrc/llama_chain.cu",
+               "none (XLA fusion)"),
 }
 # Counts that are not a kernel's own: the standalone appends, the fused
 # appends, and flash_attn_with_kvcache's two-launch route past one row
@@ -930,6 +949,172 @@ def phase_fused_kernels():
     torch.cuda.empty_cache()
 
 
+# The serving chain's kernels (kernels/llama_chain.py) at the widths of the
+# two served models: Mistral-7B (longdoc's chunk of 8 x 512 tokens and its
+# 64-row decode step) and Qwen3-30B-A3B (a 512-token chunk and turns'
+# 32-row decode step: QK-norm, and SwiGLU on the halves of the routed
+# experts' fused product, top-8 slots a token).
+CHAIN_MODELS = {
+    # model: (n_embd, n_head, n_kv_head, head_dim, rope_theta, rms_norm_eps,
+    #         MLP width, experts per token (None: dense), {shape: (b, s)})
+    "Mistral-7B": (4096, 32, 8, 128, 1e4, 1e-5, 14336, None,
+                   {"chunk 8x512": (8, 512), "decode 64": (64, 1)}),
+    "Qwen3-30B-A3B": (2048, 32, 4, 128, 1e6, 1e-6, 768, 8,
+                      {"chunk 1x512": (1, 512), "decode 32": (32, 1)}),
+}
+CHAIN_KERNELS = ("add_rmsnorm", "qk_rope", "swiglu")
+L2_BYTES = 50 * 2**20  # H100 SXM
+
+
+def chain_inputs(model, b, s, seed):
+    """One layer's chain operands of CHAIN_MODELS[model] for b x s tokens,
+    bf16: the residual and the pending sublayer output (b s, n_embd) with
+    the norm weight, q (b, s, n_head, hd) and k (b, s, n_kv_head, hd) as
+    views of one projection with positions to 7000 (with QK-norm weights
+    where the model has them), and gate and up: two (b s, width) products,
+    or for routed experts the halves gu[:, :I] and gu[:, I:] of one (b s
+    top_k, 2 I) product."""
+    e, h, h_kv, hd, theta, eps, width, top_k, _ = CHAIN_MODELS[model]
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rows = b * s
+    qkv = randn(g, (b, s, h + 2 * h_kv, hd))
+    pos = (torch.randint(0, 7000 - s + 1, (b, 1), generator=g, device=DEV)
+           + torch.arange(s, device=DEV))
+
+    def weight(n):
+        return (0.5 + torch.rand(n, generator=g, device=DEV)).to(BF16)
+
+    if top_k is None:
+        gate, up = randn(g, (rows, width)), randn(g, (rows, width))
+    else:
+        gu = randn(g, (rows * top_k, 2 * width))
+        gate, up = gu[:, :width], gu[:, width:]
+    return {"x": randn(g, (rows, e)), "d": randn(g, (rows, e)),
+            "w": weight(e), "eps": eps,
+            "q": qkv[:, :, :h], "k": qkv[:, :, h:h + h_kv], "pos": pos,
+            "inv_freq": llama_chain.rope_inv_freq(hd, theta, DEV),
+            "norms": ((None, None) if top_k is None
+                      else (weight(hd), weight(hd))),
+            "gate": gate, "up": up}
+
+
+def chain_calls(a, plain=False):
+    """{kernel: (call, bytes it must move)} on inputs ``a``."""
+    m = llama_chain
+    norm = m.add_rmsnorm_plain if plain else m.add_rmsnorm
+    rope = m.qk_rope_plain if plain else m.qk_rope
+    glu = m.swiglu_plain if plain else m.swiglu
+    norms = [w for w in a["norms"] if w is not None]
+    return {
+        "add_rmsnorm": (lambda: norm(a["x"], a["d"], a["w"], a["eps"]),
+                        4 * nbytes(a["x"]) + nbytes(a["w"])),
+        "qk_rope": (lambda: rope(a["q"], a["k"], a["pos"], a["inv_freq"],
+                                 *a["norms"], eps=a["eps"]),
+                    2 * (a["q"].numel() + a["k"].numel()) * 2
+                    + nbytes(a["pos"], a["inv_freq"], *norms)),
+        "swiglu": (lambda: glu(a["gate"], a["up"]),
+                   3 * nbytes(a["gate"])),
+    }
+
+
+def check_chain(label, a, errs):
+    """The three kernels on inputs ``a`` against their twins: the residual
+    sum bit for bit, the rest under the 2x rule against fp32. Records each
+    kernel's largest error in ``errs``."""
+    m, eps = llama_chain, a["eps"]
+    res, out = m.add_rmsnorm(a["x"], a["d"], a["w"], eps)
+    base_res, base = m.add_rmsnorm_plain(a["x"], a["d"], a["w"], eps)
+    check(torch.equal(res, base_res),
+          f"add_rmsnorm {label}: residual sum differs")
+    found = {"add_rmsnorm": [assert_two_x_bound(
+        out, m.rms_norm_plain(res.float(), a["w"], eps, torch.float32), base,
+        label=f"add_rmsnorm {label}")[0]]}
+    q, k = a["q"].clone(), a["k"].clone()
+    want = [t.float() for t in (q, k)]
+    base = [a["q"].clone(), a["k"].clone()]
+    m.qk_rope(q, k, a["pos"], a["inv_freq"], *a["norms"], eps=eps)
+    m.qk_rope_plain(*want, a["pos"], a["inv_freq"], *a["norms"], eps=eps)
+    m.qk_rope_plain(*base, a["pos"], a["inv_freq"], *a["norms"], eps=eps)
+    found["qk_rope"] = [
+        assert_two_x_bound(got, w32, b16, label=f"qk_rope {t} {label}")[0]
+        for got, w32, b16, t in zip((q, k), want, base, "qk")]
+    found["swiglu"] = [assert_two_x_bound(
+        m.swiglu(a["gate"], a["up"]),
+        m.swiglu_plain(a["gate"].float(), a["up"].float()),
+        m.swiglu_plain(a["gate"], a["up"]), label=f"swiglu {label}")[0]]
+    torch.cuda.synchronize()
+    for name, err in found.items():
+        errs[name] = max(errs.get(name, 0.0), *err)
+
+
+def phase_chain_kernels(errs):
+    """add_rmsnorm, qk_rope and swiglu against their twins (check_chain) at
+    every shape of CHAIN_MODELS, their registers and spills, and their
+    device time by busy_ms beside the byte bound and the twin's (a chunk's
+    calls cycle through enough input sets that each kernel's operands over
+    the sets are twice the L2, so that no call runs from it). Returns
+    {kernel: {"<model> <shape>": row}} for the kernels' JSON line."""
+    log = _build.build_log() or ""
+    name, seen = None, set()
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:  # the first bf16 instance of each
+            name = next((k for k in CHAIN_KERNELS
+                         if k in entry.group(1)
+                         and "nv_bfloat16" in entry.group(1)), None)
+        elif name and name not in seen and ("spill" in line
+                                            or "Used" in line):
+            print(f"ptxas {name} (bf16): {line.strip()}")
+            if "Used" in line:
+                seen.add(name)
+    rows_out = {}
+    with torch.no_grad():
+        for model, (*_, shapes) in CHAIN_MODELS.items():
+            for shape, (b, s) in shapes.items():
+                label = f"{model} {shape}"
+                a = chain_inputs(model, b, s, 0)
+                check_chain(label, a, errs)
+                least = min(n for _, n in chain_calls(a).values())
+                n_sets = max(ROTATE, -(-2 * L2_BYTES // least)) if s > 1 \
+                    else 1
+                sets = [a] + [chain_inputs(model, b, s, 1 + i)
+                              for i in range(n_sets - 1)]
+                kernel = [chain_calls(x) for x in sets]
+                plain = [chain_calls(x, plain=True) for x in sets]
+                for name in CHAIN_KERNELS:
+                    k_ms = busy_ms(rotating([c[name][0] for c in kernel]))
+                    p_ms = busy_ms(rotating([c[name][0] for c in plain]),
+                                   n=3)
+                    b_ms, _ = bound(kernel[0][name][1], 0)
+                    rows_out.setdefault(name, {})[label] = {
+                        "ms": k_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                        "plain_ms": p_ms}
+                    print(f"{name} ({label}, bf16, {len(sets)} input "
+                          f"sets): kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
+                          f"ms (bytes), plain {p_ms:.4f} ms "
+                          f"[{card_line()}]")
+                del a, sets, kernel, plain
+                torch.cuda.empty_cache()
+    print(json.dumps({"llama_chain": rows_out}))
+    return rows_out
+
+
+def check_chain_launches(label, launches, n_layer):
+    """A Llama serving path launched the chain's kernels, per phase call
+    (each launches one K5 or one K6 a layer) 2 n_layer + 1 add_rmsnorm
+    (two a layer and the final norm), n_layer qk_rope and n_layer
+    swiglu."""
+    per_layer = launches["append_token in K5"] + launches["paged_chunk"]
+    calls = per_layer // n_layer
+    got = [launches[name] for name in CHAIN_KERNELS]
+    check(calls > 0 and per_layer == calls * n_layer
+          and got == [calls * (2 * n_layer + 1), per_layer, per_layer],
+          f"{label}: chain launches {dict(zip(CHAIN_KERNELS, got))} for "
+          f"{calls} phase calls of {n_layer} layers")
+    print(f"{label}: {calls} phase calls launched the chain's "
+          f"{dict(zip(CHAIN_KERNELS, got))}")
+
+
 def phase_determinism(gen, n=10):
     """Each kernel ``n`` times on the same inputs and seed: every rerun
     bit for bit the first. K1 + K2 (out, lse, dq, dk, dv) at GPT-2's train
@@ -1372,6 +1557,7 @@ def phase_llama(rng):
     kw = dict(model_fns=llama_decode, max_batch=8, page_size=128,
               pages_per_seq=32, num_pages=8 * 32 + 1, prefill_chunk=512)
     launches = run_chunked("llama chunked", model, cfg, prompts, kw)
+    check_chain_launches("llama chunked", launches, cfg.n_layer)
     ttft = ttft_ms(model, cfg, prompts, kw)
     tok_s, ms_step = decode_rate(model, cfg, prompts, kw, n_steps=16)
     card = card_line()
@@ -3144,6 +3330,7 @@ def phase_mistral_serving(rng, prompts=(1000, 7000), tf_prompt=5000):
             check(counts[name] > 0, f"{label}: kernel {name} not launched")
         check(counts["flash_fwd"] == 0, f"{label}: the dense forward ran")
         check_fused_appends(label, counts, decode=True)
+        check_chain_launches(label, counts, cfg.n_layer)
         tokens[stream] = {r.seq_id: r.generated for r in finished}
         print(f"{label}: 8 requests (prompts {lens.min()}..{lens.max()}, "
               f"chunks of 512) x 32 tokens in {dt:.2f} s; pages freed "
@@ -3204,6 +3391,9 @@ def phase_mistral_serving(rng, prompts=(1000, 7000), tf_prompt=5000):
         k1 = read_launches(KERNELS)["flash_fwd"]
         check(k1 == cfg.n_layer, f"Mistral full forward: {k1} K1 launches")
         launches["mistral_forward"] = read_launches(KERNELS)
+        chain = [launches["mistral_forward"][n] for n in CHAIN_KERNELS]
+        check(chain == [0, 0, 0], "Mistral full forward (the training "
+              f"path's) launched the serving chain: {chain}")
         model32 = llama_fp32(model)
         del model
         torch.cuda.empty_cache()
@@ -3539,6 +3729,8 @@ def main():
     with phase_time("kernel timing"):
         times = kernel_timing(gen)
         window = window_timing(gen)
+    with phase_time("Llama chain kernels"):
+        chain = phase_chain_kernels(errs)
     with phase_time("Mistral serving"):
         launches.update(phase_mistral_serving(rng))
         torch.cuda.empty_cache()
@@ -3558,8 +3750,19 @@ def main():
                              "flash_attn_tpu_torch/csrc/paged_chunk.cu")}
     kernels = []
     for name, (_, src, tpu) in KERNELS.items():
-        ms, plain_ms, lib_ms, b_ms, b_by, backend = times[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
+        if name in CHAIN_KERNELS:  # timed at longdoc's chunk, no library
+            row = chain[name]["Mistral-7B chunk 8x512"]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": errs[name],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None, "library_backend": None,
+                "model_shapes": chain[name]})
+            continue
+        ms, plain_ms, lib_ms, b_ms, b_by, backend = times[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

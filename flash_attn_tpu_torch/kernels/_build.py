@@ -94,6 +94,16 @@ _SIGNATURES = {
     # causal, seed, threshold, rp, dtype, stream
     "fattn_blocksparse_dq": [_P] * 15 + [_I] * 7 + [_F, _I, _U, _U, _F, _I,
                                                     _P],
+    # x, d, w, res, out, x and d row strides, rows, n, eps, dtype, w_dtype,
+    # stream
+    "fattn_add_rmsnorm": [_P] * 5 + [_L] * 2 + [_I] * 2 + [_F, _I, _I, _P],
+    # q, its strides of batch, token and head, k, its strides, pos, its
+    # strides of batch and token, inv_freq, q_norm, k_norm, b, s, hq, hk,
+    # hd, eps, dtype, w_dtype, stream
+    "fattn_qk_rope": [_P] + [_L] * 3 + [_P] + [_L] * 3 + [_P] + [_L] * 2
+    + [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P],
+    # gate, up, out, gate and up row strides, rows, n, dtype, stream
+    "fattn_swiglu": [_P] * 3 + [_L] * 2 + [_I] * 3 + [_P],
     # d: the dynamic shared memory of K1's / K2's bf16/fp16 kernel
     "fattn_flash_fwd_smem": [_I],
     "fattn_flash_bwd_smem": [_I],

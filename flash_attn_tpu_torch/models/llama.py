@@ -19,6 +19,12 @@ window: every attention runs with ``window_size=(window, 0)`` (the
 kernels walk the band only); ``window_sinks`` keeps StreamingLLM sink
 tokens visible in paged decode only (``llama_decode``).
 
+Serving (``LlamaBlock.qkv`` / ``finish``, ``LlamaForCausalLM.logits``,
+the MLPs' ``serve``) runs the same numerics through three forward-only
+kernels (``kernels/llama_chain.py``: residual add + RMSNorm, QK-norm +
+rotary, SwiGLU) and carries each layer's MLP output to the next norm;
+``forward``, the training path, keeps the plain modules under autograd.
+
 Qwen3-MoE (no counterpart in the JAX package): ``head_dim`` may differ
 from ``n_embd // n_head``; ``qk_norm`` adds a per-head RMSNorm of q and k
 before rotary (``attn.q_norm``, ``attn.k_norm``); ``num_experts`` makes
@@ -42,6 +48,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from flash_attn_tpu_torch.kernels.llama_chain import (
+    add_rmsnorm,
+    apply_llama_rope,
+    qk_rope,
+    rms_norm_plain,
+    rope_inv_freq,
+    rope_tables,
+    swiglu,
+    swiglu_plain,
+)
 from flash_attn_tpu_torch.models.gpt2 import (
     chunked_lm_loss,
     cross_entropy_loss,
@@ -96,24 +112,7 @@ class LlamaConfig:
 
 def llama_rope_tables(positions, dim: int, base: float):
     """fp32 cos/sin of shape positions.shape + (dim,), half-split layout."""
-    inv_freq = 1.0 / (base ** (
-        torch.arange(0, dim, 2, dtype=torch.float32,
-                     device=positions.device) / dim))
-    freqs = positions.float()[..., None] * inv_freq
-    emb = torch.cat([freqs, freqs], dim=-1)
-    return emb.cos(), emb.sin()
-
-
-def apply_llama_rope(x, cos, sin):
-    """x (b, s, h, d); cos/sin (s, d) or (b, s, d). Rotates in fp32 and
-    returns x's dtype."""
-    if cos.dim() == 2:
-        cos, sin = cos[None], sin[None]
-    cos, sin = cos[:, :, None], sin[:, :, None]  # (b, s, 1, d)
-    xf = x.float()
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
-    return (xf * cos + rotated * sin).to(x.dtype)
+    return rope_tables(positions, rope_inv_freq(dim, base, positions.device))
 
 
 class RMSNorm(nn.Module):
@@ -125,9 +124,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, **factory))
 
     def forward(self, x):
-        xf = x.float()
-        y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
-        return (y * self.weight.float()).to(self.out_dtype)
+        return rms_norm_plain(x, self.weight, self.eps, self.out_dtype)
 
 
 def window_size(cfg) -> tuple | None:
@@ -153,9 +150,9 @@ class LlamaAttention(nn.Module):
             self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, cfg.dtype, **factory)
             self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, cfg.dtype, **factory)
 
-    def qkv(self, x, positions):
-        """x (b, s, n_embd), positions (b, s) -> rotary-applied q (b, s,
-        n_head, hd), k and v (b, s, n_kv_head, hd)."""
+    def project(self, x):
+        """x (b, s, n_embd) -> q (b, s, n_head, hd), k and v (b, s,
+        n_kv_head, hd), before QK-norm and rotary."""
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim
@@ -164,9 +161,16 @@ class LlamaAttention(nn.Module):
                                                       hd)
         v = linear(x, self.v_proj, cfg.dtype).reshape(b, s, cfg.n_kv_head,
                                                       hd)
+        return q, k, v
+
+    def qkv(self, x, positions):
+        """x (b, s, n_embd), positions (b, s) -> rotary-applied q (b, s,
+        n_head, hd), k and v (b, s, n_kv_head, hd)."""
+        cfg = self.config
+        q, k, v = self.project(x)
         if cfg.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
-        cos, sin = llama_rope_tables(positions, hd, cfg.rope_theta)
+        cos, sin = llama_rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         return apply_llama_rope(q, cos, sin), apply_llama_rope(k, cos, sin), v
 
     def forward(self, x, positions):
@@ -187,12 +191,18 @@ class LlamaMlp(nn.Module):
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.n_embd,
                                    bias=False, **factory)
 
-    def forward(self, x, live=None):
-        """``live``: routed experts' argument, unused by a dense MLP."""
+    def forward(self, x):
         dt = self.config.dtype
         # SwiGLU: silu(gate) * up -> down
-        h = torch.nn.functional.silu(linear(x, self.gate_proj, dt)) \
-            * linear(x, self.up_proj, dt)
+        h = swiglu_plain(linear(x, self.gate_proj, dt),
+                         linear(x, self.up_proj, dt))
+        return linear(h, self.down_proj, dt)
+
+    def serve(self, x, live=None):
+        """Serving: ``forward`` with SwiGLU as one launch. ``live``: routed
+        experts' argument, unused by a dense MLP."""
+        dt = self.config.dtype
+        h = swiglu(linear(x, self.gate_proj, dt), linear(x, self.up_proj, dt))
         return linear(h, self.down_proj, dt)
 
 
@@ -212,17 +222,34 @@ class LlamaBlock(nn.Module):
         x = x + self.attn(self.input_layernorm(x), positions)
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def qkv(self, x, positions):
-        """Serving: the normed input's rotary-applied q, k and v."""
-        return self.attn.qkv(self.input_layernorm(x), positions)
+    def qkv(self, x, d, positions, inv_freq):
+        """Serving: (x + d, q, k, v). ``d`` is the previous layer's pending
+        MLP output (None in the first layer), added to the residual stream
+        ``x`` (b, s, n_embd) in the launch of this layer's input norm; q, k
+        and v are its projections, q and k QK-normed and rotated at
+        ``positions`` (b, s) int64 in one more launch (``inv_freq``:
+        ``LlamaForCausalLM.rope_inv_freq``)."""
+        cfg, attn = self.config, self.attn
+        x, h = add_rmsnorm(x, d, self.input_layernorm.weight,
+                           cfg.rms_norm_eps)
+        q, k, v = attn.project(h)
+        norms = ((attn.q_norm.weight, attn.k_norm.weight) if cfg.qk_norm
+                 else (None, None))
+        qk_rope(q, k, positions, inv_freq, *norms, eps=cfg.rms_norm_eps)
+        return x, q, k, v
 
     def finish(self, x, ctx, live=None):
-        """Serving: residual stream after attention context ``ctx``
-        (..., n_head * hd): output projection, then the MLP. ``live`` (...)
-        bool marks the real tokens for routed experts (the rest route
+        """Serving: (x + o, the MLP's output): the residual stream after
+        the output projection o of the attention context ``ctx`` (...,
+        n_head * hd), and the MLP's output on its norm, pending: the next
+        layer's ``qkv`` or ``LlamaForCausalLM.logits`` adds it. ``live``
+        (...) bool marks the real tokens for routed experts (the rest route
         nowhere and add zeros); a dense MLP ignores it."""
-        x = x + linear(ctx, self.attn.o_proj, self.config.dtype)
-        return x + self.mlp(self.post_attention_layernorm(x), live)
+        cfg = self.config
+        x, h = add_rmsnorm(x, linear(ctx, self.attn.o_proj, cfg.dtype),
+                           self.post_attention_layernorm.weight,
+                           cfg.rms_norm_eps)
+        return x, self.mlp.serve(h, live)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -245,6 +272,7 @@ class LlamaForCausalLM(nn.Module):
                             **factory)
         self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False,
                                  **factory)
+        self._inv_freq: dict = {}  # device -> rotary's inverse frequencies
         if generator is not None:
             self._init_weights(generator)
 
@@ -259,10 +287,23 @@ class LlamaForCausalLM(nn.Module):
     def embed(self, input_ids):
         return self.wte(input_ids).to(self.config.dtype)
 
-    def logits(self, x):
-        """Serving: final RMSNorm and the head, fp32 logits."""
-        return tied_logits(self.norm(x), self.lm_head.weight,
-                           self.config.dtype)
+    def rope_inv_freq(self, device):
+        """Serving: rotary's fp32 inverse frequencies (head_dim // 2,) on
+        ``device``, computed once per device (``llama_rope_tables``'
+        expression)."""
+        f = self._inv_freq.get(device)
+        if f is None:
+            cfg = self.config
+            f = self._inv_freq[device] = rope_inv_freq(
+                cfg.head_dim, cfg.rope_theta, device)
+        return f
+
+    def logits(self, x, d=None):
+        """Serving: the final RMSNorm of x + d (``d``: the last layer's
+        pending MLP output) in one launch, and the head, fp32 logits."""
+        cfg = self.config
+        _, h = add_rmsnorm(x, d, self.norm.weight, cfg.rms_norm_eps)
+        return tied_logits(h, self.lm_head.weight, cfg.dtype)
 
     def forward(self, input_ids, positions=None, return_hidden: bool = False):
         """Full-sequence causal forward: (b, s) ids -> (b, s, vocab) fp32
@@ -279,7 +320,8 @@ class LlamaForCausalLM(nn.Module):
                 x = block(x, positions)
         if return_hidden:
             return self.norm(x), self.lm_head.weight
-        return self.logits(x)
+        return tied_logits(self.norm(x), self.lm_head.weight,
+                           self.config.dtype)
 
 
 def make_train_step(model: LlamaForCausalLM,

@@ -18,12 +18,26 @@ alike; ``cfg.window_sinks`` adds StreamingLLM sinks in decode only
 (llama_decode.py:185-186 there), so prefill and training keep the pure
 band.
 
+The elementwise chain around the products is three kernels
+(``kernels/llama_chain.py``), each reading its inputs once: every phase
+loop carries the residual stream and the pending MLP output of the layer
+before, which ``LlamaBlock.qkv`` adds in the launch of its input norm
+(``add_rmsnorm``) and the final norm adds for the rows the logits are
+taken at; ``qk_rope`` applies QK-norm (``cfg.qk_norm``) and rotary to q
+and k in place from the positions and ``LlamaForCausalLM.rope_inv_freq``
+(no per-layer tables); ``LlamaBlock.finish`` adds the attention's output
+in the launch of the post-attention norm, and the MLP's SwiGLU is one
+launch (``swiglu``; on the routed experts' strided halves too). A layer
+launches two norms, one rotary and one SwiGLU; on the CPU each is its
+plain twin, the op-by-op chain it replaces.
+
 CUDA graphs. ``chunk_prefill_step`` and ``decode_step`` replay a CUDA
 graph of their whole call when every tensor argument and cache is on one
 CUDA device; CPU inputs run the eager body as they always have. Issued
-eagerly, a Mistral-7B decode step or a 1-2-row chunk is ~50 launches a
-layer, and the host's ~58 ms of issue outlasts the device's 20-35 ms of
-work; a replay issues the whole call at once. The graphs of a model live
+eagerly, a Mistral-7B decode step or a 1-2-row chunk was ~50 launches a
+layer before the chain's kernels, and the host's ~58 ms of launching
+outlasted the device's 20-35 ms of work; a replay launches the whole
+call at once. The graphs of a model live
 in ``_GRAPHS`` (weakly keyed by the model) under a signature: the phase,
 the device, ``cfg``, the shape and dtype of every tensor argument, each
 layer's ``k_pages`` / ``v_pages`` storage (address, shape, dtype) and the
@@ -52,8 +66,9 @@ runs the same kernels on the same operands as the eager body: the
 logits and the pages match it bit for bit (card tests). The launch
 counters (``paged_decode_with_append.launches``,
 ``paged_chunk_attention.launches`` / ``.append_launches``,
-``_write_prompts.launches``, the experts' ``grouped_mm.launches``) grow
-on a replay by what the eager body adds, and the capture adds nothing to
+``_write_prompts.launches``, the experts' ``grouped_mm.launches``, the
+chain's ``add_rmsnorm`` / ``qk_rope`` / ``swiglu.launches``) grow on a
+replay by what the eager body adds, and the capture adds nothing to
 them.
 
 Spans (``tracing``): ``llama.chunk_prefill_step`` and ``llama.decode_step``
@@ -75,6 +90,11 @@ import torch
 from flash_attn_tpu_torch import tracing
 from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
 from flash_attn_tpu_torch.kernels.decode import paged_decode_with_append
+from flash_attn_tpu_torch.kernels.llama_chain import (
+    add_rmsnorm,
+    qk_rope,
+    swiglu,
+)
 from flash_attn_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -101,21 +121,22 @@ def prefill(model: LlamaForCausalLM, cfg: LlamaConfig, input_ids,
     contiguous). ``lengths``: see ``gpt2_decode.prefill``."""
     b, s = input_ids.shape
     positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    x = model.embed(input_ids)
+    inv_freq = model.rope_inv_freq(positions.device)
+    x, d = model.embed(input_ids), None
     live = None
     if cfg.num_experts and lengths is not None:
         live = positions < lengths.to(positions.device)[:, None]
     ks, vs = [], []
     for block in model.layers:
-        q, k, v = block.qkv(x, positions)
+        x, q, k, v = block.qkv(x, d, positions, inv_freq)
         ks.append(k.contiguous())
         vs.append(v.contiguous())
         ctx = flash_attention(q, k, v, causal=True,
                               window_size=window_size(cfg))
-        x = block.finish(x, ctx.flatten(2), live)
-    idx = (torch.full((b,), s, device=x.device) if lengths is None
-           else lengths.long().to(x.device)) - 1
-    return model.logits(_last(x, idx.clamp(0, s - 1))), ks, vs
+        x, d = block.finish(x, ctx.flatten(2), live)
+    idx = ((torch.full((b,), s, device=x.device) if lengths is None
+            else lengths.long().to(x.device)) - 1).clamp(0, s - 1)
+    return model.logits(_last(x, idx), _last(d, idx)), ks, vs
 
 
 @torch.no_grad()
@@ -133,25 +154,27 @@ def chunk_prefill_step(model: LlamaForCausalLM, cfg: LlamaConfig,
         return logits, caches
 
 
+@torch.no_grad()
 def _chunk_body(model, cfg, caches, input_ids, pos0, chunk_lens, write_tbl,
                 page_table):
     """``chunk_prefill_step`` issued launch by launch: the logits."""
     b, C = input_ids.shape
     positions = pos0.long().clamp(min=0)[:, None] + torch.arange(
         C, device=pos0.device)
-    x = model.embed(input_ids)
+    inv_freq = model.rope_inv_freq(positions.device)
+    x, d = model.embed(input_ids), None
     total = (pos0.clamp(min=0) + chunk_lens).to(torch.int32)
     live = (torch.arange(C, device=x.device) < chunk_lens[:, None]
             if cfg.num_experts else None)
     for block, cache in zip(model.layers, caches):
-        q, k, v = block.qkv(x, positions)
+        x, q, k, v = block.qkv(x, d, positions, inv_freq)
         _write_prompts(cache, k, v, write_tbl)  # one K7c launch
         ctx = paged_chunk_attention(q, cache.k_pages, cache.v_pages, total,
                                     page_table, chunk_lens=chunk_lens,
                                     window_left=cfg.window)
-        x = block.finish(x, ctx.flatten(2), live)
+        x, d = block.finish(x, ctx.flatten(2), live)
     idx = (chunk_lens.long() - 1).clamp(0, C - 1)
-    return model.logits(_last(x, idx))
+    return model.logits(_last(x, idx), _last(d, idx))
 
 
 @torch.no_grad()
@@ -168,13 +191,15 @@ def decode_step(model: LlamaForCausalLM, cfg: LlamaConfig,
         return logits, caches
 
 
+@torch.no_grad()
 def _decode_body(model, cfg, caches, page_table, lengths, token_ids):
     """``decode_step`` issued launch by launch: the logits."""
     positions = lengths.long().clamp(min=0)[:, None]  # (b, 1)
-    x = model.embed(token_ids[:, None])  # (b, 1, e)
+    inv_freq = model.rope_inv_freq(positions.device)
+    x, d = model.embed(token_ids[:, None]), None  # (b, 1, e)
     live = (lengths >= 0)[:, None] if cfg.num_experts else None
     for block, cache in zip(model.layers, caches):
-        q, k, v = block.qkv(x, positions)  # (b, 1, h, hd)
+        x, q, k, v = block.qkv(x, d, positions, inv_freq)  # (b, 1, h, hd)
         # One launch appends k, v (raw lengths: inactive slots go to the
         # scratch page) and attends over the cache with them.
         ctx = paged_decode_with_append(q[:, 0], k[:, 0], v[:, 0],
@@ -182,8 +207,8 @@ def _decode_body(model, cfg, caches, page_table, lengths, token_ids):
                                        lengths, page_table,
                                        window_left=cfg.window,
                                        num_sinks=cfg.window_sinks)
-        x = block.finish(x, ctx.flatten(1)[:, None], live)
-    return model.logits(x[:, 0])
+        x, d = block.finish(x, ctx.flatten(1)[:, None], live)
+    return model.logits(x[:, 0], d[:, 0])
 
 
 # ------------------------------------------------------------ CUDA graphs
@@ -194,7 +219,10 @@ _COUNTERS = ((paged_decode_with_append, "launches"),
              (paged_chunk_attention, "launches"),
              (paged_chunk_attention, "append_launches"),
              (_write_prompts, "launches"),
-             (grouped_mm, "launches"))
+             (grouped_mm, "launches"),
+             (add_rmsnorm, "launches"),
+             (qk_rope, "launches"),
+             (swiglu, "launches"))
 
 
 def _counts() -> list[int]:

@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flash_attn_tpu_torch.kernels.llama_chain import swiglu, swiglu_plain
+
 
 def route(logits, k: int, norm_topk_prob: bool):
     """(weights (T, k) fp32, experts (T, k) int64) of router logits (T,
@@ -89,16 +91,18 @@ grouped_mm.launches = 0
 
 
 def moe_experts(h, router_w, gate_up, down, k: int, norm_topk_prob: bool,
-                live=None):
+                live=None, glu=swiglu_plain):
     """The routed experts' output (T, n_embd) for tokens h (T, n_embd), in
-    h's dtype; ``live`` (T,) bool or None (every token)."""
+    h's dtype; ``live`` (T,) bool or None (every token). ``glu(gate, up)``
+    is each slot's SwiGLU on the two strided halves of the fused product:
+    ``swiglu_plain``, or serving's one-launch ``swiglu``."""
     T, e = h.shape
     E, I = gate_up.shape[0], gate_up.shape[1] // 2
     w, idx = route(F.linear(h, router_w), k, norm_topk_prob)
     order, ends = dispatch(idx, live, E)
     xs = h[order // k]  # (T k, e): each slot's token row, by expert
     gu = grouped_mm(xs, gate_up, ends)
-    a = F.silu(gu[:, :I]) * gu[:, I:]
+    a = glu(gu[:, :I], gu[:, I:])
     ys = grouped_mm(a, down, ends)
     y = torch.empty_like(ys).index_copy_(0, order, ys).view(T, k, e)
     out = torch.bmm(w.to(h.dtype)[:, None], y)[:, 0]
@@ -128,4 +132,15 @@ class MoeMlp(nn.Module):
             h, self.router.weight.to(dt), self.gate_up_proj.to(dt),
             self.down_proj.to(dt), cfg.num_experts_per_tok,
             cfg.norm_topk_prob, None if live is None else live.reshape(-1))
+        return out.view(x.shape)
+
+    def serve(self, x, live=None):
+        """Serving: ``forward`` with each slot's SwiGLU in one launch."""
+        cfg, dt = self.config, self.config.dtype
+        h = x.reshape(-1, x.shape[-1]).to(dt)
+        out = moe_experts(
+            h, self.router.weight.to(dt), self.gate_up_proj.to(dt),
+            self.down_proj.to(dt), cfg.num_experts_per_tok,
+            cfg.norm_topk_prob, None if live is None else live.reshape(-1),
+            glu=swiglu)
         return out.view(x.shape)

@@ -24,7 +24,12 @@ the oracle. Blocksparse dropout masks are held bit for bit to
 The Llama serving phases replayed as CUDA graphs are held bit for bit to
 their eager bodies (logits and pages) at Mistral-7B's widths, and at
 Qwen3-30B-A3B's (routed experts); the experts' grouped GEMMs are held to
-the 2x rule against their per-group twin in fp32.
+the 2x rule against their per-group twin in fp32. The serving chain's
+kernels (``kernels/llama_chain.py``: residual add + RMSNorm, QK-norm +
+rotary, SwiGLU) are held to the 2x rule against their twins in fp32 at
+both models' decode and chunk shapes (the residual sum bit for bit), and a
+graphed decode step is counted for the kernels a layer leaves besides
+GEMMs and K5.
 """
 
 import copy
@@ -64,6 +69,7 @@ from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention_plain,
     paged_decode_with_append,
 )
+from flash_attn_tpu_torch.kernels import llama_chain
 from flash_attn_tpu_torch.kernels.flash_bwd import (
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -2002,6 +2008,22 @@ def _eager(phase):
             "chunk_prefill_step": llama_decode._chunk_body}[phase]
 
 
+CHAIN = (llama_chain.add_rmsnorm, llama_chain.qk_rope, llama_chain.swiglu)
+
+
+def _chain_grew(grew):
+    """The growth of the chain kernels' counters, of a growth of all
+    ``llama_decode._COUNTERS``."""
+    return [n for (f, _), n in zip(llama_decode._COUNTERS, grew)
+            if f in CHAIN]
+
+
+def _chain_launches(cfg):
+    """add_rmsnorm, qk_rope and swiglu launches of one phase call: two
+    norms a layer and the final one, one rotary and one SwiGLU a layer."""
+    return [2 * cfg.n_layer + 1, cfg.n_layer, cfg.n_layer]
+
+
 @pytest.mark.parametrize("phase, rows", [
     ("chunk_prefill_step", 1), ("chunk_prefill_step", 2),
     ("chunk_prefill_step", 4), ("decode_step", 8)])
@@ -2032,6 +2054,7 @@ def test_llama_graphs_match_the_eager_body(cuda, phase, rows):
         grew = [b - a for a, b in zip(c0, c1)]
         assert grew == [b - a for a, b in zip(c1, c2)], seed
         assert sum(grew) > 0
+        assert _chain_grew(grew) == _chain_launches(cfg), seed
     graphs = llama_decode._GRAPHS[model]
     assert sum(1 for sig in graphs.by_sig if sig[0] == phase) == 1
 
@@ -2210,7 +2233,9 @@ def test_qwen3_moe_graphs_match_the_eager_body(cuda, phase, rows):
             assert torch.equal(g.v_pages[:, 1:], e.v_pages[:, 1:]), seed
         grew = [b - a for a, b in zip(c0, c1)]
         assert grew == [b - a for a, b in zip(c1, c2)], seed
-        assert grew[-1] == 2 * cfg.n_layer  # two grouped GEMMs a layer
+        at = llama_decode._COUNTERS.index((grouped_mm, "launches"))
+        assert grew[at] == 2 * cfg.n_layer  # two grouped GEMMs a layer
+        assert _chain_grew(grew) == _chain_launches(cfg), seed
 
 
 def test_llama_graphs_capture_anew_for_moved_weights(cuda):
@@ -2238,3 +2263,161 @@ def test_llama_graphs_capture_anew_for_moved_weights(cuda):
         torch.cuda.synchronize()
         assert torch.equal(logits, want), seed
     assert llama_decode._GRAPHS[model] is not first
+
+
+# ----------------------------- the serving chain (kernels/llama_chain.py)
+
+# (rows, n) of the residual stream: Mistral-7B's 64-row decode, Qwen3's
+# 32-row decode, Mistral's chunk of 8 x 512 tokens
+NORM_SHAPES = [(64, 4096), (32, 2048), (8 * 512, 4096)]
+
+
+@pytest.mark.parametrize("pending", [True, False], ids=["add", "first"])
+@pytest.mark.parametrize("rows, n", NORM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_llama_chain_add_rmsnorm_matches_the_twin(cuda, dtype, rows, n,
+                                                  pending):
+    """Residual add + RMSNorm against the twin in fp32 (2x rule, the twin
+    in the same dtype the baseline); the residual sum bit for bit. x is a
+    strided view (every other row of a buffer), as a decode step's rows
+    can be."""
+    rng = np.random.default_rng(rows + n)
+    x = _randn(rng, (2 * rows, n), dtype, cuda)[::2]
+    d = _randn(rng, (rows, n), dtype, cuda) if pending else None
+    w = (0.5 + torch.rand(n, device=cuda)).to(torch.bfloat16)
+    with torch.no_grad():
+        res, out = llama_chain.add_rmsnorm(x, d, w, 1e-5)
+        base_res, base = llama_chain.add_rmsnorm_plain(x, d, w, 1e-5)
+    torch.cuda.synchronize()
+    assert res.dtype == out.dtype == dtype
+    assert torch.equal(res, base_res)
+    if not pending:
+        assert res is x
+    # the oracle: the norm of the rounded sum, in fp32
+    want = llama_chain.rms_norm_plain(res.float(), w, 1e-5, torch.float32)
+    assert_two_x_bound(out, want, base, label="add_rmsnorm")
+
+
+# (b, s, n_head, n_kv_head, QK-norm, largest position)
+ROPE_SHAPES = [(64, 1, 32, 8, False, 7000), (32, 1, 32, 4, True, 2300),
+               (8, 512, 32, 8, False, 7000), (4, 512, 32, 4, True, 2300)]
+
+
+@pytest.mark.parametrize("b, s, hq, hk, norm, top", ROPE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_llama_chain_qk_rope_matches_the_twin(cuda, dtype, b, s, hq, hk,
+                                              norm, top):
+    """QK-norm + rotary in place, at positions up to ``top`` (longdoc's
+    reach 7,000), against the twin in fp32 under the 2x rule; q and k are
+    views of one fused projection."""
+    rng = np.random.default_rng(b * s)
+    hd = 128
+    fused = _randn(rng, (b, s, hq + 2 * hk, hd), dtype, cuda)
+    pos0 = rng.integers(0, top - s + 1, b)
+    positions = (torch.from_numpy(pos0)[:, None]
+                 + torch.arange(s)).to(cuda)
+    inv_freq = llama_chain.rope_inv_freq(hd, 1e6 if norm else 1e4, cuda)
+    w = [(0.5 + torch.rand(hd, device=cuda)).to(torch.bfloat16)
+         if norm else None for _ in range(2)]
+    q, k, _ = fused.split([hq, hk, hk], dim=2)
+    base = [t.clone() for t in (q, k)]
+    want = [t.float() for t in (q, k)]
+    with torch.no_grad():
+        got = llama_chain.qk_rope(q, k, positions, inv_freq, *w, eps=1e-6)
+        llama_chain.qk_rope_plain(*base, positions, inv_freq, *w, eps=1e-6)
+        llama_chain.qk_rope_plain(*want, positions, inv_freq, *w, eps=1e-6)
+    torch.cuda.synchronize()
+    assert got[0] is q and got[1] is k
+    for g, w32, b16, name in zip(got, want, base, "qk"):
+        assert_two_x_bound(g, w32, b16, label=f"qk_rope {name}")
+
+
+# (rows, n, fused): Mistral-7B's MLP at the 64-row decode and the 8 x 512
+# chunk; the routed experts' halves of (rows, 2 n) at Qwen3's 32 x 8
+# decode slots and a 4 x 512-token chunk's 16,384 slots
+GLU_SHAPES = [(64, 14336, False), (8 * 512, 14336, False),
+              (32 * 8, 768, True), (4 * 512 * 8, 768, True)]
+
+
+@pytest.mark.parametrize("rows, n, fused", GLU_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_llama_chain_swiglu_matches_the_twin(cuda, dtype, rows, n, fused):
+    """silu(gate) * up against the twin in fp32 under the 2x rule, on two
+    products or on the two strided halves of the experts' fused one."""
+    rng = np.random.default_rng(rows + n)
+    if fused:
+        gu = _randn(rng, (rows, 2 * n), dtype, cuda)
+        gate, up = gu[:, :n], gu[:, n:]
+    else:
+        gate, up = (_randn(rng, (rows, n), dtype, cuda) for _ in range(2))
+    with torch.no_grad():
+        got = llama_chain.swiglu(gate, up)
+    torch.cuda.synchronize()
+    want = llama_chain.swiglu_plain(gate.float(), up.float())
+    base = llama_chain.swiglu_plain(gate, up)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert_two_x_bound(got, want, base, label="swiglu")
+
+
+def test_llama_chain_refuses_grad_and_misaligned_rows(cuda):
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        llama_chain.add_rmsnorm(x, None, w, 1e-5)
+    odd = torch.randn(4, 65, device=cuda, dtype=torch.bfloat16)[:, 1:]
+    with torch.no_grad(), pytest.raises(RuntimeError, match="fattn_swiglu"):
+        llama_chain.swiglu(odd, odd)
+
+
+# Kernel names that are not the chain's: GEMMs (cuBLAS, CUTLASS, and
+# cuBLASLt's split-K reduction of a small-batch product) and the attention
+# and cache kernels K5, K6, K7 with their split merge.
+NOT_CHAIN = ("gemm", "cutlass", "nvjet", "xmma", "sm90_", "splitkreduce",
+             "paged_", "write_pages", "append_")
+
+
+def chain_kernels_per_layer(model, cfg, caches, args):
+    """The kernels of one replayed decode step other than GEMMs and
+    K5/K6/K7, by name: those a second layer adds to a one-layer step (the
+    replay's input copies, the embedding, the final norm and the head's
+    cast cancel)."""
+    per = []
+    for layers in (1, 2):
+        cs = caches[:layers]
+        llama_decode.decode_step(model, cfg, cs, *args)  # the capture
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            llama_decode.decode_step(model, cfg, cs, *args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not any(k in e.name.lower() for k in NOT_CHAIN)]
+        per.append(names)
+    extra = list(per[1])
+    for name in per[0]:
+        extra.remove(name)
+    return extra
+
+
+@pytest.mark.parametrize("which, rows, limit", [("mistral", 64, 4),
+                                                ("qwen", 32, 27)])
+def test_llama_chain_kernels_per_layer_of_a_graphed_decode_step(
+        cuda, which, rows, limit):
+    """A graphed decode step's kernels a layer, other than GEMMs and K5:
+    at Mistral-7B's widths the chain's four (two norms, rotary, SwiGLU;
+    47 op by op before them); at Qwen3's those and the experts' routing
+    and dispatch (softmax, top-k, sort, search, gather, index copy,
+    combine: 23; 88 in all before)."""
+    cfg, model = _graph_model(cuda) if which == "mistral" \
+        else _qwen_model(cuda)
+    caches = (_graph_caches if which == "mistral" else _qwen_caches)(
+        cfg, rows, 13, cuda)
+    extra = chain_kernels_per_layer(model, cfg, caches,
+                                    _graph_args("decode_step", rows, 14,
+                                                cfg, cuda))
+    print(f"{which}: {len(extra)} kernels a layer: {sorted(extra)}")
+    assert len(extra) <= limit, sorted(extra)
+    assert sum("add_rmsnorm" in n for n in extra) == 2
+    assert sum("qk_rope" in n for n in extra) == 1
+    assert sum("swiglu" in n for n in extra) == 1

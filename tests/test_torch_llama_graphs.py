@@ -173,7 +173,7 @@ def test_replay_copies_inputs_and_grows_the_counters(monkeypatch):
             seen.append([t.clone() for t in inputs])
 
     before = llama_decode._counts()
-    grown = [2, 3, 1, 2, 4]  # one per entry of _COUNTERS
+    grown = [2 + i % 3 for i in range(len(llama_decode._COUNTERS))]
     g = llama_decode._Graph(Stub(), inputs, out, grown)
     try:
         args = (int32([1, 2, 3]), torch.ones(2, 2))
