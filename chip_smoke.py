@@ -82,9 +82,8 @@ rotary, SwiGLU: kernels/llama_chain.py) are held to their twins and the
 2x rule at Mistral-7B's widths (longdoc's chunk of 8 x 512 tokens and its
 64-row decode step) and at Qwen3-30B-A3B's (a 512-token chunk and its
 32-row decode step, with QK-norm and the routed experts' strided SwiGLU
-halves), and timed there beside their byte bound and twin (the
-``llama_chain`` JSON line); the Llama serving paths must launch them 2L +
-1 / L / L times a phase call, and the training forward not at all.
+halves); the Llama serving paths must launch them 2L + 1 / L / L times a
+phase call, and the training forward not at all.
 A determinism phase requires 10 seeded reruns to agree bit for bit: K1 + K2
 at GPT-2's, ViT-B/16's and the Llama train step's shapes and in segment
 form at BERT's shape,
@@ -93,27 +92,23 @@ Llama-3-8B's decode and chunk shapes, and K5 and K6 with the append at
 Llama's decode and at the verify shape; each paged shape prints the split
 count the host chose for it.
 It prints ptxas's registers and spills, the dynamic shared memory and the
-HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5, K6 and K8a-c,
-and times both paths and every kernel against its twin and, where one
-exists, a PyTorch call computing the same function (SDPA under each of its
-flash, cuDNN and efficient backends pinned in turn, the fastest reported;
-index_copy_ or index_put_ for the cache writes), all by device busy time
-in a profiler trace (dense_timing.busy_ms), since the host can issue a call
-more slowly than the card runs the shortest ones; the host's time to
-issue a kernel call is printed beside. The step traces (train steps, the
-Llama admission and decode) take the same guard against dropped device
-events (dense_timing.trace_call). Any failed check raises and
-the exit code is nonzero. Without CUDA it exits nonzero
-and prints no result. Output, in order: the card and toolchain, per-phase
-lines, the kernels' JSON line, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}. Each phase prints its own
-time on the host clock (``phase ...: N s``).
+HGMMA (wgmma) instructions of the Hopper kernels K1, K2, K5, K6 and K8a-c.
+It times no kernel: dense_timing.py does, at every row of PERF.md's
+kernel table. The host-clock numbers of the paths it drives (steps, TTFT,
+decode rates) and its step traces (busy time, idle share and device time
+by class, through dense_timing.trace_call's guard against dropped device
+events) are printed beside the checks. Any failed check raises and the
+exit code is nonzero. Without CUDA it exits nonzero and prints no result.
+Output, in order: the card and toolchain, per-phase lines, the kernels'
+JSON line (each kernel's launches by path and largest error against its
+twin), the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}. Each phase prints its own time on the host clock
+(``phase ...: N s``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import json
 import math
 import os
@@ -127,26 +122,23 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from dense_timing import (
     APPEND_SHAPES,
+    CHAIN_KERNELS,
+    CHAIN_MODELS,
+    CHUNK_SHAPES,
     MISTRAL_TRAIN,
     MISTRAL_WINDOW,
-    ROTATE,
-    append_inputs,
-    band_pairs,
     bert_lengths,
     bert_padding,
     busy_ms,
+    chain_inputs,
     decode_window,
     device_events,
-    host_ms,
-    k7c_inputs,
-    k8b_inputs,
-    rotating,
+    device_summary,
+    paged_inputs,
     trace_call,
-    union_us,
     window_inputs,
 )
 from flash_attn_tpu_torch import flash_attention
@@ -328,10 +320,6 @@ LLAMA3_8B = LlamaConfig(
     intermediate_size=14336, rope_theta=500000.0,
     max_position_embeddings=8192, rms_norm_eps=1e-5,
     dtype=torch.bfloat16, param_dtype=torch.bfloat16)
-# H100 SXM at 700 W (NVIDIA's data sheet): dense bf16 tensor-core rate and
-# HBM bandwidth, for each kernel's bound.
-PEAK_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 SEED = 1234  # the attention dropout seed of the kernel checks
 # BERT-base (google-research/bert BERT-Base: 12 layers, 12 heads, hidden
 # 768, intermediate 3072, vocab 30522, 512 positions), bf16 compute over
@@ -377,54 +365,8 @@ def packed_inputs(gen, b, h, h_kv, s, d):
     return (*views, dout)
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
-    """The least time the card could take, in ms, and what sets it: each
-    input read once and each output written once at the HBM rate, or the
-    tensor-core products at the bf16 peak."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def causal_pairs(s: int) -> int:
-    return s * (s + 1) // 2
-
-
-SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
-
-
-def sdpa_fastest(make, n=10):
-    """The library yardstick through scaled_dot_product_attention under each
-    backend of SDPA_BACKENDS pinned in turn: ``make()`` builds the call (for
-    a backward, its autograd graph too) under the pin, and busy_ms times it
-    there. Returns (ms, backend) of the fastest backend that accepts the
-    call, and {backend: ms, or None where it refused}."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    times = {}
-    for name in SDPA_BACKENDS:
-        with sdpa_kernel(getattr(SDPBackend, name)):
-            try:
-                fn = make()
-                fn()
-                torch.cuda.synchronize()
-            except RuntimeError:
-                times[name] = None
-                continue
-            times[name] = busy_ms(fn, n=n)
-    ok = {k: v for k, v in times.items() if v is not None}
-    check(ok, "no SDPA backend accepts the library call")
-    best = min(ok, key=ok.get)
-    return ok[best], best, times
-
-
 def reset_launches():
-    for counters, _, _ in KERNELS.values():
-        for fn, attr in counters:
-            setattr(fn, attr, 0)
-    for fn, attr in SIDE_COUNTS.values():
+    for fn, attr in (*_build.COUNTERS, SIDE_COUNTS["kvcache split_appends"]):
         setattr(fn, attr, 0)
 
 
@@ -774,40 +716,12 @@ def chunk_splits(q, kp, table) -> int:
                             kp.shape[2], sm_count(q.device.index))
 
 
-def decode_work(q, kp, lens, table):
-    """Bytes and tensor-core operations paged decode needs: the cached K and
-    V of each active sequence read once, q read and out written for each
-    active sequence (an inactive one's output is 0 by definition), the
-    int32 tables; QK^T and PV over every cached key for each query head."""
-    h, d = q.shape[1:]
-    live, active = int(lens.clamp(min=0).sum()), int((lens > 0).sum())
-    elem = q.element_size()
-    return (2 * live * kp.shape[0] * d * elem + 2 * active * h * d * elem
-            + nbytes(lens, table), 4 * live * h * d)
-
-
 def dense_decode_refs(q, kp, vp, lens, table):
     """fp32 and same-dtype dense attention over each sequence's keys: the
     chunk oracle at sq = 1 (the query is each sequence's last position)."""
     one = (lens > 0).to(torch.int32)
     return tuple(paged_chunk_ref(q[:, None], kp, vp, lens, table, one,
                                  upcast=up)[:, 0] for up in (True, False))
-
-
-# name: (lengths including the chunk, chunk_lens, sq, h, h_kv, d, pages_max)
-CHUNK_SHAPES = {
-    # an engine chunk of GPT-2: rows in their first to fourth chunk, short
-    # rows, a padding row
-    "GPT-2 chunk": ([9, 200, 256, 300, 512, 777, 1000, 600],
-                    [9, 200, 256, 44, 256, 9, 232, 0], 256, 12, 12, 64, 8),
-    # an engine chunk of Llama-3-8B: GQA 32/8, head_dim 128
-    "Llama chunk": ([300, 512, 1024, 1500, 2048, 3000, 4000, 700],
-                    [300, 512, 512, 476, 512, 440, 416, 188], 512, 32, 8,
-                    128, 32),
-    # speculative verification: [last, d1..d4]
-    "verify": ([5, 6, 130, 500, 505, 1000, 17, 0],
-               [5, 5, 5, 5, 5, 3, 5, 0], 5, 12, 12, 64, 8),
-}
 
 
 def chunk_inputs(gen, shape):
@@ -904,12 +818,12 @@ def phase_chunk_kernels(gen, errs):
 
 
 def fused_route(shape):
-    """On dense_timing.append_inputs(shape) (the serving path's views of
+    """On dense_timing.paged_inputs(shape) (the serving path's views of
     the projections): the attention kernel with the append in its launch,
     and the standalone append followed by the same kernel on a copy of the
     cache. Returns (fused out, its cache, two-launch out, its cache, the
     pages to compare (K7a writes page 0 for inactive slots), split count)."""
-    c, table, lens, before, new, q, k, v = append_inputs(DEV, shape)
+    c, table, lens, before, new, q, k, v = paged_inputs(DEV, shape)
     pair = cache.PagedKVCache(c.k_pages.clone(), c.v_pages.clone())
     if new is None:
         out = paged_decode_with_append(q, k, v, c.k_pages, c.v_pages, before,
@@ -949,74 +863,6 @@ def phase_fused_kernels():
     torch.cuda.empty_cache()
 
 
-# The serving chain's kernels (kernels/llama_chain.py) at the widths of the
-# two served models: Mistral-7B (longdoc's chunk of 8 x 512 tokens and its
-# 64-row decode step) and Qwen3-30B-A3B (a 512-token chunk and turns'
-# 32-row decode step: QK-norm, and SwiGLU on the halves of the routed
-# experts' fused product, top-8 slots a token).
-CHAIN_MODELS = {
-    # model: (n_embd, n_head, n_kv_head, head_dim, rope_theta, rms_norm_eps,
-    #         MLP width, experts per token (None: dense), {shape: (b, s)})
-    "Mistral-7B": (4096, 32, 8, 128, 1e4, 1e-5, 14336, None,
-                   {"chunk 8x512": (8, 512), "decode 64": (64, 1)}),
-    "Qwen3-30B-A3B": (2048, 32, 4, 128, 1e6, 1e-6, 768, 8,
-                      {"chunk 1x512": (1, 512), "decode 32": (32, 1)}),
-}
-CHAIN_KERNELS = ("add_rmsnorm", "qk_rope", "swiglu")
-L2_BYTES = 50 * 2**20  # H100 SXM
-
-
-def chain_inputs(model, b, s, seed):
-    """One layer's chain operands of CHAIN_MODELS[model] for b x s tokens,
-    bf16: the residual and the pending sublayer output (b s, n_embd) with
-    the norm weight, q (b, s, n_head, hd) and k (b, s, n_kv_head, hd) as
-    views of one projection with positions to 7000 (with QK-norm weights
-    where the model has them), and gate and up: two (b s, width) products,
-    or for routed experts the halves gu[:, :I] and gu[:, I:] of one (b s
-    top_k, 2 I) product."""
-    e, h, h_kv, hd, theta, eps, width, top_k, _ = CHAIN_MODELS[model]
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    rows = b * s
-    qkv = randn(g, (b, s, h + 2 * h_kv, hd))
-    pos = (torch.randint(0, 7000 - s + 1, (b, 1), generator=g, device=DEV)
-           + torch.arange(s, device=DEV))
-
-    def weight(n):
-        return (0.5 + torch.rand(n, generator=g, device=DEV)).to(BF16)
-
-    if top_k is None:
-        gate, up = randn(g, (rows, width)), randn(g, (rows, width))
-    else:
-        gu = randn(g, (rows * top_k, 2 * width))
-        gate, up = gu[:, :width], gu[:, width:]
-    return {"x": randn(g, (rows, e)), "d": randn(g, (rows, e)),
-            "w": weight(e), "eps": eps,
-            "q": qkv[:, :, :h], "k": qkv[:, :, h:h + h_kv], "pos": pos,
-            "inv_freq": llama_chain.rope_inv_freq(hd, theta, DEV),
-            "norms": ((None, None) if top_k is None
-                      else (weight(hd), weight(hd))),
-            "gate": gate, "up": up}
-
-
-def chain_calls(a, plain=False):
-    """{kernel: (call, bytes it must move)} on inputs ``a``."""
-    m = llama_chain
-    norm = m.add_rmsnorm_plain if plain else m.add_rmsnorm
-    rope = m.qk_rope_plain if plain else m.qk_rope
-    glu = m.swiglu_plain if plain else m.swiglu
-    norms = [w for w in a["norms"] if w is not None]
-    return {
-        "add_rmsnorm": (lambda: norm(a["x"], a["d"], a["w"], a["eps"]),
-                        4 * nbytes(a["x"]) + nbytes(a["w"])),
-        "qk_rope": (lambda: rope(a["q"], a["k"], a["pos"], a["inv_freq"],
-                                 *a["norms"], eps=a["eps"]),
-                    2 * (a["q"].numel() + a["k"].numel()) * 2
-                    + nbytes(a["pos"], a["inv_freq"], *norms)),
-        "swiglu": (lambda: glu(a["gate"], a["up"]),
-                   3 * nbytes(a["gate"])),
-    }
-
-
 def check_chain(label, a, errs):
     """The three kernels on inputs ``a`` against their twins: the residual
     sum bit for bit, the rest under the 2x rule against fp32. Records each
@@ -1049,11 +895,7 @@ def check_chain(label, a, errs):
 
 def phase_chain_kernels(errs):
     """add_rmsnorm, qk_rope and swiglu against their twins (check_chain) at
-    every shape of CHAIN_MODELS, their registers and spills, and their
-    device time by busy_ms beside the byte bound and the twin's (a chunk's
-    calls cycle through enough input sets that each kernel's operands over
-    the sets are twice the L2, so that no call runs from it). Returns
-    {kernel: {"<model> <shape>": row}} for the kernels' JSON line."""
+    every shape of CHAIN_MODELS, and their registers and spills."""
     log = _build.build_log() or ""
     name, seen = None, set()
     for line in log.splitlines():
@@ -1067,36 +909,15 @@ def phase_chain_kernels(errs):
             print(f"ptxas {name} (bf16): {line.strip()}")
             if "Used" in line:
                 seen.add(name)
-    rows_out = {}
     with torch.no_grad():
         for model, (*_, shapes) in CHAIN_MODELS.items():
             for shape, (b, s) in shapes.items():
-                label = f"{model} {shape}"
-                a = chain_inputs(model, b, s, 0)
-                check_chain(label, a, errs)
-                least = min(n for _, n in chain_calls(a).values())
-                n_sets = max(ROTATE, -(-2 * L2_BYTES // least)) if s > 1 \
-                    else 1
-                sets = [a] + [chain_inputs(model, b, s, 1 + i)
-                              for i in range(n_sets - 1)]
-                kernel = [chain_calls(x) for x in sets]
-                plain = [chain_calls(x, plain=True) for x in sets]
-                for name in CHAIN_KERNELS:
-                    k_ms = busy_ms(rotating([c[name][0] for c in kernel]))
-                    p_ms = busy_ms(rotating([c[name][0] for c in plain]),
-                                   n=3)
-                    b_ms, _ = bound(kernel[0][name][1], 0)
-                    rows_out.setdefault(name, {})[label] = {
-                        "ms": k_ms, "bound_ms": b_ms, "bound_by": "bytes",
-                        "plain_ms": p_ms}
-                    print(f"{name} ({label}, bf16, {len(sets)} input "
-                          f"sets): kernel {k_ms:.4f} ms, bound {b_ms:.4f} "
-                          f"ms (bytes), plain {p_ms:.4f} ms "
-                          f"[{card_line()}]")
-                del a, sets, kernel, plain
-                torch.cuda.empty_cache()
-    print(json.dumps({"llama_chain": rows_out}))
-    return rows_out
+                check_chain(f"{model} {shape}",
+                            chain_inputs(DEV, model, b, s, 0), errs)
+                print(f"llama chain {model} {shape}: add_rmsnorm, qk_rope "
+                      "and swiglu within the 2x rule of fp32, the residual "
+                      "sum bit for bit")
+        torch.cuda.empty_cache()
 
 
 def check_chain_launches(label, launches, n_layer):
@@ -1178,13 +999,13 @@ def phase_determinism(gen, n=10):
     same(f"paged_chunk verify, {chunk_splits(q, kp, table)} splits",
          lambda: (paged_chunk_attention(q, kp, vp, lens, table,
                                         chunk_lens=cl),))
-    c, table, lens, before, _, q, k, v = append_inputs(DEV, "Llama decode")
+    c, table, lens, before, _, q, k, v = paged_inputs(DEV, "Llama decode")
     same(f"paged_decode_with_append Llama decode, "
          f"{decode_splits(q, c.k_pages, table)} splits (out, pages)",
          lambda: (paged_decode_with_append(q, k, v, c.k_pages, c.v_pages,
                                            before, table),
                   c.k_pages, c.v_pages))
-    c, table, lens, before, new, q, k, v = append_inputs(DEV, "verify")
+    c, table, lens, before, new, q, k, v = paged_inputs(DEV, "verify")
     same(f"paged_chunk with the append, verify, "
          f"{chunk_splits(q, c.k_pages, table)} splits (out, pages)",
          lambda: (paged_chunk_attention(q, c.k_pages, c.v_pages, lens, table,
@@ -1609,371 +1430,6 @@ def phase_llama(rng):
     return launches
 
 
-def chunk_work(shape, elem=2):
-    """Bytes and tensor-core operations paged chunk attention needs on
-    CHUNK_SHAPES[shape]: q read for each live row (a padding row's output
-    is 0 by definition), out written for every row, the cached K and V of
-    each sequence with a live row read once, the int32 tables; QK^T and PV
-    over each live row's visible keys."""
-    lengths, chunk_lens, sq, h, h_kv, d, pages_max = CHUNK_SHAPES[shape]
-    keys = sum(n for n, c in zip(lengths, chunk_lens) if c > 0)
-    pairs = sum(n - c + t + 1 for n, c in zip(lengths, chunk_lens)
-                for t in range(c))
-    rows = sum(chunk_lens) + len(lengths) * sq  # q read, out written
-    n_bytes = (rows * h * d + 2 * keys * h_kv * d) * elem \
-        + 4 * len(lengths) * (2 + pages_max)
-    return n_bytes, 4 * pairs * h * d
-
-
-def sdpa_fwd(q, k, v, p=0.0, mask=None, causal=True):
-    """The SDPA forward yardstick: causal (or not), or with a boolean
-    mask."""
-    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
-    gqa = k.shape[1] != q.shape[1]
-    return lambda: lambda: F.scaled_dot_product_attention(
-        q, k, v, dropout_p=p, enable_gqa=gqa, **kw)
-
-
-def sdpa_bwd(q, k, v, dout, p=0.0, mask=None, wrt="qkv", causal=True):
-    """The SDPA backward yardstick: the gradients ``wrt`` of a graph built
-    under the pinned backend."""
-    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
-    gqa = k.shape[1] != q.shape[1]
-
-    def make():
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, dropout_p=p,
-                                             enable_gqa=gqa, **kw)
-        wanted = [leaves["qkv".index(c)] for c in wrt]
-        return lambda: torch.autograd.grad(out, wanted, dout,
-                                           retain_graph=True)
-    return make
-
-
-@dataclasses.dataclass
-class TorchCall:
-    """A library yardstick that is a plain PyTorch call, not SDPA:
-    ``label`` names it in the output and ``fn`` runs it."""
-    label: str
-    fn: object
-
-
-def cache_library_calls(pages, prompt, chunks, token, span):
-    """The one PyTorch call per cache (K, then V) that writes what each
-    cache-write kernel writes, with its indices and its sources in the
-    cache's layout made here, outside the timed call: index_copy_ of whole
-    pages for write_pages (on the Llama chunk, each of ``chunks``' input
-    sets in turn, as the kernel is timed), index_put_ of token rows for
-    append_token and append_span. {kernel timing row: TorchCall}."""
-    ps = pages.page_size
-
-    def copy_pages(c, k, v, table):
-        """index_copy_ of row r's (zero-tailed) pages to table[r]."""
-        b, n_pages = table.shape
-        ids = table.reshape(-1).long()
-        src = []
-        for x in (k, v):
-            xp = x.new_zeros((b, n_pages * ps, *x.shape[2:]))
-            xp[:, : x.shape[1]] = x
-            src.append(xp.reshape(b * n_pages, ps, *x.shape[2:])
-                       .permute(2, 0, 1, 3).contiguous())
-        return lambda: (c.k_pages.index_copy_(1, ids, src[0]),
-                        c.v_pages.index_copy_(1, ids, src[1]))
-
-    def put_rows(page_ids, slots, k, v):
-        """index_put_ of (n, h, d) token rows at (page_ids, slots)."""
-        heads = torch.arange(k.shape[1], device=DEV)[:, None]
-        idx = (heads, page_ids, slots)
-        kt, vt = (x.transpose(0, 1).contiguous() for x in (k, v))
-        return TorchCall("index_put_ of token rows, K and V", lambda: (
-            pages.k_pages.index_put_(idx, kt),
-            pages.v_pages.index_put_(idx, vt)))
-
-    kw, vw, ids = prompt
-    nk, nv, tbl8, l8 = token
-    ok = (l8 >= 0) & (l8.long() // ps < tbl8.shape[1])
-    rows = torch.arange(tbl8.shape[0], device=DEV)
-    token_pages = torch.where(
-        ok, tbl8[rows, (l8.long().clamp(min=0) // ps).clamp(
-            max=tbl8.shape[1] - 1)].long(), 0)
-    sk, sv, _, span_lens, span_new = span
-    t = torch.arange(sk.shape[1], device=DEV)
-    pos = span_lens.long()[:, None] + t
-    live = (span_lens[:, None] >= 0) & (t < span_new[:, None]) \
-        & (pos // ps < tbl8.shape[1])
-    b_idx, t_idx = live.nonzero(as_tuple=True)
-    p = pos[b_idx, t_idx]
-    copy_label = "index_copy_ of pages, K and V"
-    return {
-        "write_pages": TorchCall(copy_label, copy_pages(
-            pages, kw[None], vw[None], ids[None])),
-        "write_pages (Llama chunk)": TorchCall(copy_label, rotating(
-            [copy_pages(*inputs) for inputs in chunks])),
-        "append_token": put_rows(token_pages, torch.where(
-            ok, l8.long() % ps, 0), nk, nv),
-        "append_span": put_rows(tbl8[b_idx, p // ps].long(), p % ps,
-                                sk[b_idx, t_idx], sv[b_idx, t_idx]),
-    }
-
-
-def append_timing_specs():
-    """K5 and K6 alone and with the append in their launch on
-    dense_timing.append_inputs (the serving path's views of the
-    projections) at GPT-2's and Llama-3-8B's decode shapes and at
-    verification: the fused rows' marginal cost over the kernel alone, in
-    one run. The bound adds each new row's read and write to the kernel's;
-    the plain versions are the twins of the two-launch route."""
-    specs = {}
-    for shape, (lengths, chunk, sq, h, h_kv, d, _) in APPEND_SHAPES.items():
-        c, table, lens, before, new, q, k, v = append_inputs(DEV, shape)
-        pages = (c.k_pages, c.v_pages)
-        scale = d ** -0.5
-        if new is None:
-            n_bytes, flops = decode_work(q, c.k_pages, lens, table)
-            rows = len(lengths)
-            specs[f"K5 alone ({shape})"] = (
-                functools.partial(paged_decode_attention, q, *pages, lens,
-                                  table),
-                functools.partial(paged_decode_attention_plain, q, *pages,
-                                  lens, table, softmax_scale=scale),
-                None, n_bytes, flops)
-            specs[f"K5 with the append ({shape})"] = (
-                functools.partial(paged_decode_with_append, q, k, v, *pages,
-                                  before, table),
-                lambda a=(c, q, k, v, table, before), s=scale: (
-                    cache.append_token_plain(a[0], *a[2:]),
-                    paged_decode_attention_plain(
-                        a[1], a[0].k_pages, a[0].v_pages,
-                        (a[5].clamp(min=0) + 1).int(), a[4],
-                        softmax_scale=s)),
-                None, n_bytes + 4 * rows * h_kv * d * k.element_size(),
-                flops)
-            continue
-        n_bytes, flops = chunk_work(shape)
-        cap = 128 * table.shape[1]
-        rows = sum(max(0, min(n, cap - (t - n))) for t, n in
-                   zip(lengths, chunk) if t - n >= 0)  # rows K7b stores
-        specs[f"K6 alone ({shape})"] = (
-            functools.partial(paged_chunk_attention, q, *pages, lens, table,
-                              chunk_lens=new),
-            functools.partial(paged_chunk_attention_plain, q, *pages, lens,
-                              table, chunk_lens=new, softmax_scale=scale),
-            None, n_bytes, flops)
-        specs[f"K6 with the append ({shape})"] = (
-            functools.partial(paged_chunk_attention, q, *pages, lens, table,
-                              chunk_lens=new, new_k=k, new_v=v,
-                              cache_seqlens=before),
-            lambda a=(c, q, k, v, table, before, new, lens), s=scale: (
-                cache.append_span_plain(a[0], a[2], a[3], a[4], a[5], a[6]),
-                paged_chunk_attention_plain(
-                    a[1], a[0].k_pages, a[0].v_pages, a[7], a[4],
-                    chunk_lens=a[6], softmax_scale=s)),
-            None, n_bytes + 4 * rows * h_kv * d * k.element_size(), flops)
-    return specs
-
-
-def kernel_timing(gen):
-    """Each kernel against its twin and, where one exists, a single PyTorch
-    call computing the same function, at the main paths' shapes, in turns
-    (kernel, plain, kernel: the plain twin, 10-1000x slower, is timed once,
-    over 3 calls;
-    the library call last, under each pinned
-    SDPA backend). Returns {name: (ms, plain_ms, library_ms, bound_ms,
-    bound_by, library_backend)}."""
-    card = card_line()
-    # K1 at the serving bucket (b=8, s=768, no lse) and at the train step
-    # (s=1024, dropout 0.1, lse saved); K2 at the train step.
-    q = randn(gen, (8, 12, 768, 64))
-    k, v = randn(gen, (8, 12, 768, 64)), randn(gen, (8, 12, 768, 64))
-    fwd = dict(causal=True, softmax_scale=0.125, save_lse=False)
-    qt, kt, vt, dt = (randn(gen, (8, 12, 1024, 64)) for _ in range(4))
-    train = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
-    ot, lt = flash_attention_fwd(qt, kt, vt, save_lse=True, **train)
-    # K1 and K2 at the Llama-3-8B-width train step's attention (GQA 32/8,
-    # d=128, b=4, s=2048; Llama serving prefills through K6).
-    qa, da = randn(gen, (4, 32, 2048, 128)), randn(gen, (4, 32, 2048, 128))
-    ka, va = randn(gen, (4, 8, 2048, 128)), randn(gen, (4, 8, 2048, 128))
-    wide = dict(causal=True, softmax_scale=128 ** -0.5)
-    oa, la = flash_attention_fwd(qa, ka, va, save_lse=True, **wide)
-    qd, kp, vp, dl, tbl = decode_inputs(gen)
-    ql, kl, vl, ll, tl = decode_inputs(gen, "Llama decode")
-    # K7c on dense_timing's inputs: GPT-2's prompt, and one layer of
-    # Llama-3-8B's chunk (8 rows x 512 tokens into 4 pages each) on four
-    # input sets in turn, 137 MB, so that the timed calls miss L2.
-    (pages, kw, vw, ids), chunks = k7c_inputs(DEV)
-    nk, nv = randn(gen, (8, 12, 64)), randn(gen, (8, 12, 64))
-    tbl8 = torch.arange(1, 65, dtype=torch.int32, device=DEV).reshape(8, 8)
-    l8 = torch.tensor([5, 127, 128, 300, -1, 640, 999, 0], dtype=torch.int32,
-                      device=DEV)
-    sk, sv = randn(gen, (8, 5, 12, 64)), randn(gen, (8, 5, 12, 64))
-    span = ([5, 125, 128, 300, -1, 1020, 638, 0], [5, 5, 5, 2, 5, 5, 5, 0])
-    span_lens, span_new = int32(span[0]), int32(span[1])
-    written = sum(1 for n, c in zip(*span) if n >= 0 for t in range(c)
-                  if (n + t) // 128 < 8)  # tokens append_span stores
-    libs = cache_library_calls(pages, (kw, vw, ids), chunks,
-                               (nk, nv, tbl8, l8),
-                               (sk, sv, tbl8, span_lens, span_new))
-
-    specs = {
-        # name: (kernel, plain twin, library call or None, bytes, flops)
-        "flash_fwd": (
-            lambda: flash_attention_fwd(q, k, v, **fwd),
-            lambda: flash_attention_fwd_plain(q, k, v, **fwd),
-            sdpa_fwd(q, k, v),
-            nbytes(q, k, v, q), 4 * 8 * 12 * causal_pairs(768) * 64),
-        "flash_fwd (train step, dropout 0.1, lse)": (
-            lambda: flash_attention_fwd(qt, kt, vt, save_lse=True, **train),
-            lambda: flash_attention_fwd_plain(qt, kt, vt, save_lse=True,
-                                              **train),
-            sdpa_fwd(qt, kt, vt, p=0.1),
-            nbytes(qt, kt, vt, qt, lt),
-            4 * 8 * 12 * causal_pairs(1024) * 64),
-        "flash_bwd": (
-            lambda: flash_attention_bwd(qt, kt, vt, ot, dt, lt, **train),
-            lambda: flash_attention_bwd_plain(qt, kt, vt, ot, dt, lt, **train),
-            sdpa_bwd(qt, kt, vt, dt, p=0.1),
-            nbytes(qt, kt, vt, ot, dt, lt) + nbytes(qt, kt, vt),
-            10 * 8 * 12 * causal_pairs(1024) * 64),
-        "flash_fwd (Llama train, lse)": (
-            lambda: flash_attention_fwd(qa, ka, va, save_lse=True, **wide),
-            lambda: flash_attention_fwd_plain(qa, ka, va, save_lse=True,
-                                              **wide),
-            sdpa_fwd(qa, ka, va),
-            nbytes(qa, ka, va, qa, la),
-            4 * 4 * 32 * causal_pairs(2048) * 128),
-        "flash_bwd (Llama train)": (
-            lambda: flash_attention_bwd(qa, ka, va, oa, da, la, **wide),
-            lambda: flash_attention_bwd_plain(qa, ka, va, oa, da, la, **wide),
-            sdpa_bwd(qa, ka, va, da),
-            nbytes(qa, ka, va, oa, da, la) + nbytes(qa, ka, va),
-            10 * 4 * 32 * causal_pairs(2048) * 128),
-        "paged_decode": (
-            lambda: paged_decode_attention(qd, kp, vp, dl, tbl),
-            lambda: paged_decode_attention_plain(qd, kp, vp, dl, tbl,
-                                                 softmax_scale=0.125),
-            None, *decode_work(qd, kp, dl, tbl)),
-        "paged_decode (Llama decode)": (
-            lambda: paged_decode_attention(ql, kl, vl, ll, tl),
-            lambda: paged_decode_attention_plain(ql, kl, vl, ll, tl,
-                                                 softmax_scale=128 ** -0.5),
-            None, *decode_work(ql, kl, ll, tl)),
-        "append_token": (
-            lambda: cache.append_token(pages, nk, nv, tbl8, l8),
-            lambda: cache.append_token_plain(pages, nk, nv, tbl8, l8),
-            libs["append_token"], 2 * nbytes(nk, nv) + nbytes(tbl8, l8), 0),
-        "write_pages": (
-            lambda: cache.write_prompt(pages, kw, vw, ids),
-            lambda: cache.write_prompt_plain(pages, kw, vw, ids),
-            libs["write_pages"], 2 * nbytes(kw, vw) + nbytes(ids), 0),
-        "write_pages (Llama chunk)": (
-            rotating([functools.partial(cache._write_prompts, *inputs)
-                      for inputs in chunks]),
-            rotating([functools.partial(cache._write_prompts_plain, *inputs)
-                      for inputs in chunks]),
-            libs["write_pages (Llama chunk)"],
-            2 * nbytes(*chunks[0][1:3]) + nbytes(chunks[0][3]), 0),
-        "append_span": (
-            lambda: cache.append_span(pages, sk, sv, tbl8, span_lens,
-                                      span_new),
-            lambda: cache.append_span_plain(pages, sk, sv, tbl8, span_lens,
-                                            span_new),
-            libs["append_span"], 4 * written * 12 * 64 * sk.element_size()
-            + nbytes(tbl8, span_lens, span_new), 0),
-    }
-    for shape in CHUNK_SHAPES:
-        name = "paged_chunk" if shape == "GPT-2 chunk" \
-            else f"paged_chunk ({shape})"
-        args = chunk_inputs(gen, shape)
-        specs[name] = (
-            lambda a=args: paged_chunk_attention(*a[:5], chunk_lens=a[5]),
-            lambda a=args: paged_chunk_attention_plain(
-                *a[:5], chunk_lens=a[5], softmax_scale=a[0].shape[-1] ** -0.5),
-            None, *chunk_work(shape))
-    specs.update(vit_timing_specs(gen))
-    specs.update(append_timing_specs())
-    specs.update(bs_timing_specs())
-    bert_specs, plan_call = bert_timing_specs(gen)
-    specs.update(bert_specs)
-    plan_ms, plan_host = busy_ms(plan_call), host_ms(plan_call)
-    print(f"segment plan (BERT, csrc/segments.cu, one launch; inside the "
-          f"flash_fwd (BERT, segments) row): {plan_ms:.4f} ms (host "
-          f"{plan_host:.4f} ms to issue a call) [{card}]")
-    times = {}
-    for name, (kern, plain, library, n_bytes, flops, *tiles) in specs.items():
-        t_row = time.perf_counter()
-        # The plain twins launch hundreds of small kernels a call, whose
-        # trace dominates a row's time: three calls of them suffice.
-        k1, p1, k2 = busy_ms(kern), busy_ms(plain, n=3), busy_ms(kern)
-        host = host_ms(kern)
-        lib_ms = backend = None
-        lib = "none"
-        if isinstance(library, TorchCall):
-            lib_ms, backend = busy_ms(library.fn), library.label
-            lib = f"{lib_ms:.4f} ms ({backend})"
-        elif library is not None:
-            lib_ms, backend, each = sdpa_fastest(library)
-            lib = f"{lib_ms:.4f} ms ({backend}; " + ", ".join(
-                f"{b} {'refused' if t is None else f'{t:.4f}'}"
-                for b, t in each.items()) + ")"
-        b_ms, b_by = bound(n_bytes, flops)
-        times[name] = (min(k1, k2), p1, lib_ms, b_ms, b_by, backend)
-        live = ""
-        if tiles:  # K8: (live 64x64 tiles, their products' operations)
-            n_tiles, tile_flops = tiles[0]
-            live = (f"; {n_tiles} live 64x64 tiles, {tile_flops / 1e9:.2f} "
-                    f"GFLOP on them, {tile_flops / min(k1, k2) / 1e9:.1f} "
-                    f"TFLOP/s on live tiles")
-        print(f"{name}: kernel {k1:.4f} / {k2:.4f} ms (host {host:.4f} ms "
-              f"to issue a call), plain {p1:.4f} ms, library {lib}, bound "
-              f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP){live} [{card}]; row timed in "
-              f"{time.perf_counter() - t_row:.1f} s")
-    print("shapes: flash_fwd b=8 h=12 s=768 d=64 causal (the serving "
-          "bucket), library = SDPA forward; flash_fwd (train step) and "
-          "flash_bwd b=8 h=12 s=1024 d=64 causal dropout 0.1, library = SDPA "
-          "forward / backward with the "
-          "same dropout; the Llama train rows b=4 h=32/8 s=2048 d=128 "
-          "causal (the Llama-3-8B-width train step), library = SDPA with "
-          "enable_gqa; the ViT-B/16 rows b=64 h=12 s=196 d=64 non-causal, "
-          "dropout 0.1; every "
-          "library time is the fastest of SDPA's flash, cuDNN and efficient "
-          "backends pinned in turn (graph built under the pin), named in "
-          "brackets; kernel, plain and library times are device busy time "
-          "in a profiler trace of 10 calls (dense_timing.busy_ms), host = "
-          "the host's time to issue one kernel call; "
-          "paged_decode at "
-          "DECODE_SHAPES (GPT-2 decode b=8 h=12 d=64 page 128, lengths "
-          "0..1000; Llama decode b=8 h=32/8 d=128, lengths 300..4020); "
-          "append_token b=8 h=12; write_pages 768 tokens into 6 pages "
-          "(h=12 d=64) and, as on Llama-3-8B's chunked path, 8 rows x 512 "
-          "tokens into 4 pages each (h_kv=8 d=128) in one launch, each call "
-          "on the next of 4 input sets (137 MB, over the 50 MB L2); "
-          "append_span b=8 sq=5 h=12 d=64 (the K7b check's rows); K5 and K6 "
-          "alone and with the append at dense_timing.APPEND_SHAPES (GPT-2 "
-          "and Llama decode, verify: views of the projections, lengths "
-          "before the append one less, or the chunk less); the cache "
-          "writes' library = index_copy_ along the page axis from sources "
-          "already in page layout (write_pages) or index_put_ (append_*), "
-          "one call each for K and V, indices made outside the timed call; "
-          "paged_chunk at CHUNK_SHAPES (GPT-2 chunk b=8 sq=256 h=12 d=64, "
-          "Llama chunk b=8 sq=512 h=32/8 d=128, verify b=8 sq=5 h=12 d=64); "
-          "blocksparse_* at BS_SHAPES (i) (b=8 h=12 s=1024 d=64 causal "
-          "LocalGlobalSparsityConfig(window=256), dropout 0.1) and (ii) "
-          "(config 4: b=1 h=8 s=8192 d=64 causal, 25% random cells), the "
-          "dkv and dq rows' plain = the whole plain backward, library = SDPA "
-          "with the element mask as attn_mask (forward; backward for k, v "
-          "and for q), bound by operations over visible pairs (4d forward, "
-          "8d dK/dV, 6d dQ); flash_fwd / flash_bwd (BERT, segments) at b=32 "
-          "h=12 s=512 d=64, the BERT batch's padding masks (lengths uniform "
-          "in [171, 512]), non-causal, dropout 0.1, lse; their bound counts "
-          "the "
-          "real rows of q, k, v (and o, dout) read, the outputs written "
-          "whole and the visible pairs' products, library = SDPA with the "
-          "key-padding mask as attn_mask; all bf16")
-    print_sparsity_pays(times)
-    return times
-
-
 # ---------------------------------------------------------------- phase 5
 
 def train_model(cfg, attn_impl=None):
@@ -2029,44 +1485,6 @@ def phase_train(n_steps=6):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{launches}")
     return launches, step, batch, gen, model, opt
-
-
-KERNEL_CLASSES = [  # (class, substrings of the kernel name), first match
-    ("blocksparse (K8)", ("bs_fwd", "bs_dkv", "bs_dq", "bs_stats")),
-    ("flash_bwd (K2)", ("flash_bwd", "bwd_stats", "bwd_dq")),
-    ("flash_fwd (K1)", ("flash_fwd",)),
-    ("paged_decode (K5)", ("paged_decode",)),
-    ("paged_chunk (K6)", ("paged_chunk",)),
-    ("cache writes (K7)", ("append_token", "append_span", "write_pages")),
-    ("GEMM", ("gemm", "cutlass", "nvjet", "xmma", "sm90_")),
-    ("optimizer", ("multi_tensor", "adam")),
-    ("loss", ("cross_entropy", "softmax", "nll")),
-    ("layer_norm", ("layer_norm",)),
-    ("dropout RNG", ("philox", "distribution", "uniform")),
-    ("copies", ("memcpy", "memset", "copy")),
-]
-
-
-def device_summary(wall, events):
-    """GPU span, busy time (the union of the trace's kernel, memcpy and
-    memset intervals), idle share and device time by kernel class."""
-    dev = device_events(events)
-    busy = union_us(dev)
-    span = (max(e["ts"] + e["dur"] for e in dev)
-            - min(e["ts"] for e in dev))
-    by_class = {}
-    for e in dev:
-        name = (e.get("cat", "") + " " + e.get("name", "")).lower()
-        cls = next((c for c, keys in KERNEL_CLASSES
-                    if any(k in name for k in keys)), "elementwise/other")
-        by_class[cls] = by_class.get(cls, 0.0) + e["dur"]
-    total = sum(by_class.values())
-    shares = ", ".join(f"{c} {t / total * 100:.1f}%" for c, t in sorted(
-        by_class.items(), key=lambda kv: -kv[1]))
-    return (f"wall {wall:.2f} ms (traced), GPU span {span / 1e3:.2f} ms, "
-            f"device busy {busy / 1e3:.2f} ms, idle "
-            f"{(1 - busy / span) * 100:.1f}% of the span; {len(dev)} device "
-            f"events; device time by class: {shares}")
 
 
 def trace_step(label, call, k1, k2, segments=False, band=False):
@@ -2314,28 +1732,6 @@ def phase_vit_check(batch):
         lambda m: classification_loss(m(batch["images"]), batch["labels"]))
 
 
-def vit_timing_specs(gen):
-    """kernel_timing rows of K1 and K2 at ViT-B/16's attention (b=64 h=12
-    s=196 d=64, non-causal, dropout 0.1, lse saved)."""
-    q, k, v, do = (randn(gen, (VIT_B, 12, 196, 64)) for _ in range(4))
-    kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
-    out, lse = flash_attention_fwd(q, k, v, save_lse=True, **kw)
-    pairs = VIT_B * 12 * 196 * 196
-    return {
-        "flash_fwd (ViT-B/16, dropout 0.1, lse)": (
-            lambda: flash_attention_fwd(q, k, v, save_lse=True, **kw),
-            lambda: flash_attention_fwd_plain(q, k, v, save_lse=True, **kw),
-            sdpa_fwd(q, k, v, p=0.1, causal=False),
-            nbytes(q, k, v, q, lse), 4 * pairs * 64),
-        "flash_bwd (ViT-B/16, dropout 0.1)": (
-            lambda: flash_attention_bwd(q, k, v, out, do, lse, **kw),
-            lambda: flash_attention_bwd_plain(q, k, v, out, do, lse, **kw),
-            sdpa_bwd(q, k, v, do, p=0.1, causal=False),
-            nbytes(q, k, v, out, do, lse) + nbytes(q, k, v),
-            10 * pairs * 64),
-    }
-
-
 # ---------------------------------------------------------------- Llama train
 
 # Llama-3-8B's widths (LLAMA3_8B) cut to 2 layers, fp32 weights and AdamW
@@ -2509,11 +1905,6 @@ def padding_segments():
     """The BERT batch's padding masks in segment form (dense_timing
     bert_padding)."""
     return Segments(*bert_padding(DEV, BERT_B, BERT_S))
-
-
-def visible_pairs(seg, causal=False):
-    """Visible (query, key) pairs of one head, summed over the batch."""
-    return int(segment_mask(seg, causal).sum())
 
 
 def bert_batch(cfg):
@@ -2707,48 +2098,6 @@ def phase_bert_check(batch):
                              attention_mask=batch["attention_mask"]),
                            batch["labels"], batch["label_mask"]))
     torch.cuda.empty_cache()
-
-
-def bert_timing_specs(gen):
-    """kernel_timing rows of K1 and K2 in segment form at BERT's attention
-    shape (the BERT batch's padding masks, dropout 0.1, lse saved; K1's row
-    includes its tile plan, made inside the call as on the path, K2 reuses
-    the forward's) and the plan alone (the same kernels without a mask are
-    dense_timing.py's "BERT" rows). Bound: the real rows of q, k, v (and o, dout for
-    K2) read once, o (dq, dk, dv) written whole; products over the visible
-    pairs only (4 d flops each forward, 10 d backward). Library: SDPA with
-    the boolean key-padding mask (b, 1, 1, s) as attn_mask (every query row
-    attends the real keys). Returns (specs, a call making the plan
-    alone)."""
-    seg = padding_segments()
-    q, k, v, dout = packed_inputs(gen, BERT_B, 12, 12, BERT_S, 64)
-    kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=SEED)
-    plan = Segments(seg.q_seg, seg.kv_seg, seg.q_pos, seg.kv_pos)
-    o, lse = flash_attention_fwd(q, k, v, save_lse=True, segments=plan, **kw)
-    pairs = visible_pairs(seg) * 12
-    real = int((seg.q_seg >= 0).sum()) / (BERT_B * BERT_S)
-    row = nbytes(q)  # one (b, h, s, d) bf16 operand
-    key_mask = (seg.kv_seg >= 0)[:, None, None, :]
-
-    def fresh():
-        return Segments(seg.q_seg, seg.kv_seg, seg.q_pos, seg.kv_pos)
-
-    return {
-        "flash_fwd (BERT, segments, dropout 0.1, lse)": (
-            lambda: flash_attention_fwd(q, k, v, save_lse=True,
-                                        segments=fresh(), **kw),
-            lambda: flash_attention_fwd_plain(q, k, v, save_lse=True,
-                                              segments=seg, **kw),
-            sdpa_fwd(q, k, v, p=0.1, mask=key_mask),
-            3 * real * row + row + nbytes(lse), 4 * 64 * pairs),
-        "flash_bwd (BERT, segments, dropout 0.1)": (
-            lambda: flash_attention_bwd(q, k, v, o, dout, lse,
-                                        segments=plan, **kw),
-            lambda: flash_attention_bwd_plain(q, k, v, o, dout, lse,
-                                              segments=seg, **kw),
-            sdpa_bwd(q, k, v, dout, p=0.1, mask=key_mask),
-            5 * real * row + 3 * row + nbytes(lse), 10 * 64 * pairs),
-    }, lambda: segment_plan(fresh(), False)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2982,77 +2331,6 @@ def phase_blocksparse_train_check(batch):
               f"{float(causal[i]):.6f}, {sep:.3e} from the masked step")
     check(any(apart), "the blocksparse train check cannot tell the mask "
           "from causal attention")
-
-
-def bs_timing_specs():
-    """kernel_timing rows of K8a, K8b and K8c at BS_SHAPES (i) and (ii),
-    on dense_timing's inputs, and of dense K1 and K2 at shape (ii) (at
-    shape (i) they are the train step's rows). Library: SDPA with the
-    element mask as attn_mask, its forward, and its backward for (k, v)
-    and for q. Each K8 row also carries its live 64x64 tiles and their
-    products' operations (4d, 8d, 6d per pair of a whole tile): the bound
-    stays on visible pairs, and the rate on live tiles shows how far the
-    tile granularity sits from it."""
-    specs = {}
-    inputs = k8b_inputs(DEV)
-    for shape, suffix in (("(i) GPT-2 train", ""),
-                          ("(ii) config 4", " (config 4)")):
-        q, k, v, dout, layout, p = inputs[shape]
-        b, h, s, d = q.shape
-        kw = dict(softmax_scale=d ** -0.5, dropout_p=p,
-                  seed=SEED if p else None)
-        out, lse = blocksparse_attention_fwd(q, k, v, layout, **kw)
-        di = (out.float() * dout.float()).sum(-1)
-        mask = layout.visible(DEV)
-        pairs = int(mask.sum()) * b * h
-        tiles = int(layout.kv_counts.sum()) * b * h
-        tile_pairs = tiles * 64 * 64
-        lay = layout.on(DEV)
-        q_lists = nbytes(lay["q_indices"], lay["q_counts"], lay["q_full"],
-                         lay["rowmask"])
-        kv_lists = nbytes(lay["kv_indices"], lay["kv_counts"],
-                          lay["kv_full"], lay["rowmask"])
-        bwd = (q, k, v, dout, lse, di, layout)
-
-        def plain_bwd(a=bwd, kw=kw):
-            return blocksparse_attention_bwd_plain(*a, **kw)
-
-        specs["blocksparse_fwd" + suffix] = (
-            lambda a=(q, k, v, layout), kw=kw:
-                blocksparse_attention_fwd(*a, **kw),
-            lambda a=(q, k, v, layout), kw=kw:
-                blocksparse_attention_fwd_plain(*a, **kw),
-            sdpa_fwd(q, k, v, p=p, mask=mask),
-            nbytes(q, k, v, q, lse) + kv_lists, 4 * pairs * d,
-            (tiles, 4 * tile_pairs * d))
-        specs["blocksparse_dkv" + suffix] = (
-            lambda a=bwd, kw=kw: blocksparse_attention_dkv(*a, **kw),
-            plain_bwd,
-            sdpa_bwd(q, k, v, dout, p=p, mask=mask, wrt="kv"),
-            nbytes(q, k, v, dout, lse, di, k, v) + q_lists, 8 * pairs * d,
-            (tiles, 8 * tile_pairs * d))
-        specs["blocksparse_dq" + suffix] = (
-            lambda a=bwd, kw=kw: blocksparse_attention_dq(*a, **kw),
-            plain_bwd,
-            sdpa_bwd(q, k, v, dout, p=p, mask=mask, wrt="q"),
-            nbytes(q, k, v, dout, lse, di, q) + kv_lists, 6 * pairs * d,
-            (tiles, 6 * tile_pairs * d))
-    return specs
-
-
-def print_sparsity_pays(times):
-    """K8 against dense K1/K2 at the GPT-2 train step's shape (config 4's
-    dense rows are dense_timing.py's "config 4" rows)."""
-    def ms(name):
-        return times[name][0]
-
-    for label, suffix, fwd, bwd in (
-            ("(i) GPT-2 train, dropout 0.1", "",
-             "flash_fwd (train step, dropout 0.1, lse)", "flash_bwd"),):
-        k8_bwd = ms("blocksparse_dkv" + suffix) + ms("blocksparse_dq" + suffix)
-        print(f"sparsity at {label}: K8a {ms('blocksparse_fwd' + suffix):.4f}"
-              f" ms vs dense K1 {ms(fwd):.4f} ms; K8b + K8c {k8_bwd:.4f} ms "
-              f"vs dense K2 {ms(bwd):.4f} ms [{card_line()}]")
 
 
 # ---------------------------------------------------------------- M4
@@ -3539,111 +2817,6 @@ def phase_gpt2_stream(rng, n_req=8, prompt_len=500, new_tokens=64):
     return launches
 
 
-def window_timing(gen):
-    """The window rows (dense_timing.window_rows' shapes): each kernel with
-    Mistral's window, the same kernel without it on the same tensors, and
-    for K1 / K2 SDPA with the band as a boolean attn_mask built outside the
-    timed call (K5 and K6 have no one-call library equivalent); bounds over
-    the visible pairs and the keys the band holds. Returns {kernel:
-    record} for the kernels' JSON ``window`` entries."""
-    card = card_line()
-    (q, k, v, dout, o, lse), (qd, pages, lens, table), \
-        (qc, _, _, _, chunk) = window_inputs(DEV)
-    b, h, h_kv, s, d = MISTRAL_TRAIN
-    L = MISTRAL_WINDOW
-    kw = dict(causal=True, softmax_scale=d ** -0.5)
-    band = Band(L)
-    mask = build_mask(s, s, causal=True, window_left=L, device=DEV)
-    pairs = b * h * band_pairs(s, s, L)
-    kp, vp = pages.k_pages, pages.v_pages
-    n = lens.tolist()
-    keys5 = sum(min(x, L + 1) for x in n)
-    c = int(chunk[0])
-    keys6 = sum(x - max(0, x - c - L) for x in n)
-    pairs6 = sum(min(x - c + t, L) + 1 for x in n for t in range(c))
-    tables = nbytes(lens, table, chunk)
-    scale = d ** -0.5
-    terms = (L, 0, None, None)
-    # name: (kernel, the kernel without the window, plain twin or None (the
-    # dense twins' fp32 scores at this shape would not fit on the card),
-    # library call or None, bytes, operations, shape)
-    specs = {
-        "flash_fwd": (
-            lambda: flash_attention_fwd(q, k, v, save_lse=True, band=band,
-                                        **kw),
-            lambda: flash_attention_fwd(q, k, v, save_lse=True, **kw),
-            None, sdpa_fwd(q, k, v, mask=mask),
-            nbytes(q, k, v, o, lse), 4 * pairs * d,
-            f"Mistral train b{b} h{h}/{h_kv} s{s} d{d} causal, window {L}, "
-            "lse"),
-        "flash_bwd": (
-            lambda: flash_attention_bwd(q, k, v, o, dout, lse, band=band,
-                                        **kw),
-            lambda: flash_attention_bwd(q, k, v, o, dout, lse, **kw),
-            None, sdpa_bwd(q, k, v, dout, mask=mask),
-            nbytes(q, k, v, o, dout, lse) + nbytes(q, k, v), 10 * pairs * d,
-            f"Mistral train b{b} h{h}/{h_kv} s{s} d{d} causal, window {L}"),
-        "paged_decode": (
-            lambda: paged_decode_attention(qd, kp, vp, lens, table,
-                                           window_left=L),
-            lambda: paged_decode_attention(qd, kp, vp, lens, table),
-            lambda: paged_decode_attention_plain(
-                qd, kp, vp, lens, table, softmax_scale=scale, terms=terms),
-            None, 2 * nbytes(qd) + 2 * keys5 * h_kv * d * 2 + tables,
-            4 * keys5 * h * d,
-            f"Mistral decode b{len(n)} h{h}/{h_kv} d{d} page 128, contexts "
-            f"{n[0]}..{n[-1]}, window {L}"),
-        "paged_chunk": (
-            lambda: paged_chunk_attention(qc, kp, vp, lens, table,
-                                          chunk_lens=chunk, window_left=L),
-            lambda: paged_chunk_attention(qc, kp, vp, lens, table,
-                                          chunk_lens=chunk),
-            lambda: paged_chunk_attention_plain(
-                qc, kp, vp, lens, table, chunk_lens=chunk,
-                softmax_scale=scale, terms=terms),
-            None, 2 * nbytes(qc) + 2 * keys6 * h_kv * d * 2 + tables,
-            4 * pairs6 * h * d,
-            f"Mistral chunk b{len(n)} sq{c} h{h}/{h_kv} d{d} page 128, "
-            f"lengths {n[0]}..{n[-1]}, window {L}"),
-    }
-    records = {}
-    for name, (kern, full, plain, library, n_bytes, flops, shape) in \
-            specs.items():
-        t_row = time.perf_counter()
-        n = 3 if library is not None else 10  # K1/K2 calls take ms each
-        k1, u1, k2 = (busy_ms(kern, n=n), busy_ms(full, n=n),
-                      busy_ms(kern, n=n))
-        p1 = None if plain is None else busy_ms(plain, n=3)
-        lib_ms = backend = None
-        lib = "none"
-        if library is not None:
-            lib_ms, backend, each = sdpa_fastest(library, n=n)
-            lib = f"{lib_ms:.4f} ms ({backend}; " + ", ".join(
-                f"{bk} {'refused' if t is None else f'{t:.4f}'}"
-                for bk, t in each.items()) + ")"
-        b_ms, b_by = bound(n_bytes, flops)
-        records[name] = {"shape": shape, "ms": min(k1, k2),
-                         "unwindowed_ms": u1, "plain_ms": p1,
-                         "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": lib_ms,
-                         "library_backend": backend}
-        plain_txt = ("not measured" if p1 is None else f"{p1:.4f} ms")
-        print(f"{name} ({shape}): kernel {k1:.4f} / {k2:.4f} ms, without "
-              f"the window {u1:.4f} ms (ratio {min(k1, k2) / u1:.3f}), "
-              f"plain {plain_txt}, library {lib}, bound {b_ms:.4f} ms ({b_by}: "
-              f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP over the "
-              f"visible pairs) [{card}]; row timed in "
-              f"{time.perf_counter() - t_row:.1f} s")
-    print("window rows: library = SDPA with the band as a boolean attn_mask "
-          "(enable_gqa), the fastest backend that accepts it; bounds count "
-          "each input read once (K5/K6: the keys the band holds), each "
-          "output written once and the products over the visible pairs; "
-          "the unwindowed time is the same kernel on the same tensors")
-    del q, k, v, dout, o, lse, qd, qc, pages, kp, vp, mask
-    torch.cuda.empty_cache()
-    return records
-
-
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -3726,11 +2899,8 @@ def main():
     with phase_time("Llama training"):
         launches.update(phase_llama_train())
         torch.cuda.empty_cache()
-    with phase_time("kernel timing"):
-        times = kernel_timing(gen)
-        window = window_timing(gen)
     with phase_time("Llama chain kernels"):
-        chain = phase_chain_kernels(errs)
+        phase_chain_kernels(errs)
     with phase_time("Mistral serving"):
         launches.update(phase_mistral_serving(rng))
         torch.cuda.empty_cache()
@@ -3740,74 +2910,22 @@ def main():
     with phase_time("GPT-2 streaming decode"):
         launches["gpt2_stream"] = phase_gpt2_stream(rng)
 
+    # Each kernel's launches by path and largest error against its twin.
     # K7a and K7b run inside K5's and K6's launches on the paths: their
-    # launches by path are those appends (and the standalone kernels',
-    # 0 there); ms is the standalone kernel's, and the fused route's
-    # marginal cost is the kernel with the append less the kernel alone.
-    fused = {"append_token": ("K5", ("GPT-2 decode", "Llama decode"),
-                              "flash_attn_tpu_torch/csrc/paged_decode.cu"),
-             "append_span": ("K6", ("verify",),
-                             "flash_attn_tpu_torch/csrc/paged_chunk.cu")}
+    # launches by path are those appends, the standalone kernels' beside.
     kernels = []
     for name, (_, src, tpu) in KERNELS.items():
         by_path = {path: counts[name] for path, counts in launches.items()}
-        if name in CHAIN_KERNELS:  # timed at longdoc's chunk, no library
-            row = chain[name]["Mistral-7B chunk 8x512"]
-            kernels.append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": tpu, "launches": sum(by_path.values()),
-                "launches_by_path": by_path, "max_abs_err": errs[name],
-                "ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": None, "library_backend": None,
-                "model_shapes": chain[name]})
-            continue
-        ms, plain_ms, lib_ms, b_ms, b_by, backend = times[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library_backend": backend}
-        if name in fused:
-            kernel, shapes, into = fused[name]
-            entry.update({
-                "fused_into": into,
-                "standalone_launches_by_path": {
-                    path: counts[f"{name} standalone"]
-                    for path, counts in launches.items()},
-                "fused_ms": {shape: times[f"{kernel} with the append "
-                                          f"({shape})"][0]
-                             for shape in shapes},
-                "fused_marginal_ms": {
-                    shape: times[f"{kernel} with the append ({shape})"][0]
-                    - times[f"{kernel} alone ({shape})"][0]
-                    for shape in shapes}})
-        if name in ("flash_fwd", "flash_bwd"):  # K1/K2 at BERT's shape
-            seg_ms, seg_plain, seg_lib, seg_b, seg_by, seg_backend = times[
-                f"{name} (BERT, segments, dropout 0.1"
-                + (", lse)" if name == "flash_fwd" else ")")]
-            entry["segment_form"] = {
-                "shape": "b32 h12 s512 d64, BERT padding masks, dropout 0.1",
-                "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": seg_b,
-                "bound_by": seg_by, "library_ms": seg_lib,
-                "library_backend": seg_backend}
-            entry["model_shapes"] = {}
-            for shape, row in (
-                    ("vit_train: b64 h12 s196 d64 non-causal, dropout 0.1",
-                     "ViT-B/16, dropout 0.1" + (", lse" if name == "flash_fwd"
-                                                else "")),
-                    ("llama_train: b4 h32/8 s2048 d128 causal",
-                     "Llama train" + (", lse" if name == "flash_fwd"
-                                      else ""))):
-                ms_, plain_, lib_, b_, by_, backend_ = times[f"{name} ({row})"]
-                entry["model_shapes"][shape] = {
-                    "ms": ms_, "plain_ms": plain_, "bound_ms": b_,
-                    "bound_by": by_, "library_ms": lib_,
-                    "library_backend": backend_}
-        if name in window:  # the M4 branch at Mistral's shapes
-            entry["window"] = {**window[name],
-                               "max_abs_err": errs[f"window {name}"]}
+            "max_abs_err": errs[name]}
+        if name in ("append_token", "append_span"):
+            entry["standalone_launches_by_path"] = {
+                path: counts[f"{name} standalone"]
+                for path, counts in launches.items()}
+        if f"window {name}" in errs:  # the M4 branch at Mistral's shapes
+            entry["window_max_abs_err"] = errs[f"window {name}"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"phase total: {time.perf_counter() - t_start:.1f} s")

@@ -1,47 +1,67 @@
-"""Device time of a call on one CUDA card, and the redesigned kernels' rows.
+"""Device time of a call on one CUDA card, and every kernel row's time.
 
     python3 dense_timing.py [--repo DIR] [--rows PREFIX]
 
-As a module it holds how chip_smoke.py times a call: ``busy_ms``, the
+As a module it holds how the repo times work on the card: ``busy_ms``, the
 device busy time of one call in a profiler trace (the union of its kernel,
 memcpy and memset intervals, so the gaps the host leaves between launches
-do not count), and ``host_ms``, the host time to issue one call. On a card
-whose host issues a call more slowly than the shortest kernels run, CUDA
-events around back-to-back calls time the host, not the card.
+do not count); ``host_ms``, the host time to issue one call; ``trace_call``,
+one profiled call whose device events are all found; ``device_summary``, a
+trace's busy time, idle share and device time by kernel class; and the
+inputs chip_smoke.py checks at the same shapes (CHUNK_SHAPES, APPEND_SHAPES,
+CHAIN_MODELS, the BERT padding, the Mistral window). On a card whose host
+issues a call more slowly than the shortest kernels run, CUDA events around
+back-to-back calls time the host, not the card.
 
-As a script it times the flash_attn_tpu_torch package of the checkout at
-DIR (default: the one holding this file): K1 (flash_attention_fwd), K2
-(flash_attention_bwd), both also in segment form where the checkout has
-it (BERT's padding masks, and the same batch packed as one sequence), K7c (the paged page write, GPT-2's prompt and one
-layer of Llama-3-8B's chunk, the latter on four input sets in turn so that
-it cannot run from L2), K8a, K8b and K8c (blocksparse forward, dK/dV
-and dQ), and the cache appends at GPT-2's and Llama-3-8B's decode shapes
-and at verification (APPEND_SHAPES: K7a or K7b alone, K5 or K6 alone, the
-two-launch route with the copies its callers made, and, where the
-checkout has it, the attention kernel with the append in its launch) at
-the rows of PERF.md's table, each by busy_ms and host_ms; one
-GPT-2 admission of 8 prompts (9..700 tokens, bucket 768) through
-ServingEngine, traced for K1's and K7c's launches and device time, with the
-median host time of three untraced admissions, then 16 decode steps of it
-traced (decode_window: device busy ms, launches and wall ms per step, idle
-share, and the copy kernels between each layer's projection and K5); one
-chunked admission of 8 prompts at Llama-3-8B's widths cut to 4 layers,
-traced for K7c's launches and device time, then 4 of its decode steps
-traced the same way; and two traced GPT-2 train steps through blocksparse
-attention (full width, b=8, s=1024, the LocalGlobal(256) mask), for their
-device busy time and K8a-c's share of it; and the sliding-window rows
-("W ..."; where the checkout has the window): K1 and K2 at Mistral-7B's
-train step (b=2 h=32/8 s=8192 d=128, window 4096) and K5 and K6 at its
-decode and chunked-prefill shapes (MISTRAL_DECODE, MISTRAL_CHUNK), each
-with and without the window on the same tensors. To
-compare two commits by the same method, unpack the other one with `git
+As a script it is the one tool that times the kernels, those of the
+flash_attn_tpu_torch package of the checkout at DIR (default: the one
+holding this file): every row of PERF.md's kernel table and the rows beside
+them that isolate one cost. Each row is timed twice by busy_ms, with
+host_ms; where PERF.md's table has the column, also its plain twin (busy_ms
+over 3 calls: it launches hundreds of small kernels a call), the one
+library call that computes the same function (SDPA under each of its
+flash, cuDNN and efficient backends pinned in turn, the fastest reported;
+index_copy_ or index_put_ for the cache writes) and the bound (``bound``).
+The rows, by the prefix ``--rows`` selects them with (several: K5,K6):
+  K1, K2   flash_attention_fwd / _bwd at the serving bucket, GPT-2's train
+           step, config 4, the Llama-3-8B-width train step, ViT-B/16's
+           attention; in segment form at BERT's padding masks (beside the
+           same kernels with no mask, with every token real, and the tile
+           plan alone) and on the same batch packed as one sequence;
+  K5, K6   paged decode / chunk attention at GPT-2's and Llama-3-8B's decode
+           and chunk shapes and at verification, alone and with the append
+           in their launch;
+  K7a-c    the cache writes alone and the two-launch route of the appends;
+  K8       blocksparse forward, dK/dV and dQ (K8a-c) at BS_SHAPES (i), (ii);
+  W        the sliding-window rows: K1 and K2 at Mistral-7B's train step
+           (b2 h32/8 s8192 d128, window 4096), K5 and K6 at its decode and
+           chunked-prefill shapes, each with and without the window on the
+           same tensors;
+  chain    add_rmsnorm, qk_rope and swiglu at Mistral-7B's and
+           Qwen3-30B-A3B's chunk and decode shapes.
+Without ``--rows``, then: one GPT-2 admission of 8 prompts (9..700 tokens,
+bucket 768) through ServingEngine, traced for K1's and K7c's launches and
+device time, with the median host time of three untraced admissions, then
+16 decode steps of it traced (decode_window: device busy ms, launches and
+wall ms per step, idle share, and the copy kernels between each layer's
+projection and K5); one chunked admission of 8 prompts at Llama-3-8B's
+widths cut to 4 layers, traced for K7c's launches and device time, then 4
+of its decode steps traced the same way; and two traced GPT-2 train steps
+through blocksparse attention (full width, b=8, s=1024, the LocalGlobal(256)
+mask), for their device busy time and K8a-c's share of it. A row whose
+inputs fit in the 50 MB L2 would time L2, not the path: the K7c Llama chunk
+and the chain's chunk rows cycle through input sets (``rotating``).
+
+To compare two commits by the same method, unpack the other one with `git
 archive` into a git-ignored directory and run both in one session on the
-card (other, this, this, other). Needs a CUDA card; prints one JSON line.
+card (other, this, this, other), with ``--rows`` naming the rows at stake.
+Needs a CUDA card; prints a line per row and one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import itertools
 import json
@@ -56,6 +76,8 @@ import time
 import numpy as np
 import torch
 
+from portbench.harness.common import PEAK_BYTES, PEAK_FLOPS
+
 # Seconds of calls before busy_ms traces, to bring the card's clocks up
 # from idle.
 WARM_S = 0.2
@@ -69,6 +91,7 @@ TRACE_TRIES = 3
 # fits in the card's 50 MB L2: four sets of one Llama chunk layer's write
 # (34 MB each: k, v and the cache) make every call miss L2.
 ROTATE = 4
+L2_BYTES = 50 * 2**20  # H100 SXM
 # Layers of the Llama-3-8B admission the script traces: K7c's launches and
 # time grow with the depth, so a cut depth shows the change at 1/8 the
 # cost of building the full model.
@@ -77,6 +100,23 @@ LLAMA_LAYERS = 4
 LAUNCHES = ("Launch", "Memset", "Memcpy")
 # Trace event categories of work on the card.
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# (class, substrings of the kernel name), first match: device_summary's
+# classes. portbench/harness/common.py has its own table for the
+# benchmark's breakdown (with the split merge, without the dropout RNG).
+KERNEL_CLASSES = [
+    ("blocksparse (K8)", ("bs_fwd", "bs_dkv", "bs_dq", "bs_stats")),
+    ("flash_bwd (K2)", ("flash_bwd", "bwd_stats", "bwd_dq")),
+    ("flash_fwd (K1)", ("flash_fwd",)),
+    ("paged_decode (K5)", ("paged_decode",)),
+    ("paged_chunk (K6)", ("paged_chunk",)),
+    ("cache writes (K7)", ("append_token", "append_span", "write_pages")),
+    ("GEMM", ("gemm", "cutlass", "nvjet", "xmma", "sm90_")),
+    ("optimizer", ("multi_tensor", "adam")),
+    ("loss", ("cross_entropy", "softmax", "nll")),
+    ("layer_norm", ("layer_norm",)),
+    ("dropout RNG", ("philox", "distribution", "uniform")),
+    ("copies", ("memcpy", "memset", "copy")),
+]
 
 
 def _repeat(fn, seconds):
@@ -155,6 +195,28 @@ def union_us(dev) -> float:
     return busy
 
 
+def device_summary(wall, events):
+    """GPU span, busy time (the union of the trace's kernel, memcpy and
+    memset intervals), idle share and device time by KERNEL_CLASSES."""
+    dev = device_events(events)
+    busy = union_us(dev)
+    span = (max(e["ts"] + e["dur"] for e in dev)
+            - min(e["ts"] for e in dev))
+    by_class = {}
+    for e in dev:
+        name = (e.get("cat", "") + " " + e.get("name", "")).lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in name for k in keys)), "elementwise/other")
+        by_class[cls] = by_class.get(cls, 0.0) + e["dur"]
+    total = sum(by_class.values())
+    shares = ", ".join(f"{c} {t / total * 100:.1f}%" for c, t in sorted(
+        by_class.items(), key=lambda kv: -kv[1]))
+    return (f"wall {wall:.2f} ms (traced), GPU span {span / 1e3:.2f} ms, "
+            f"device busy {busy / 1e3:.2f} ms, idle "
+            f"{(1 - busy / span) * 100:.1f}% of the span; {len(dev)} device "
+            f"events; device time by class: {shares}")
+
+
 def busy_ms(fn, n=10, warm_s=WARM_S) -> float:
     """Device busy time of one call of ``fn`` in ms: the union of the
     kernel, memcpy and memset intervals of ``n`` calls, over n, after
@@ -181,38 +243,148 @@ def host_ms(fn, n=20, warmup=3) -> float:
     return dt / n * 1e3
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it: each
+    input read once and each output written once at the HBM rate, or the
+    tensor-core products at the bf16 peak (PEAK_BYTES, PEAK_FLOPS)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@dataclasses.dataclass
+class Row:
+    """A timed row: the kernel's ``call``, and where PERF.md's table has
+    them its plain twin, its library call (a call returning (ms, what it
+    ran): ``sdpa`` or ``torch_call``), and the bytes and tensor-core
+    operations of its bound."""
+    call: object
+    plain: object = None
+    library: object = None
+    n_bytes: float = 0
+    flops: float = 0
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa(q, k, v, dout=None, p=0.0, mask=None, causal=True, wrt="qkv"):
+    """A row's library call through scaled_dot_product_attention on (b, h,
+    s, d) operands, causal or under the boolean ``mask``: the forward, or
+    with ``dout`` the gradients ``wrt`` of a graph built under the pinned
+    backend. Returns a call that times it by busy_ms under each backend of
+    SDPA_BACKENDS in turn and returns (the fastest accepting backend's ms,
+    what ran: that backend and every backend's time or refusal)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
+    kw.update(dropout_p=p, enable_gqa=k.shape[1] != q.shape[1])
+    attend = torch.nn.functional.scaled_dot_product_attention
+
+    def make():
+        if dout is None:
+            return lambda: attend(q, k, v, **kw)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = attend(*leaves, **kw)
+        wanted = [leaves["qkv".index(c)] for c in wrt]
+        return lambda: torch.autograd.grad(out, wanted, dout,
+                                           retain_graph=True)
+
+    def timed():
+        times = {}
+        for name in SDPA_BACKENDS:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                try:
+                    fn = make()
+                    fn()
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    times[name] = None
+                    continue
+                times[name] = busy_ms(fn)
+        ok = {k: t for k, t in times.items() if t is not None}
+        if not ok:
+            raise RuntimeError("no SDPA backend accepts the library call")
+        best = min(ok, key=ok.get)
+        return ok[best], f"SDPA {best}; " + ", ".join(
+            f"{k} {'refused' if t is None else f'{t:.4f}'}"
+            for k, t in times.items())
+    return timed
+
+
+def torch_call(label, fn):
+    """A library call that is plain PyTorch, not SDPA."""
+    return lambda: (busy_ms(fn), label)
+
+
+def band_pairs(sq: int, sk: int, left: int) -> int:
+    """Visible (query, key) pairs of causal attention with a left window:
+    row i sees keys [max(0, i - left), min(i, sk - 1)]."""
+    i = np.arange(sq)
+    return int((np.minimum(i, sk - 1) - np.maximum(0, i - left) + 1).clip(
+        min=0).sum())
+
+
 def bf16_randn(gen, *shape):
     return torch.randn(shape, generator=gen, device=gen.device).to(
         torch.bfloat16)
 
 
-def dense_rows(fwd, bwd, dev):
-    """{row: call} for K1 and K2 at PERF.md's rows, on contiguous bf16
-    (b, h, s, d) inputs from torch.Generator seed 0."""
+def dense_rows(dev):
+    """{row: Row} for K1 and K2 on contiguous bf16 (b, h, s, d) inputs from
+    torch.Generator seed 0: the serving bucket (no lse); then each of
+    GPT-2's train step, config 4, the Llama-3-8B-width train step and
+    ViT-B/16's attention with lse, and K1 there without its dropout too.
+    Bound: q, k, v (and o, dout) read, the outputs written once; 4 d
+    operations a visible pair forward, 10 d backward."""
+    from flash_attn_tpu_torch.kernels.flash_bwd import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+    from flash_attn_tpu_torch.kernels.flash_fwd import (
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+    fwd, bwd = flash_attention_fwd, flash_attention_bwd
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = functools.partial(bf16_randn, gen)
     rows = {}
-    q, k, v = (randn(8, 12, 768, 64) for _ in range(3))
-    rows["K1 serving bucket b8 h12 s768 d64"] = lambda: fwd(
-        q, k, v, causal=True, softmax_scale=0.125, save_lse=False)
-    for label, (b, h, h_kv, s, d), p in (
-            ("train b8 h12 s1024 d64", (8, 12, 12, 1024, 64), 0.1),
-            ("config 4 b1 h8 s8192 d64", (1, 8, 8, 8192, 64), 0.0),
-            ("Llama-3-8B widths b2 h32/8 s2048 d128", (2, 32, 8, 2048, 128),
-             0.0)):
+    a = tuple(randn(8, 12, 768, 64) for _ in range(3))
+    kw = dict(causal=True, softmax_scale=0.125, save_lse=False)
+    rows["K1 serving bucket b8 h12 s768 d64"] = Row(
+        functools.partial(fwd, *a, **kw),
+        functools.partial(flash_attention_fwd_plain, *a, **kw), sdpa(*a),
+        nbytes(*a, a[0]), 4 * 8 * 12 * band_pairs(768, 768, 768) * 64)
+    for label, (b, h, h_kv, s, d), p, causal in (
+            ("train b8 h12 s1024 d64", (8, 12, 12, 1024, 64), 0.1, True),
+            ("config 4 b1 h8 s8192 d64", (1, 8, 8, 8192, 64), 0.0, True),
+            ("Llama train b4 h32/8 s2048 d128", (4, 32, 8, 2048, 128), 0.0,
+             True),
+            ("ViT-B/16 b64 h12 s196 d64 non-causal", (64, 12, 12, 196, 64),
+             0.1, False)):
         qt, dt = randn(b, h, s, d), randn(b, h, s, d)
         kt, vt = randn(b, h_kv, s, d), randn(b, h_kv, s, d)
-        kw = dict(causal=True, softmax_scale=d ** -0.5, dropout_p=p,
+        kw = dict(causal=causal, softmax_scale=d ** -0.5, dropout_p=p,
                   seed=1234 if p else None)
         ot, lt = fwd(qt, kt, vt, save_lse=True, **kw)
-        rows[f"K1 {label}, dropout {p}, lse"] = (
-            lambda a=(qt, kt, vt), kw=kw: fwd(*a, save_lse=True, **kw))
+        pairs = b * h * (band_pairs(s, s, s) if causal else s * s)
+        a, g = (qt, kt, vt), (qt, kt, vt, ot, dt, lt)
+        rows[f"K1 {label}, dropout {p}, lse"] = Row(
+            lambda a=a, kw=kw: fwd(*a, save_lse=True, **kw),
+            lambda a=a, kw=kw: flash_attention_fwd_plain(*a, save_lse=True,
+                                                         **kw),
+            sdpa(*a, p=p, causal=causal), nbytes(*a, qt, lt), 4 * pairs * d)
         if p:
-            rows[f"K1 {label}, dropout 0, lse"] = (
-                lambda a=(qt, kt, vt), d=d: fwd(
-                    *a, causal=True, softmax_scale=d ** -0.5, save_lse=True))
-        rows[f"K2 {label}, dropout {p}"] = (
-            lambda a=(qt, kt, vt, ot, dt, lt), kw=kw: bwd(*a, **kw))
+            rows[f"K1 {label}, dropout 0, lse"] = Row(
+                lambda a=a, kw=dict(kw, dropout_p=0.0, seed=None):
+                    fwd(*a, save_lse=True, **kw))
+        rows[f"K2 {label}, dropout {p}"] = Row(
+            lambda g=g, kw=kw: bwd(*g, **kw),
+            lambda g=g, kw=kw: flash_attention_bwd_plain(*g, **kw),
+            sdpa(*a, dout=dt, p=p, causal=causal), nbytes(*g, *a),
+            10 * pairs * d)
     return rows
 
 
@@ -223,14 +395,6 @@ MISTRAL_TRAIN = (2, 32, 8, 8192, 128)
 MISTRAL_WINDOW = 4096
 MISTRAL_DECODE = [int(x) for x in np.linspace(1000, 7000, 8)]
 MISTRAL_CHUNK = 512
-
-
-def band_pairs(sq: int, sk: int, left: int) -> int:
-    """Visible (query, key) pairs of causal attention with a left window:
-    row i sees keys [max(0, i - left), min(i, sk - 1)]."""
-    i = np.arange(sq)
-    return int((np.minimum(i, sk - 1) - np.maximum(0, i - left) + 1).clip(
-        min=0).sum())
 
 
 def window_inputs(dev):
@@ -269,41 +433,75 @@ def window_inputs(dev):
 
 
 def window_rows(dev):
-    """{row: call} for the window rows ("W ..."), each kernel with the
-    window and without it on the same tensors; empty where the checkout
-    has no window."""
+    """{row: Row} for the window rows ("W ..."), each kernel with the
+    window and without it on the same tensors. With the window: K1 and K2
+    beside SDPA with the band as a boolean attn_mask (their dense twins'
+    fp32 scores would not fit on the card), K5 and K6 beside their twins
+    (no one-call library equivalent); bounds over the visible pairs and
+    the keys the band holds."""
     from flash_attn_tpu_torch.kernels import common
-    if not hasattr(common, "Band"):
-        return {}
-    from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
-    from flash_attn_tpu_torch.kernels.decode import paged_decode_attention
+    from flash_attn_tpu_torch.kernels.chunk import (
+        paged_chunk_attention,
+        paged_chunk_attention_plain,
+    )
+    from flash_attn_tpu_torch.kernels.decode import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
     from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
     from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
+    from flash_attn_tpu_torch.reference import build_mask
     (q, k, v, dout, o, lse), dec, chk = window_inputs(dev)
     b, h, h_kv, s, d = MISTRAL_TRAIN
+    L = MISTRAL_WINDOW
     train = f"Mistral train b{b} h{h}/{h_kv} s{s} d{d}"
     kw = dict(causal=True, softmax_scale=d ** -0.5)
-    rows = {}
-    for label, band in ((f"window {MISTRAL_WINDOW}",
-                         common.Band(MISTRAL_WINDOW)),
-                        ("no window", common.NO_BAND)):
-        rows[f"W K1 {train}, {label}, lse"] = functools.partial(
-            flash_attention_fwd, q, k, v, save_lse=True, band=band, **kw)
-        rows[f"W K2 {train}, {label}"] = functools.partial(
-            flash_attention_bwd, q, k, v, o, dout, lse, band=band, **kw)
+    mask = build_mask(s, s, causal=True, window_left=L, device=dev)
+    pairs = b * h * band_pairs(s, s, L)
     qd, pages, lens, table = dec
     qc, _, _, _, chunk = chk
-    shape = f"b{len(MISTRAL_DECODE)} h{h}/{h_kv} d{d} contexts " \
-        f"{MISTRAL_DECODE[0]}..{MISTRAL_DECODE[-1]}"
-    for label, window in ((f"window {MISTRAL_WINDOW}", MISTRAL_WINDOW),
-                          ("no window", None)):
-        rows[f"W K5 Mistral decode {shape}, {label}"] = functools.partial(
-            paged_decode_attention, qd, pages.k_pages, pages.v_pages, lens,
-            table, window_left=window)
-        rows[f"W K6 Mistral chunk sq{MISTRAL_CHUNK} {shape}, {label}"] = (
-            functools.partial(paged_chunk_attention, qc, pages.k_pages,
-                              pages.v_pages, lens, table, chunk_lens=chunk,
-                              window_left=window))
+    kp, vp = pages.k_pages, pages.v_pages
+    n, c = lens.tolist(), MISTRAL_CHUNK
+    keys5 = sum(min(x, L + 1) for x in n)
+    keys6 = sum(x - max(0, x - c - L) for x in n)
+    pairs6 = sum(min(x - c + t, L) + 1 for x in n for t in range(c))
+    tables = nbytes(lens, table, chunk)
+    plain = dict(softmax_scale=d ** -0.5, terms=(L, 0, None, None))
+    shape = f"b{len(n)} h{h}/{h_kv} d{d} contexts {n[0]}..{n[-1]}"
+    rows = {}
+    for label, band, window in (
+            (f"window {L}", common.Band(L), L),
+            ("no window", common.NO_BAND, None)):
+        rows[f"W K1 {train}, {label}, lse"] = Row(functools.partial(
+            flash_attention_fwd, q, k, v, save_lse=True, band=band, **kw))
+        rows[f"W K2 {train}, {label}"] = Row(functools.partial(
+            flash_attention_bwd, q, k, v, o, dout, lse, band=band, **kw))
+        rows[f"W K5 Mistral decode {shape}, {label}"] = Row(
+            functools.partial(paged_decode_attention, qd, kp, vp, lens,
+                              table, window_left=window))
+        rows[f"W K6 Mistral chunk sq{c} {shape}, {label}"] = Row(
+            functools.partial(paged_chunk_attention, qc, kp, vp, lens, table,
+                              chunk_lens=chunk, window_left=window))
+    for name, extra in {
+            f"W K1 {train}, window {L}, lse": dict(
+                library=sdpa(q, k, v, mask=mask),
+                n_bytes=nbytes(q, k, v, o, lse), flops=4 * pairs * d),
+            f"W K2 {train}, window {L}": dict(
+                library=sdpa(q, k, v, dout=dout, mask=mask),
+                n_bytes=nbytes(q, k, v, o, dout, lse, q, k, v),
+                flops=10 * pairs * d),
+            f"W K5 Mistral decode {shape}, window {L}": dict(
+                plain=functools.partial(paged_decode_attention_plain, qd, kp,
+                                        vp, lens, table, **plain),
+                n_bytes=2 * nbytes(qd) + 4 * keys5 * h_kv * d + tables,
+                flops=4 * keys5 * h * d),
+            f"W K6 Mistral chunk sq{c} {shape}, window {L}": dict(
+                plain=functools.partial(paged_chunk_attention_plain, qc, kp,
+                                        vp, lens, table, chunk_lens=chunk,
+                                        **plain),
+                n_bytes=2 * nbytes(qc) + 4 * keys6 * h_kv * d + tables,
+                flops=4 * pairs6 * h * d)}.items():
+        rows[name] = dataclasses.replace(rows[name], **extra)
     return rows
 
 
@@ -326,19 +524,32 @@ def bert_padding(dev, b=32, s=512, seed=0):
     return seg, seg, pos, pos
 
 
-def segment_rows(fwd, bwd, dev, b=32, s=512):
-    """{row: call} for K1 and K2 in segment form, where the checkout has it:
-    at BERT's attention shape (b32 h12 s512 d64, bert_padding, dropout 0.1,
-    lse; K1's calls make their tile plan, K2's reuse one) beside the same
-    kernels with no mask and in segment form with every token real (the
-    plan lists every tile, all full: the segment form's own cost), and on
-    the same batch packed as one super-sequence (b1, the 32 sequences back
-    to back: the cu_seqlens interface's layout), bf16 from
-    torch.Generator seed 0."""
-    import inspect
-    if "segments" not in inspect.signature(fwd).parameters:
-        return {}
-    from flash_attn_tpu_torch.kernels.common import Segments
+def segment_rows(dev, b=32, s=512):
+    """{row: Row} for K1 and K2 in segment form: at BERT's attention shape
+    (b32 h12 s512 d64, bert_padding, dropout 0.1, lse; K1's calls make
+    their tile plan, K2's reuse one) beside their twins and SDPA with the
+    key-padding mask (b, 1, 1, s) as attn_mask, the same kernels with no
+    mask, in segment form with every token real (the plan lists every
+    tile, all full: the segment form's own cost) and the tile plan alone;
+    and on the same batch packed as one super-sequence (b1, the 32
+    sequences back to back: the cu_seqlens interface's layout); bf16 from
+    torch.Generator seed 0. Bound: the real rows of q, k, v (and o, dout)
+    read, the outputs written whole, the products over the visible pairs
+    (4 d operations a pair forward, 10 d backward)."""
+    from flash_attn_tpu_torch.kernels.common import (
+        Segments,
+        segment_mask,
+        segment_plan,
+    )
+    from flash_attn_tpu_torch.kernels.flash_bwd import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+    from flash_attn_tpu_torch.kernels.flash_fwd import (
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+    fwd, bwd = flash_attention_fwd, flash_attention_bwd
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = functools.partial(bf16_randn, gen)
     kw = dict(causal=False, softmax_scale=0.125, dropout_p=0.1, seed=1234)
@@ -359,23 +570,42 @@ def segment_rows(fwd, bwd, dev, b=32, s=512):
                               packed)):
         plan = Segments(*seg)
         o, lse = fwd(*args[:3], save_lse=True, segments=plan, **kw)
-        rows[f"K1 {label}, segments"] = (
+        grads = (*args[:3], o, args[3], lse)
+        rows[f"K1 {label}, segments"] = Row(
             lambda a=args, seg=seg: fwd(*a[:3], save_lse=True,
                                         segments=Segments(*seg), **kw))
-        rows[f"K2 {label}, segments"] = (
-            lambda a=args, o=o, lse=lse, plan=plan: bwd(
-                *a[:3], o, a[3], lse, segments=plan, **kw))
-        if "padding" in label:
-            real = (torch.zeros_like(seg[0]),) * 2 + seg[2:]
-            rows[f"K1 {label}, segments, all tokens real"] = (
-                lambda a=args, seg=real: fwd(*a[:3], save_lse=True,
-                                             segments=Segments(*seg), **kw))
-            od, lsed = fwd(*args[:3], save_lse=True, **kw)
-            rows[f"K1 {label}, no mask"] = (
-                lambda a=args: fwd(*a[:3], save_lse=True, **kw))
-            rows[f"K2 {label}, no mask"] = (
-                lambda a=args, o=od, lse=lsed: bwd(*a[:3], o, a[3], lse,
-                                                   **kw))
+        rows[f"K2 {label}, segments"] = Row(
+            lambda g=grads, plan=plan: bwd(*g, segments=plan, **kw))
+        if "packed" in label:
+            continue
+        pairs = int(segment_mask(plan, False).sum()) * 12
+        real = n / (b * s)
+        row = nbytes(q)  # one (b, h, s, d) bf16 operand
+        key_mask = (seg[1] >= 0)[:, None, None, :]
+        rows[f"K1 {label}, segments"] = dataclasses.replace(
+            rows[f"K1 {label}, segments"],
+            plain=lambda: flash_attention_fwd_plain(
+                q, k, v, save_lse=True, segments=Segments(*ids), **kw),
+            library=sdpa(q, k, v, p=0.1, mask=key_mask),
+            n_bytes=3 * real * row + row + nbytes(lse), flops=4 * 64 * pairs)
+        rows[f"K2 {label}, segments"] = dataclasses.replace(
+            rows[f"K2 {label}, segments"],
+            plain=lambda g=grads: flash_attention_bwd_plain(
+                *g, segments=Segments(*ids), **kw),
+            library=sdpa(q, k, v, dout=do, p=0.1, mask=key_mask),
+            n_bytes=5 * real * row + 3 * row + nbytes(lse),
+            flops=10 * 64 * pairs)
+        real_ids = (torch.zeros_like(seg[0]),) * 2 + seg[2:]
+        rows[f"K1 {label}, segments, all tokens real"] = Row(
+            lambda: fwd(q, k, v, save_lse=True,
+                        segments=Segments(*real_ids), **kw))
+        rows[f"K1 {label}, its tile plan alone"] = Row(
+            lambda: segment_plan(Segments(*ids), False))
+        od, lsed = fwd(q, k, v, save_lse=True, **kw)
+        rows[f"K1 {label}, no mask"] = Row(
+            lambda: fwd(q, k, v, save_lse=True, **kw))
+        rows[f"K2 {label}, no mask"] = Row(
+            lambda: bwd(q, k, v, od, do, lsed, **kw))
     return rows
 
 
@@ -405,30 +635,78 @@ def k7c_inputs(dev):
     return gpt2, llama
 
 
-# name: (lengths after the step's append, chunk rows or None for decode,
-# sq, h, h_kv, d, pages_max): chip_smoke.py's DECODE_SHAPES "GPT-2 decode"
-# and "Llama decode" and CHUNK_SHAPES "verify", on 128-token pages.
+def copy_pages(c, k, v, table):
+    """write_pages' library call: index_copy_ along the page axis of row
+    r's pages (zero-tailed) of k, v (b, n, h, d) to table[r], K then V,
+    from sources put in the cache's layout here, outside the timed call."""
+    ps = c.k_pages.shape[2]
+    b, n_pages = table.shape
+    ids = table.reshape(-1).long()
+    src = []
+    for x in (k, v):
+        xp = x.new_zeros((b, n_pages * ps, *x.shape[2:]))
+        xp[:, : x.shape[1]] = x
+        src.append(xp.reshape(b * n_pages, ps, *x.shape[2:])
+                   .permute(2, 0, 1, 3).contiguous())
+    return lambda: (c.k_pages.index_copy_(1, ids, src[0]),
+                    c.v_pages.index_copy_(1, ids, src[1]))
+
+
+def put_rows(c, table, lens, new, k, v):
+    """The appends' library call: index_put_ of the new rows k, v (b, sq,
+    h, d) that the append stores (sequence i's first new[i], at positions
+    lens[i] on within its table; none where lens[i] < 0), K then V, the
+    indices made here. Returns (the call, the rows it stores)."""
+    ps = c.k_pages.shape[2]
+    t = torch.arange(k.shape[1], device=k.device)
+    pos = lens.long()[:, None] + t
+    live = (lens[:, None] >= 0) & (t < new[:, None]) \
+        & (pos // ps < table.shape[1])
+    b_idx, t_idx = live.nonzero(as_tuple=True)
+    p = pos[b_idx, t_idx]
+    idx = (torch.arange(k.shape[2], device=k.device)[:, None],
+           table[b_idx, p // ps].long(), p % ps)
+    kt, vt = (x[b_idx, t_idx].transpose(0, 1).contiguous() for x in (k, v))
+    return (lambda: (c.k_pages.index_put_(idx, kt),
+                     c.v_pages.index_put_(idx, vt)), len(p))
+
+
+# name: (lengths after the step, new rows per sequence, sq, h, h_kv, d,
+# pages_max) on 128-token pages: an engine chunk of GPT-2 (rows in their
+# first to fourth chunk, short rows, a padding row) and of Llama-3-8B (GQA
+# 32/8, head_dim 128), and speculative verification ([last, d1..d4]).
+CHUNK_SHAPES = {
+    "GPT-2 chunk": ([9, 200, 256, 300, 512, 777, 1000, 600],
+                    [9, 200, 256, 44, 256, 9, 232, 0], 256, 12, 12, 64, 8),
+    "Llama chunk": ([300, 512, 1024, 1500, 2048, 3000, 4000, 700],
+                    [300, 512, 512, 476, 512, 440, 416, 188], 512, 32, 8,
+                    128, 32),
+    "verify": ([5, 6, 130, 500, 505, 1000, 17, 0],
+               [5, 5, 5, 5, 5, 3, 5, 0], 5, 12, 12, 64, 8),
+}
+# The same for the appends' rows: chip_smoke.py's DECODE_SHAPES "GPT-2
+# decode" and "Llama decode" (new rows None: one each) and verification.
 APPEND_SHAPES = {
     "GPT-2 decode": ([1, 127, 128, 129, 400, 777, 1000, 0], None, 1, 12, 12,
                      64, 8),
     "Llama decode": ([300, 831, 1362, 1894, 2425, 2957, 3488, 4020], None, 1,
                      32, 8, 128, 32),
-    "verify": ([5, 6, 130, 500, 505, 1000, 17, 0], [5, 5, 5, 5, 5, 3, 5, 0],
-               5, 12, 12, 64, 8),
+    "verify": CHUNK_SHAPES["verify"],
 }
 
 
-def append_inputs(dev, shape):
-    """APPEND_SHAPES[shape] in bf16 from torch.Generator seed 0: the cache
-    (each sequence on its own pages in random order, page 0 never used),
-    the page table, the lengths after the append and before it
-    (``cache_lens``; a length 0 is an inactive slot, -1), the new rows'
-    count (decode: None), and q, k, v as the serving path hands them over:
-    views of GPT-2's fused projection where h == h_kv, else Llama's
-    separate contiguous projections; (b, h, d) at decode, (b, sq, h, d) at
-    verification."""
+def paged_inputs(dev, shape):
+    """APPEND_SHAPES[shape] or CHUNK_SHAPES[shape] in bf16 from
+    torch.Generator seed 0: the cache (each sequence on its own pages in
+    random order, page 0 never used), the page table, the lengths after the
+    step and before it (``cache_lens``; a length 0 is an inactive slot,
+    -1), the new rows' count (decode: None), and q, k, v as the serving
+    path hands them over: views of GPT-2's fused projection where h ==
+    h_kv, else Llama's separate contiguous projections; (b, h, d) at
+    decode, (b, sq, h, d) otherwise."""
     from flash_attn_tpu_torch.serving import cache
-    lengths, chunk, sq, h, h_kv, d, pages_max = APPEND_SHAPES[shape]
+    lengths, chunk, sq, h, h_kv, d, pages_max = {**CHUNK_SHAPES,
+                                                 **APPEND_SHAPES}[shape]
     gen = torch.Generator(device=dev).manual_seed(0)
     ps, b = 128, len(lengths)
     need = [-(-n // ps) for n in lengths]
@@ -454,53 +732,122 @@ def append_inputs(dev, shape):
     return pages, table, lens, lens - new, new, q, k, v
 
 
-def append_rows(dev):
-    """{row: call} for the cache appends at APPEND_SHAPES: K7a or K7b
-    alone (on contiguous rows, which every checkout takes), K5 or K6 alone,
-    the two-launch route as the serving path ran it before the append moved
-    into the attention launch (the callers' .contiguous() copies, the
-    append, the attention kernel), and that attention launch with the
-    append, where the checkout has it."""
+def decode_work(q, kp, lens, table):
+    """Bytes and tensor-core operations paged decode needs: the cached K and
+    V of each active sequence read once, q read and out written for each
+    active sequence (an inactive one's output is 0 by definition), the
+    int32 tables; QK^T and PV over every cached key for each query head."""
+    h, d = q.shape[1:]
+    live, active = int(lens.clamp(min=0).sum()), int((lens > 0).sum())
+    elem = q.element_size()
+    return (2 * live * kp.shape[0] * d * elem + 2 * active * h * d * elem
+            + nbytes(lens, table), 4 * live * h * d)
+
+
+def chunk_work(shape, elem=2):
+    """Bytes and tensor-core operations paged chunk attention needs on
+    CHUNK_SHAPES[shape]: q read for each live row (a padding row's output
+    is 0 by definition), out written for every row, the cached K and V of
+    each sequence with a live row read once, the int32 tables; QK^T and PV
+    over each live row's visible keys."""
+    lengths, chunk_lens, sq, h, h_kv, d, pages_max = CHUNK_SHAPES[shape]
+    keys = sum(n for n, c in zip(lengths, chunk_lens) if c > 0)
+    pairs = sum(n - c + t + 1 for n, c in zip(lengths, chunk_lens)
+                for t in range(c))
+    rows = sum(chunk_lens) + len(lengths) * sq  # q read, out written
+    n_bytes = (rows * h * d + 2 * keys * h_kv * d) * elem \
+        + 4 * len(lengths) * (2 + pages_max)
+    return n_bytes, 4 * pairs * h * d
+
+
+def paged_rows(dev):
+    """{row: Row} for the paged kernels: K6 alone at the GPT-2 and Llama
+    chunk shapes; and at APPEND_SHAPES K7a or K7b alone (on contiguous
+    rows, beside index_put_), K5 or K6 alone, the two-launch route as the
+    serving path ran it before the append moved into the attention launch
+    (the callers' .contiguous() copies, the append, the attention kernel),
+    and that attention launch with the append (its plain side: the twins
+    of the two-launch route; its bound adds each new row's read and
+    write)."""
     from flash_attn_tpu_torch.kernels import chunk as k6
     from flash_attn_tpu_torch.kernels import decode as k5
     from flash_attn_tpu_torch.serving import cache
-    fused_k5 = getattr(k5, "paged_decode_with_append", None)
-    fused_k6 = "cache_seqlens" in k6.paged_chunk_attention.__code__.co_varnames
     rows = {}
-    for shape in APPEND_SHAPES:
-        c, table, lens, before, new, q, k, v = append_inputs(dev, shape)
+    for shape in {**CHUNK_SHAPES, **APPEND_SHAPES}:
+        c, table, lens, before, new, q, k, v = paged_inputs(dev, shape)
         kc, vc = k.contiguous(), v.contiguous()
         pages = (c.k_pages, c.v_pages)
+        h_kv, d = k.shape[-2:]
+        scale = d ** -0.5
         if new is None:
-            rows[f"K7a alone, {shape}"] = functools.partial(
-                cache.append_token, c, kc, vc, table, before)
-            rows[f"K5 alone, {shape}"] = functools.partial(
-                k5.paged_decode_attention, q, *pages, lens, table)
-            rows[f"K7a + K5 (two launches, copies), {shape}"] = (
+            work = decode_work(q, c.k_pages, lens, table)
+            put, n_put = put_rows(c, table, before, torch.ones_like(lens),
+                                  kc[:, None], vc[:, None])
+            rows[f"K7a alone, {shape}"] = Row(
+                functools.partial(cache.append_token, c, kc, vc, table,
+                                  before),
+                functools.partial(cache.append_token_plain, c, kc, vc, table,
+                                  before),
+                torch_call("index_put_ of token rows, K and V", put),
+                4 * n_put * h_kv * d * 2 + nbytes(table, before))
+            rows[f"K5 alone, {shape}"] = Row(
+                functools.partial(k5.paged_decode_attention, q, *pages, lens,
+                                  table),
+                functools.partial(k5.paged_decode_attention_plain, q, *pages,
+                                  lens, table, softmax_scale=scale),
+                None, *work)
+            rows[f"K7a + K5 (two launches, copies), {shape}"] = Row(
                 lambda c=c, a=(q, k, v, table, lens, before): (
                     cache.append_token(c, a[1].contiguous(),
                                        a[2].contiguous(), a[3], a[5]),
                     k5.paged_decode_attention(a[0], c.k_pages, c.v_pages,
                                               a[4], a[3])))
-            if fused_k5 is not None:
-                rows[f"K5 with the append, {shape}"] = functools.partial(
-                    fused_k5, q, k, v, *pages, before, table)
+            rows[f"K5 with the append, {shape}"] = Row(
+                functools.partial(k5.paged_decode_with_append, q, k, v,
+                                  *pages, before, table),
+                lambda c=c, a=(q, k, v, table, before), s=scale: (
+                    cache.append_token_plain(c, *a[1:]),
+                    k5.paged_decode_attention_plain(
+                        a[0], c.k_pages, c.v_pages,
+                        (a[4].clamp(min=0) + 1).int(), a[3],
+                        softmax_scale=s)),
+                None, work[0] + 4 * len(lens) * h_kv * d * 2, work[1])
             continue
-        rows[f"K7b alone, {shape}"] = functools.partial(
-            cache.append_span, c, kc, vc, table, before, new)
-        rows[f"K6 alone, {shape}"] = functools.partial(
-            k6.paged_chunk_attention, q, *pages, lens, table, chunk_lens=new)
-        rows[f"K7b + K6 (two launches, copies), {shape}"] = (
+        work = chunk_work(shape)
+        rows[f"K6 alone, {shape}"] = Row(
+            functools.partial(k6.paged_chunk_attention, q, *pages, lens,
+                              table, chunk_lens=new),
+            functools.partial(k6.paged_chunk_attention_plain, q, *pages,
+                              lens, table, chunk_lens=new,
+                              softmax_scale=scale),
+            None, *work)
+        if shape not in APPEND_SHAPES:
+            continue
+        put, n_put = put_rows(c, table, before, new, kc, vc)
+        rows[f"K7b alone, {shape}"] = Row(
+            functools.partial(cache.append_span, c, kc, vc, table, before,
+                              new),
+            functools.partial(cache.append_span_plain, c, kc, vc, table,
+                              before, new),
+            torch_call("index_put_ of token rows, K and V", put),
+            4 * n_put * h_kv * d * 2 + nbytes(table, before, new))
+        rows[f"K7b + K6 (two launches, copies), {shape}"] = Row(
             lambda c=c, a=(q, k, v, table, lens, before, new): (
                 cache.append_span(c, a[1].contiguous(), a[2].contiguous(),
                                   a[3], a[5], a[6]),
                 k6.paged_chunk_attention(a[0].contiguous(), c.k_pages,
                                          c.v_pages, a[4], a[3],
                                          chunk_lens=a[6])))
-        if fused_k6:
-            rows[f"K6 with the append, {shape}"] = functools.partial(
-                k6.paged_chunk_attention, q, *pages, lens, table,
-                chunk_lens=new, new_k=k, new_v=v, cache_seqlens=before)
+        rows[f"K6 with the append, {shape}"] = Row(
+            functools.partial(k6.paged_chunk_attention, q, *pages, lens,
+                              table, chunk_lens=new, new_k=k, new_v=v,
+                              cache_seqlens=before),
+            lambda c=c, a=(q, k, v, table, before, new, lens), s=scale: (
+                cache.append_span_plain(c, *a[1:6]),
+                k6.paged_chunk_attention_plain(
+                    a[0], c.k_pages, c.v_pages, a[6], a[3], chunk_lens=a[5],
+                    softmax_scale=s)),
+            None, work[0] + 4 * n_put * h_kv * d * 2, work[1])
     return rows
 
 
@@ -532,44 +879,162 @@ def k8b_inputs(dev):
 
 
 def k7c_k8_rows(dev):
-    """{row: call} for K7c (the paged page write) on k7c_inputs, and for
-    K8a, K8b and K8c (blocksparse forward, dK/dV and dQ) on k8b_inputs. The
-    Llama chunk row writes the 8 rows of one layer's chunk as the
-    checkout's chunked prefill does (one batched launch, or one
-    write_prompt per row where the checkout has no batched write), on the
-    next of its ROTATE input sets each call."""
+    """{row: Row} for K7c (the paged page write) on k7c_inputs beside
+    index_copy_, and for K8a, K8b and K8c (blocksparse forward, dK/dV and
+    dQ) on k8b_inputs beside SDPA with the element mask as attn_mask (its
+    forward, its backward for k, v and for q; K8b's and K8c's plain side
+    is the whole plain backward), bound by operations over the visible
+    pairs (4 d forward, 8 d dK/dV, 6 d dQ). The Llama chunk row writes the
+    8 rows of one layer's chunk in one launch, on the next of its ROTATE
+    input sets each call."""
     from flash_attn_tpu_torch.kernels.blocksparse import (
+        blocksparse_attention_bwd_plain,
         blocksparse_attention_dkv,
         blocksparse_attention_dq,
         blocksparse_attention_fwd,
+        blocksparse_attention_fwd_plain,
     )
     from flash_attn_tpu_torch.serving import cache
     gpt2, llama = k7c_inputs(dev)
-    rows = {"K7c GPT-2 prompt, 768 tokens into 6 pages, h12 d64":
-            functools.partial(cache.write_prompt, *gpt2)}
-
-    def per_row(pages, k, v, tbl):
-        for r in range(k.shape[0]):
-            cache.write_prompt(pages, k[r], v[r], tbl[r])
-    write = getattr(cache, "_write_prompts", per_row)
+    pages, k, v, ids = gpt2
+    copy = "index_copy_ of pages, K and V"
+    rows = {"K7c GPT-2 prompt, 768 tokens into 6 pages, h12 d64": Row(
+        functools.partial(cache.write_prompt, *gpt2),
+        functools.partial(cache.write_prompt_plain, *gpt2),
+        torch_call(copy, copy_pages(pages, k[None], v[None], ids[None])),
+        2 * nbytes(k, v) + nbytes(ids))}
     rows[f"K7c Llama chunk, 8 rows x 512 tokens, h_kv8 d128, one layer, "
-         f"{ROTATE} input sets in turn"] = rotating(
-        [functools.partial(write, *inputs) for inputs in llama])
+         f"{ROTATE} input sets in turn"] = Row(
+        rotating([functools.partial(cache._write_prompts, *x)
+                  for x in llama]),
+        rotating([functools.partial(cache._write_prompts_plain, *x)
+                  for x in llama]),
+        torch_call(copy, rotating([copy_pages(*x) for x in llama])),
+        2 * nbytes(*llama[0][1:3]) + nbytes(llama[0][3]))
     for shape, (q, k, v, dout, layout, p) in k8b_inputs(dev).items():
         b, h, s, d = q.shape
         kw = dict(softmax_scale=d ** -0.5, dropout_p=p,
                   seed=1234 if p else None)
         out, lse = blocksparse_attention_fwd(q, k, v, layout, **kw)
         di = (out.float() * dout.float()).sum(-1)
-        label = f"{shape} b{b} h{h} s{s} d{d}, dropout {p}"
-        rows[f"K8a {label}"] = (
-            lambda a=(q, k, v, layout), kw=kw:
-                blocksparse_attention_fwd(*a, **kw))
+        mask = layout.visible(dev)
+        pairs = int(mask.sum()) * b * h
+        lay = layout.on(dev)
+        q_lists = nbytes(lay["q_indices"], lay["q_counts"], lay["q_full"],
+                         lay["rowmask"])
+        kv_lists = nbytes(lay["kv_indices"], lay["kv_counts"],
+                          lay["kv_full"], lay["rowmask"])
         bwd = (q, k, v, dout, lse, di, layout)
-        rows[f"K8b {label}"] = (
-            lambda a=bwd, kw=kw: blocksparse_attention_dkv(*a, **kw))
-        rows[f"K8c {label}"] = (
-            lambda a=bwd, kw=kw: blocksparse_attention_dq(*a, **kw))
+        label = f"{shape} b{b} h{h} s{s} d{d}, dropout {p}"
+        plain_bwd = functools.partial(blocksparse_attention_bwd_plain, *bwd,
+                                      **kw)
+        rows[f"K8a {label}"] = Row(
+            functools.partial(blocksparse_attention_fwd, q, k, v, layout,
+                              **kw),
+            functools.partial(blocksparse_attention_fwd_plain, q, k, v,
+                              layout, **kw),
+            sdpa(q, k, v, p=p, mask=mask), nbytes(q, k, v, q, lse) + kv_lists,
+            4 * pairs * d)
+        rows[f"K8b {label}"] = Row(
+            functools.partial(blocksparse_attention_dkv, *bwd, **kw),
+            plain_bwd, sdpa(q, k, v, dout=dout, p=p, mask=mask, wrt="kv"),
+            nbytes(q, k, v, dout, lse, di, k, v) + q_lists, 8 * pairs * d)
+        rows[f"K8c {label}"] = Row(
+            functools.partial(blocksparse_attention_dq, *bwd, **kw),
+            plain_bwd, sdpa(q, k, v, dout=dout, p=p, mask=mask, wrt="q"),
+            nbytes(q, k, v, dout, lse, di, q) + kv_lists, 6 * pairs * d)
+    return rows
+
+
+# The serving chain's kernels (kernels/llama_chain.py) at the widths of the
+# two served models: Mistral-7B (longdoc's chunk of 8 x 512 tokens and its
+# 64-row decode step) and Qwen3-30B-A3B (a 512-token chunk and turns'
+# 32-row decode step: QK-norm, and SwiGLU on the halves of the routed
+# experts' fused product, top-8 slots a token).
+CHAIN_MODELS = {
+    # model: (n_embd, n_head, n_kv_head, head_dim, rope_theta, rms_norm_eps,
+    #         MLP width, experts per token (None: dense), {shape: (b, s)})
+    "Mistral-7B": (4096, 32, 8, 128, 1e4, 1e-5, 14336, None,
+                   {"chunk 8x512": (8, 512), "decode 64": (64, 1)}),
+    "Qwen3-30B-A3B": (2048, 32, 4, 128, 1e6, 1e-6, 768, 8,
+                      {"chunk 1x512": (1, 512), "decode 32": (32, 1)}),
+}
+CHAIN_KERNELS = ("add_rmsnorm", "qk_rope", "swiglu")
+
+
+def chain_inputs(dev, model, b, s, seed):
+    """One layer's chain operands of CHAIN_MODELS[model] for b x s tokens,
+    bf16 from torch.Generator seed ``seed``: the residual and the pending
+    sublayer output (b s, n_embd) with the norm weight, q (b, s, n_head,
+    hd) and k (b, s, n_kv_head, hd) as views of one projection with
+    positions to 7000 (with QK-norm weights where the model has them), and
+    gate and up: two (b s, width) products, or for routed experts the
+    halves gu[:, :I] and gu[:, I:] of one (b s top_k, 2 I) product."""
+    from flash_attn_tpu_torch.kernels.llama_chain import rope_inv_freq
+    e, h, h_kv, hd, theta, eps, width, top_k, _ = CHAIN_MODELS[model]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = b * s
+    qkv = bf16_randn(g, b, s, h + 2 * h_kv, hd)
+    pos = (torch.randint(0, 7000 - s + 1, (b, 1), generator=g, device=dev)
+           + torch.arange(s, device=dev))
+
+    def weight(n):
+        return (0.5 + torch.rand(n, generator=g, device=dev)).to(
+            torch.bfloat16)
+
+    if top_k is None:
+        gate, up = bf16_randn(g, rows, width), bf16_randn(g, rows, width)
+    else:
+        gu = bf16_randn(g, rows * top_k, 2 * width)
+        gate, up = gu[:, :width], gu[:, width:]
+    return {"x": bf16_randn(g, rows, e), "d": bf16_randn(g, rows, e),
+            "w": weight(e), "eps": eps,
+            "q": qkv[:, :, :h], "k": qkv[:, :, h:h + h_kv], "pos": pos,
+            "inv_freq": rope_inv_freq(hd, theta, dev),
+            "norms": ((None, None) if top_k is None
+                      else (weight(hd), weight(hd))),
+            "gate": gate, "up": up}
+
+
+def chain_calls(a, plain=False):
+    """{kernel: (call, bytes it must move)} on chain_inputs ``a``."""
+    from flash_attn_tpu_torch.kernels import llama_chain as m
+    norm = m.add_rmsnorm_plain if plain else m.add_rmsnorm
+    rope = m.qk_rope_plain if plain else m.qk_rope
+    glu = m.swiglu_plain if plain else m.swiglu
+    norms = [w for w in a["norms"] if w is not None]
+    return {
+        "add_rmsnorm": (lambda: norm(a["x"], a["d"], a["w"], a["eps"]),
+                        4 * nbytes(a["x"]) + nbytes(a["w"])),
+        "qk_rope": (lambda: rope(a["q"], a["k"], a["pos"], a["inv_freq"],
+                                 *a["norms"], eps=a["eps"]),
+                    2 * (a["q"].numel() + a["k"].numel()) * 2
+                    + nbytes(a["pos"], a["inv_freq"], *norms)),
+        "swiglu": (lambda: glu(a["gate"], a["up"]),
+                   3 * nbytes(a["gate"])),
+    }
+
+
+def chain_rows(dev):
+    """{row: Row} for the chain's kernels at every shape of CHAIN_MODELS,
+    beside their twins, bound by bytes: a chunk's calls cycle through
+    enough input sets that each kernel's operands over the sets are twice
+    the L2, so that no call runs from it."""
+    rows = {}
+    for model, (*_, shapes) in CHAIN_MODELS.items():
+        for shape, (b, s) in shapes.items():
+            a = chain_inputs(dev, model, b, s, 0)
+            least = min(n for _, n in chain_calls(a).values())
+            n_sets = max(ROTATE, -(-2 * L2_BYTES // least)) if s > 1 else 1
+            sets = [a] + [chain_inputs(dev, model, b, s, 1 + i)
+                          for i in range(n_sets - 1)]
+            kernel = [chain_calls(x) for x in sets]
+            plain = [chain_calls(x, plain=True) for x in sets]
+            for name in CHAIN_KERNELS:
+                rows[f"chain {name} {model} {shape}, {n_sets} input sets"] = \
+                    Row(rotating([c[name][0] for c in kernel]),
+                        rotating([c[name][0] for c in plain]), None,
+                        kernel[0][name][1])
     return rows
 
 
@@ -782,6 +1247,30 @@ def llama_admission(dev):
             "decode": decode_window(held["engine"], 4)}
 
 
+def time_row(name, row, warm_s):
+    """busy_ms twice and host_ms of ``row``'s call, and where it has them
+    its plain twin, its library call and its bound; prints and returns the
+    record."""
+    rec = {"busy_ms": [busy_ms(row.call, warm_s=warm_s),
+                       busy_ms(row.call, warm_s=warm_s)],
+           "host_ms": host_ms(row.call)}
+    line = (f"{name}: device busy {rec['busy_ms'][0]:.4f} / "
+            f"{rec['busy_ms'][1]:.4f} ms, host {rec['host_ms']:.4f} ms per "
+            "call")
+    if row.plain is not None:
+        rec["plain_ms"] = busy_ms(row.plain, n=3, warm_s=warm_s)
+        line += f"; plain {rec['plain_ms']:.4f} ms"
+    if row.library is not None:
+        rec["library_ms"], rec["library"] = row.library()
+        line += f"; library {rec['library_ms']:.4f} ms ({rec['library']})"
+    if row.n_bytes or row.flops:
+        rec["bound_ms"], rec["bound_by"] = bound(row.n_bytes, row.flops)
+        line += (f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                 f"{row.n_bytes / 1e6:.1f} MB, {row.flops / 1e9:.2f} GFLOP)")
+    print(line, flush=True)
+    return rec
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--repo", default=os.path.dirname(
@@ -799,8 +1288,6 @@ def main():
         sys.exit("dense_timing.py needs a CUDA card")
     sys.path.insert(0, repo)
     import flash_attn_tpu_torch as pkg
-    from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
-    from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
     if os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))) != repo:
         sys.exit(f"imported {pkg.__file__}, not the package under {repo}")
     dev = torch.device("cuda")
@@ -808,21 +1295,17 @@ def main():
     from flash_attn_tpu_torch.kernels import _build
     _build.lib()
     build_s = time.perf_counter() - t0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
     rows = {}
-    for name, fn in {**dense_rows(flash_attention_fwd, flash_attention_bwd,
-                                  dev),
-                      **segment_rows(flash_attention_fwd, flash_attention_bwd,
-                                     dev),
-                      **k7c_k8_rows(dev), **append_rows(dev),
-                      **window_rows(dev)}.items():
-        if not name.startswith(tuple(args.rows.split(","))):
-            continue
-        rows[name] = {"busy_ms": [busy_ms(fn, warm_s=warm_s),
-                                  busy_ms(fn, warm_s=warm_s)],
-                      "host_ms": host_ms(fn)}
-        print(f"{name}: device busy {rows[name]['busy_ms'][0]:.4f} / "
-              f"{rows[name]['busy_ms'][1]:.4f} ms, host "
-              f"{rows[name]['host_ms']:.4f} ms per call", flush=True)
+    for make_rows in (dense_rows, segment_rows, paged_rows, k7c_k8_rows,
+                    window_rows, chain_rows):
+        for name, row in make_rows(dev).items():
+            if name.startswith(tuple(args.rows.split(","))):
+                rows[name] = time_row(name, row, warm_s)
+        torch.cuda.empty_cache()
     admission = llama = bs_steps = None
     if not args.rows:
         admission = serve_admission(dev)
@@ -832,9 +1315,6 @@ def main():
               f"admission of 8: {llama}")
         bs_steps = bs_train_step(dev)
         print(f"GPT-2 blocksparse train step, traced: {bs_steps}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"repo": repo, "card": card, "warm_s": warm_s,
                       "build_s": build_s,
                       "rows": rows, "admission": admission,

@@ -13,6 +13,12 @@ spills (``-Xptxas -v``); the report is kept beside the library
 Each C entry point returns ``cudaGetLastError()`` after its launch, or a
 CUDA error code for arguments it refuses; ``check`` raises on any nonzero
 code.
+
+Each wrapper counts its launches in an attribute of its own
+(``flash_attention_fwd.launches``), registered in ``COUNTERS`` by
+``counter`` where the wrapper is defined, so that whatever replays a
+captured call (``models/llama_decode.py``'s CUDA graphs) can grow every
+counter by the call's launches without naming a kernel.
 """
 
 from __future__ import annotations
@@ -211,6 +217,16 @@ def lib() -> ctypes.CDLL:
         loaded.fattn_error_string.restype = ctypes.c_char_p
         _lib = loaded
     return _lib
+
+
+# (wrapper, attribute) of every launch counter, in registration order.
+COUNTERS: list[tuple[object, str]] = []
+
+
+def counter(fn, attr: str = "launches") -> None:
+    """Sets ``fn.<attr>`` to 0 and registers it in COUNTERS."""
+    setattr(fn, attr, 0)
+    COUNTERS.append((fn, attr))
 
 
 def check(code: int, name: str) -> None:

@@ -428,7 +428,7 @@ def blocksparse_attention_fwd(q, k, v, layout: BlockSparseLayout,
     return out, lse
 
 
-blocksparse_attention_fwd.launches = 0
+_build.counter(blocksparse_attention_fwd)
 
 
 def blocksparse_attention_dkv(q, k, v, dout, lse, di,
@@ -467,7 +467,7 @@ def blocksparse_attention_dkv(q, k, v, dout, lse, di,
     return dk, dv
 
 
-blocksparse_attention_dkv.launches = 0
+_build.counter(blocksparse_attention_dkv)
 
 
 def blocksparse_attention_dq(q, k, v, dout, lse, di,
@@ -503,7 +503,7 @@ def blocksparse_attention_dq(q, k, v, dout, lse, di,
     return dq
 
 
-blocksparse_attention_dq.launches = 0
+_build.counter(blocksparse_attention_dq)
 
 
 def blocksparse_attention_bwd(q, k, v, out, dout, lse,

@@ -214,8 +214,9 @@ def paged_chunk_attention(q, k_pages, v_pages, lengths, page_table,
     return out
 
 
-paged_chunk_attention.launches = 0  # every launch
-paged_chunk_attention.append_launches = 0  # those that appended first
+_build.counter(paged_chunk_attention)  # every launch
+# those that appended first
+_build.counter(paged_chunk_attention, "append_launches")
 
 
 def paged_chunk_attention_plain(q, k_pages, v_pages, lengths, page_table, *,

@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from flash_attn_tpu_torch.kernels import _build
+
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _UNPORTED = {
@@ -623,8 +625,6 @@ def segment_plan(seg: Segments, causal: bool,
     """The card's tile plan for ``seg`` under ``band``'s window (one launch
     of csrc/segments.cu), stored in ``seg.plan`` and returned. CUDA tensors
     only."""
-    from flash_attn_tpu_torch.kernels import _build
-
     b, sq = seg.q_seg.shape
     sk = seg.kv_seg.shape[1]
     _build.require_cuda("segment_plan", seg.q_seg, seg.kv_seg, seg.q_pos,
@@ -642,4 +642,4 @@ def segment_plan(seg: Segments, causal: bool,
     return plan
 
 
-segment_plan.launches = 0
+_build.counter(segment_plan)

@@ -89,7 +89,7 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_table, *,
     return out
 
 
-paged_decode_attention.launches = 0
+_build.counter(paged_decode_attention)
 
 
 def paged_decode_with_append(q, new_k, new_v, k_pages, v_pages,
@@ -142,7 +142,7 @@ def paged_decode_with_append(q, new_k, new_v, k_pages, v_pages,
     return out
 
 
-paged_decode_with_append.launches = 0
+_build.counter(paged_decode_with_append)
 
 
 def _check_shapes(name, q, k_pages, v_pages):

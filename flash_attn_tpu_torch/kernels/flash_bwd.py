@@ -104,7 +104,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+_build.counter(flash_attention_bwd)
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool,

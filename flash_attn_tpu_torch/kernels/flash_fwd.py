@@ -162,7 +162,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool, softmax_scale: float,
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+_build.counter(flash_attention_fwd)
 
 
 def compute_dtype(x: torch.Tensor) -> torch.dtype:

@@ -152,7 +152,7 @@ def add_rmsnorm(x, d, weight, eps: float):
     return (x if res is None else res), out
 
 
-add_rmsnorm.launches = 0
+_build.counter(add_rmsnorm)
 
 
 def qk_rope(q, k, positions, inv_freq, q_norm=None, k_norm=None,
@@ -199,7 +199,7 @@ def qk_rope(q, k, positions, inv_freq, q_norm=None, k_norm=None,
     return q, k
 
 
-qk_rope.launches = 0
+_build.counter(qk_rope)
 
 
 def swiglu(gate, up):
@@ -224,4 +224,4 @@ def swiglu(gate, up):
     return out
 
 
-swiglu.launches = 0
+_build.counter(swiglu)

@@ -63,11 +63,8 @@ are written in place, and ``caches`` comes back as given. Every kernel
 on the path sizes its launch from shapes (the lengths stay on the card)
 and launches on the current stream without synchronizing, so a replay
 runs the same kernels on the same operands as the eager body: the
-logits and the pages match it bit for bit (card tests). The launch
-counters (``paged_decode_with_append.launches``,
-``paged_chunk_attention.launches`` / ``.append_launches``,
-``_write_prompts.launches``, the experts' ``grouped_mm.launches``, the
-chain's ``add_rmsnorm`` / ``qk_rope`` / ``swiglu.launches``) grow on a
+logits and the pages match it bit for bit (card tests). Every launch
+counter registered in ``kernels/_build.py``'s ``COUNTERS`` grows on a
 replay by what the eager body adds, and the capture adds nothing to
 them.
 
@@ -88,19 +85,14 @@ from typing import Sequence
 import torch
 
 from flash_attn_tpu_torch import tracing
+from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.chunk import paged_chunk_attention
 from flash_attn_tpu_torch.kernels.decode import paged_decode_with_append
-from flash_attn_tpu_torch.kernels.llama_chain import (
-    add_rmsnorm,
-    qk_rope,
-    swiglu,
-)
 from flash_attn_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
     window_size,
 )
-from flash_attn_tpu_torch.models.moe import grouped_mm
 from flash_attn_tpu_torch.ops.attention import flash_attention
 from flash_attn_tpu_torch.serving.cache import (
     PagedKVCache,
@@ -213,20 +205,9 @@ def _decode_body(model, cfg, caches, page_table, lengths, token_ids):
 
 # ------------------------------------------------------------ CUDA graphs
 
-# The launch counters of the kernels the phases run (chip_smoke.py's
-# launch tables read them).
-_COUNTERS = ((paged_decode_with_append, "launches"),
-             (paged_chunk_attention, "launches"),
-             (paged_chunk_attention, "append_launches"),
-             (_write_prompts, "launches"),
-             (grouped_mm, "launches"),
-             (add_rmsnorm, "launches"),
-             (qk_rope, "launches"),
-             (swiglu, "launches"))
-
-
 def _counts() -> list[int]:
-    return [getattr(f, name) for f, name in _COUNTERS]
+    """Every registered launch counter's value (``_build.COUNTERS``)."""
+    return [getattr(f, name) for f, name in _build.COUNTERS]
 
 
 class _Graph:
@@ -243,7 +224,7 @@ class _Graph:
         for static, a in zip(self.inputs, args):
             static.copy_(a)
         self.graph.replay()
-        for (f, name), n in zip(_COUNTERS, self.grown):
+        for (f, name), n in zip(_build.COUNTERS, self.grown):
             setattr(f, name, getattr(f, name) + n)
         return self.out
 
@@ -290,7 +271,7 @@ class _Graphs:
         with torch.cuda.graph(graph, pool=self.pool):
             out = body(model, cfg, caches, *inputs)
         grown = [a - b for a, b in zip(_counts(), before)]
-        for (f, name), n in zip(_COUNTERS, before):
+        for (f, name), n in zip(_build.COUNTERS, before):
             setattr(f, name, n)  # the capture launched nothing
         return _Graph(graph, inputs, out, grown), logits
 

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.llama_chain import swiglu, swiglu_plain
 
 
@@ -87,7 +88,7 @@ def grouped_mm_plain(x, w, ends):
     return out
 
 
-grouped_mm.launches = 0
+_build.counter(grouped_mm)
 
 
 def moe_experts(h, router_w, gate_up, down, k: int, norm_topk_prob: bool,

@@ -114,7 +114,7 @@ def append_token(cache: PagedKVCache, new_k, new_v, page_table, lengths
     return cache
 
 
-append_token.launches = 0
+_build.counter(append_token)
 
 
 def append_token_plain(cache: PagedKVCache, new_k, new_v, page_table,
@@ -178,7 +178,7 @@ def append_span(cache: PagedKVCache, new_k, new_v, page_table, lengths,
     return cache
 
 
-append_span.launches = 0
+_build.counter(append_span)
 
 
 def append_span_plain(cache: PagedKVCache, new_k, new_v, page_table,
@@ -249,7 +249,7 @@ def _write_prompts(cache: PagedKVCache, k, v, page_table) -> PagedKVCache:
     return cache
 
 
-_write_prompts.launches = 0
+_build.counter(_write_prompts)
 
 
 def _write_prompts_plain(cache: PagedKVCache, k, v, page_table

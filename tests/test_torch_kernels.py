@@ -69,7 +69,7 @@ from flash_attn_tpu_torch.kernels.decode import (
     paged_decode_attention_plain,
     paged_decode_with_append,
 )
-from flash_attn_tpu_torch.kernels import llama_chain
+from flash_attn_tpu_torch.kernels import _build, llama_chain
 from flash_attn_tpu_torch.kernels.flash_bwd import (
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -2013,8 +2013,8 @@ CHAIN = (llama_chain.add_rmsnorm, llama_chain.qk_rope, llama_chain.swiglu)
 
 def _chain_grew(grew):
     """The growth of the chain kernels' counters, of a growth of all
-    ``llama_decode._COUNTERS``."""
-    return [n for (f, _), n in zip(llama_decode._COUNTERS, grew)
+    ``_build.COUNTERS``."""
+    return [n for (f, _), n in zip(_build.COUNTERS, grew)
             if f in CHAIN]
 
 
@@ -2233,7 +2233,7 @@ def test_qwen3_moe_graphs_match_the_eager_body(cuda, phase, rows):
             assert torch.equal(g.v_pages[:, 1:], e.v_pages[:, 1:]), seed
         grew = [b - a for a, b in zip(c0, c1)]
         assert grew == [b - a for a, b in zip(c1, c2)], seed
-        at = llama_decode._COUNTERS.index((grouped_mm, "launches"))
+        at = _build.COUNTERS.index((grouped_mm, "launches"))
         assert grew[at] == 2 * cfg.n_layer  # two grouped GEMMs a layer
         assert _chain_grew(grew) == _chain_launches(cfg), seed
 

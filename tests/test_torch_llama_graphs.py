@@ -2,13 +2,19 @@
 (``models/llama_decode.py``), on the CPU: CPU inputs take the eager body
 and leave no graph state; the signature tells shapes, dtypes, ``cfg`` and
 cache storage apart; a replay copies its inputs, grows the launch
-counters by its capture's amounts and returns the static output. The
+counters by its capture's amounts and returns the static output; every
+launch counter in the package is registered, so a replay grows it. The
 graphs themselves run on the card (``tests/test_torch_kernels.py``)."""
+
+import importlib
+import pkgutil
 
 import numpy as np
 import pytest
 import torch
 
+import flash_attn_tpu_torch
+from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.models import llama_decode
 from flash_attn_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from flash_attn_tpu_torch.serving import cache as torch_cache
@@ -173,7 +179,7 @@ def test_replay_copies_inputs_and_grows_the_counters(monkeypatch):
             seen.append([t.clone() for t in inputs])
 
     before = llama_decode._counts()
-    grown = [2 + i % 3 for i in range(len(llama_decode._COUNTERS))]
+    grown = [2 + i % 3 for i in range(len(_build.COUNTERS))]
     g = llama_decode._Graph(Stub(), inputs, out, grown)
     try:
         args = (int32([1, 2, 3]), torch.ones(2, 2))
@@ -184,8 +190,27 @@ def test_replay_copies_inputs_and_grows_the_counters(monkeypatch):
         assert llama_decode._counts() == [b + 2 * n
                                           for b, n in zip(before, grown)]
     finally:
-        for (f, name), n in zip(llama_decode._COUNTERS, before):
+        for (f, name), n in zip(_build.COUNTERS, before):
             setattr(f, name, n)
+
+
+def test_every_launch_counter_is_registered():
+    """Every function in the package with a ``launches`` or
+    ``append_launches`` attribute has it in ``_build.COUNTERS``, which a
+    replay grows: a kernel wrapper cannot be left out of replays."""
+    found = set()
+    for info in pkgutil.walk_packages(flash_attn_tpu_torch.__path__,
+                                      "flash_attn_tpu_torch."):
+        module = importlib.import_module(info.name)
+        for fn in vars(module).values():
+            if callable(fn):
+                found.update((fn, attr)
+                             for attr in ("launches", "append_launches")
+                             if hasattr(fn, attr))
+    registered = set(_build.COUNTERS)
+    assert len(found) >= 17
+    assert found <= registered, sorted(
+        f"{fn.__qualname__}.{attr}" for fn, attr in found - registered)
 
 
 def test_weight_addresses_see_moved_and_new_parameters():
